@@ -23,15 +23,32 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    the live service) and at one large shape (the top-k there at k = 11
    and k = 100, one round and four), with kernel, plain and library
    times from CUDA events and the bound (bytes over 3.35 TB/s or operations
-   over 67 TFLOP/s, the H100 SXM's published peaks).
+   over 67 TFLOP/s, the H100 SXM's published peaks);
+5. the offline path: the port's quick github table
+   (``repro_torch.launch.tables``, seed 0: DeepWalk, the 13-core (Dw) row on
+   the ``torch`` propagation backend, CoreWalk) at dim 150, batch 8192, with
+   every count set to 0 before each row and read after it. Per row: no NaN,
+   ``n_walks_run`` and ``n_sgns_steps`` equal to the JAX package's (CPU run,
+   recorded in ``PERF.md``), F1 within 3 points of the JAX package's, one
+   forward and one backward SGNS launch per step, and in the k-core row ELL
+   mean launches and a torch propagation within 1e-4 of the scipy one;
+6. the SGNS kernels against their plain versions at the training shape
+   (B=8192 K=5 D=150 fp32, 1e-5) and one large shape (B=65536 K=5 D=256
+   bf16, 2e-2), timed on inputs rotated through more than twice the L2;
+7. where a training step's time goes: ``torch.profiler`` over 100 SGNS
+   steps on the CoreWalk corpus at the table's settings, device time by
+   kernel and the device's busy share of the window (reported, not held to
+   a limit).
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
-it, one JSON object with a record per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+it, one JSON object with a record per kernel (``launches`` summed over the
+serving and the offline path, each path's count beside it); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,6 +61,19 @@ TOL_ELL = 1e-5
 TOL_TOPK = 1e-5
 TIE = 1e-6
 STREAM_FRAC = 0.15  # the launcher's default: 42,303 streamed edges
+TOL_SGNS = {"float32": 1e-5, "bfloat16": 2e-2}
+L2_BYTES = 50e6  # H100 L2 cache
+# The JAX package's quick github table on the CPU, seed 0
+# (``benchmarks.table_github.run(quick=True)``; PERF.md): F1 (a quality
+# figure), walks and SGNS steps. Walks and steps depend only on the split
+# and the cores, so they must match exactly; F1 within F1_BAND points, the
+# walks and samples being another generator's.
+JAX_GITHUB_QUICK = {
+    "DeepWalk": (80.5409, 565500, 2070),
+    "13-core (Dw)": (55.7147, 89940, 329),
+    "CoreWalk": (72.5893, 124018, 454),
+}
+F1_BAND = 3.0
 
 SOURCES = {
     "ell_mean": ("src/repro_torch/csrc/ellmean.cu",
@@ -52,7 +82,12 @@ SOURCES = {
                 "src/repro/kernels/hindex.py:88"),
     "top_k": ("src/repro_torch/csrc/topk.cu",
               "src/repro/kernels/topk.py:117"),
+    "sgns_fwd": ("src/repro_torch/csrc/sgns.cu",
+                 "src/repro/kernels/sgns.py:66"),
+    "sgns_bwd": ("src/repro_torch/csrc/sgns.cu",
+                 "src/repro/kernels/sgns.py:86"),
 }
+SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
 
 
 def log(msg: str) -> None:
@@ -66,6 +101,22 @@ class SmokeFailure(RuntimeError):
 def expect(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+class Counters:
+    """The wrappers' launch counts by kernel name: ``reset`` sets every one
+    to 0, ``read`` returns them."""
+
+    def __init__(self, table):
+        self.table = table  # name -> (module, attribute)
+
+    def reset(self) -> None:
+        for mod, attr in self.table.values():
+            setattr(mod, attr, 0)
+
+    def read(self) -> dict:
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.table.items()}
 
 
 def nvidia_smi() -> str:
@@ -293,8 +344,8 @@ def large_shapes(torch, ops, ref, F):
 # ------------------------------------------------------------ serving ----
 
 
-def serve_phase(torch, np, kernels):
-    """The port's main path on the card; returns (service, launch counts)."""
+def serve_phase(torch, np, counters):
+    """The serving path on the card; returns (service, launch counts)."""
     from repro_torch.graph import datasets
     from repro_torch.launch.serve_embed import build_service
 
@@ -303,8 +354,7 @@ def serve_phase(torch, np, kernels):
     log(f"github-like: {g.n_nodes} nodes, {g.n_edges} edges, max degree "
         f"{int(g.degrees().max())} ({time.perf_counter() - t0:.1f} s to "
         f"generate); stream_frac {STREAM_FRAC}")
-    for mod in kernels.values():
-        mod.launches = 0
+    counters.reset()
     t0 = time.perf_counter()
     svc, stream, _, k0 = build_service(
         g, stream_frac=STREAM_FRAC, dim=128, batch=64, device="cuda",
@@ -367,10 +417,11 @@ def serve_phase(torch, np, kernels):
     t50, t99 = svc.topk_latency_percentiles()
     log(f"top-10: 256 queries over {svc.store.resident} resident rows, p50 "
         f"{t50 * 1e3:.2f} ms p99 {t99 * 1e3:.2f} ms per call of 64")
-    counts = {name: mod.launches for name, mod in kernels.items()}
+    counts = counters.read()
     log(f"kernel launches on the serving path: {counts}")
-    for name, n in counts.items():
-        expect(n > 0, f"kernel {name} was not launched on the serving path")
+    for name in SERVING:
+        expect(counts[name] > 0,
+               f"kernel {name} was not launched on the serving path")
     return svc, counts
 
 
@@ -475,6 +526,215 @@ def serve_shapes(torch, np, ops, ref, F, svc):
     return out
 
 
+# ------------------------------------------------------------ offline ----
+
+
+def offline_phase(torch, np, counters):
+    """The port's quick github table on the card, row by row (the counts set
+    to 0 before each row and read after it); returns (rows, counts summed
+    over the rows, the split)."""
+    from repro_torch.core import kcore
+    from repro_torch.core.propagation import propagate
+    from repro_torch.graph import datasets, splits
+    from repro_torch.launch import tables
+
+    t_phase = time.perf_counter()
+    s, models = tables.table("github", quick=True)
+    g = datasets.load(s.dataset)
+    core = kcore.core_numbers_host(g)
+    sp = splits.make_link_split(g, s.frac_removed, seed=0)
+    log(f"offline: {s.dataset} split of {len(sp.pos_edges)} held-out edges, "
+        f"degeneracy {kcore.degeneracy(core)}, dim {s.dim}, batch {s.batch}, "
+        f"epochs {s.epochs} ({time.perf_counter() - t_phase:.1f} s to "
+        f"generate and split)")
+    rows, total = [], dict.fromkeys(counters.table, 0)
+    for label, method, k0f in models:
+        k0 = tables.k0_of(core, k0f)
+        name = label if k0 is None else f"{k0}-core ({label})"
+        counters.reset()
+        out = tables.run_model(sp, method, k0, s, 0, "cuda")
+        counts = counters.read()
+        for key, n in counts.items():
+            total[key] += n
+        res = out["result"]
+        steps = out["n_sgns_steps"]
+        row = {"model": name, "f1": out["f1"], "f1_std": 0.0,
+               "total": out["total"], "n_walks_run": out["n_walks_run"],
+               "sgns_steps": steps, "final_loss": out["final_loss"],
+               "sgns_steps_per_s": steps / out["times"]["embedding"],
+               "launches": counts,
+               **{k: v for k, v in out["times"].items() if k != "total"}}
+        base = rows[0] if rows else row
+        row["speedup"] = base["total"] / row["total"]
+        row["drop"] = row["f1"] - base["f1"]
+        log(tables.ROW_FMT.format(**row))
+        log(f"  {name}: F1 {row['f1']:.4f}, n_walks_run {row['n_walks_run']}"
+            f", n_sgns_steps {steps} ({row['sgns_steps_per_s']:.0f} steps/s)"
+            f", final loss {row['final_loss']:.5f}, launches {counts}")
+        want_f1, want_walks, want_steps = JAX_GITHUB_QUICK[name]
+        expect(np.isfinite(res.embeddings).all()
+               and math.isfinite(out["final_loss"]), f"{name}: NaN")
+        expect((out["n_walks_run"], steps) == (want_walks, want_steps),
+               f"{name}: walks/steps {out['n_walks_run']}/{steps} != the "
+               f"JAX package's {want_walks}/{want_steps}")
+        expect(abs(out["f1"] - want_f1) <= F1_BAND,
+               f"{name}: F1 {out['f1']:.2f} is more than {F1_BAND} points "
+               f"from the JAX package's {want_f1:.2f}")
+        expect(counts["sgns_fwd"] == counts["sgns_bwd"] == steps,
+               f"{name}: SGNS launches {counts['sgns_fwd']}/"
+               f"{counts['sgns_bwd']} != {steps} steps")
+        if k0 is not None:
+            expect(counts["ell_mean"] > 0,
+                   f"{name}: the ELL mean was not launched")
+            host = propagate(sp.train_graph, res.core,
+                             min(k0, res.degeneracy), res.embeddings,
+                             n_iters=s.prop_iters, backend="scipy")
+            err = float(np.abs(host - res.embeddings).max())
+            row["prop_vs_scipy_max_abs"] = err
+            log(f"  {name}: torch propagation vs scipy max abs diff {err:.2e}")
+            expect(np.allclose(res.embeddings, host, rtol=1e-4, atol=1e-4),
+                   f"{name}: torch propagation off scipy by {err}")
+        rows.append(row)
+    by = {r["model"]: r for r in rows}
+    expect(by["CoreWalk"]["n_walks_run"] < by["DeepWalk"]["n_walks_run"]
+           and by["CoreWalk"]["sgns_steps"] < by["DeepWalk"]["sgns_steps"],
+           "CoreWalk did not shrink the corpus")
+    n_steps = sum(r["sgns_steps"] for r in rows)
+    expect(total["sgns_fwd"] + total["sgns_bwd"] == 2 * n_steps,
+           f"SGNS launches {total} != 2 x {n_steps} steps")
+    log(f"offline phase: {time.perf_counter() - t_phase:.1f} s, {n_steps} "
+        f"SGNS steps; launches {total}")
+    log("offline rows: " + json.dumps(rows))
+    return rows, total, sp
+
+
+def step_profile(torch, sp):
+    """Device time by kernel and the busy share of 100 SGNS steps (after 120
+    unprofiled), on the CoreWalk corpus of the quick github table's split
+    ``sp``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import kcore
+    from repro_torch.core.corewalk import corewalk_plan
+    from repro_torch.launch import tables
+    from repro_torch.skipgram.corpus import build_corpus
+    from repro_torch.skipgram.trainer import SGNSConfig, train_sgns
+
+    s, _ = tables.table("github", quick=True)
+    core = kcore.core_numbers_host(sp.train_graph)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    corpus = build_corpus(sp.train_graph.to_ell(device="cuda"),
+                          corewalk_plan(core, s.n_walks), s.walk_length, gen)
+    cfg = SGNSConfig(dim=s.dim, window=s.window, n_neg=s.n_neg,
+                     batch=s.batch, seed=0)
+    plain = train_sgns(corpus, cfg, steps=120)
+    steps = 100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = train_sgns(corpus, cfg, steps=steps)
+    dev = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        n, us = dev.get(e.name, (0, 0.0))
+        dev[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in dev.values()) / 1e3
+    wall_ms = res.train_seconds * 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {
+        "steps": steps,
+        "unprofiled_ms_per_step": plain.train_seconds * 1e3 / 120,
+        "profiled_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": busy_ms / steps,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "launches_per_step": sum(n for n, _ in dev.values()) / steps,
+        "top_kernels": [{"name": k[:90], "calls": n,
+                         "ms_per_step": us / 1e3 / steps}
+                        for k, (n, us) in top],
+    }
+    if not dev:
+        log("step profile: the profiler saw no device time (not measured)")
+    log("step profile: " + json.dumps(out))
+    return out
+
+
+def rotation(torch, make, nbytes):
+    """Enough independent input sets (from ``make``) that cycling through
+    them streams more than twice the L2 per pass: every launch reads its
+    inputs from device memory, as a training step finds them."""
+    return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
+
+
+def time_rotating(torch, fn, sets, iters):
+    state = {"i": 0}
+
+    def step():
+        fn(*sets[state["i"] % len(sets)])
+        state["i"] += 1
+    return time_ms(torch, step, iters)
+
+
+def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
+    """Both SGNS kernels against their plain versions at one shape; returns
+    ``{"sgns_fwd": record, "sgns_bwd": record}``."""
+    tol = TOL_SGNS[str(dtype).split(".")[-1]]
+    gen = torch.Generator(device="cuda").manual_seed(b + 31 * k + d)
+    dt = getattr(torch, str(dtype).split(".")[-1])
+    esize = torch.tensor([], dtype=dt).element_size()
+    in_bytes = (2 * b * d + b * k * d) * esize
+
+    def make():
+        c, x = (torch.randn((b, d), generator=gen, device="cuda").mul_(0.3)
+                .to(dt) for _ in range(2))
+        n = torch.randn((b, k, d), generator=gen, device="cuda").mul_(0.3)
+        return c, x, n.to(dt), torch.randn(b, generator=gen, device="cuda")
+
+    sets = rotation(torch, make, in_bytes)
+    c, x, n, dout = sets[0]
+    loss = sgns.sgns_fwd_cuda(c, x, n)
+    want = ref.sgns_loss_ref(c, x, n)
+    grads = sgns.sgns_bwd_cuda(c, x, n, dout)
+    want_g = ref.sgns_grads_ref(c, x, n, dout)
+    torch.cuda.synchronize()
+    err_f = float((loss - want).abs().max())
+    expect(torch.allclose(loss, want, rtol=tol, atol=tol),
+           f"sgns_fwd {label}: max abs err {err_f}")
+    err_b = 0.0
+    for got, w, what in zip(grads, want_g, ("dcenter", "dctx", "dneg")):
+        expect(got.dtype == dt, f"sgns_bwd {label}: {what} is {got.dtype}")
+        e = float((got.float() - w.float()).abs().max())
+        err_b = max(err_b, e)
+        expect(torch.allclose(got.float(), w.float(), rtol=tol, atol=tol),
+               f"sgns_bwd {label}: {what} max abs err {e}")
+    shape = f"B={b} K={k} D={d} {str(dt).split('.')[-1]}"
+    flops = 2.0 * b * d * (k + 1)  # the K + 1 dots
+    # forward: read the inputs, write the loss; backward: read the inputs and
+    # dout, recompute the dots, then 3 FLOP per element for the gradients
+    fb_ms, fb_by = bound(in_bytes + 4 * b, flops)
+    bb_ms, bb_by = bound(2 * in_bytes + 4 * b, flops + 3.0 * b * d * (k + 1))
+    recs = {
+        "sgns_fwd": {
+            "shape": shape, "max_abs_err": err_f,
+            "ms": time_rotating(torch, lambda c, x, n, _: sgns.sgns_fwd_cuda(
+                c, x, n), sets, iters),
+            "plain_ms": time_rotating(torch, lambda c, x, n, _:
+                                      ref.sgns_loss_ref(c, x, n), sets,
+                                      max(iters // 4, 3)),
+            "library_ms": None, "bound_ms": fb_ms, "bound_by": fb_by,
+        },
+        "sgns_bwd": {
+            "shape": shape, "max_abs_err": err_b,
+            "ms": time_rotating(torch, sgns.sgns_bwd_cuda, sets, iters),
+            "plain_ms": time_rotating(torch, ref.sgns_grads_ref, sets,
+                                      max(iters // 4, 3)),
+            "library_ms": None, "bound_ms": bb_ms, "bound_by": bb_by,
+        },
+    }
+    for name, rec in recs.items():
+        log(f"{name} {label}: {rec}")
+    return recs
+
+
 # -------------------------------------------------------------- main ----
 
 
@@ -495,7 +755,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build, ellmean, hindex, ops, ref, topk
+    from repro_torch.kernels import (build, ellmean, hindex, ops, ref, sgns,
+                                     topk)
 
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
@@ -505,19 +766,36 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({len(logs)} compiled: {', '.join(sorted(logs)) or 'cached'})")
 
-    mods = {"ell_mean": ellmean, "h_index": hindex, "top_k": topk}
-    svc, counts = serve_phase(torch, np, mods)
+    counters = Counters({
+        "ell_mean": (ellmean, "launches"), "h_index": (hindex, "launches"),
+        "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
+        "sgns_bwd": (sgns, "bwd_launches"),
+    })
+    svc, serve_counts = serve_phase(torch, np, counters)
     reference_phase(torch, np)
     serve_rec = serve_shapes(torch, np, ops, ref, F, svc)
     large_rec = large_shapes(torch, ops, ref, F)
+    _, offline_counts, split = offline_phase(torch, np, counters)
+    train = check_sgns(torch, ref, sgns, 8192, 5, 150, torch.float32,
+                       "train")
+    large = check_sgns(torch, ref, sgns, 65536, 5, 256, torch.bfloat16,
+                       "large", iters=10)
+    for name in ("sgns_fwd", "sgns_bwd"):
+        serve_rec[name] = train[name]
+        large_rec[name] = [large[name]]
+    step_profile(torch, split)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     kernels = []
     for name, (src_path, replaces) in SOURCES.items():
+        by_path = {"serve": serve_counts[name],
+                   "offline": offline_counts[name]}
+        expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **{k: serve_rec[name][k] for k in keys},
             "large": [{k: b[k] for k in keys} for b in large_rec[name]],
         })

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device) -> torch.device:
@@ -26,3 +26,10 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU): timings read
+    after it cover the device's work, not only its enqueueing."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -6,8 +6,9 @@ on the CPU; ``impl="cuda"`` always launches the kernel (and raises for CPU
 tensors); ``impl="ref"`` (and ``"count"`` for the h-index) always runs the
 plain version. There is no fallback from the kernel to the plain version.
 
-The output contracts are those of ``repro.kernels.ops``: ``ell_mean`` gives
-(N, D) in emb's dtype with empty rows 0; ``h_index_sweep`` gives (R,) int32;
+The output contracts are those of ``repro.kernels.ops``: ``sgns_loss``
+gives (B,) float32, differentiable through both SGNS kernels; ``ell_mean``
+gives (N, D) in emb's dtype with empty rows 0; ``h_index_sweep`` gives (R,) int32;
 ``top_k_scores`` gives ``(vals, idx)`` ordered by (score desc, index asc)
 with -inf / -1 padding. The TPU tiling work of the JAX wrappers (lane and
 row padding, the left-pack argsort, the final sort) has no counterpart: the
@@ -20,9 +21,11 @@ import torch
 from . import ellmean as _em
 from . import hindex as _hx
 from . import ref as _ref
+from . import sgns as _sg
 from . import topk as _tk
 
-__all__ = ["ell_mean", "h_index_sweep", "top_k_scores", "normalize_rows"]
+__all__ = ["sgns_loss", "SGNSLoss", "ell_mean", "h_index_sweep",
+           "top_k_scores", "normalize_rows"]
 
 
 def _resolve(impl: str, t: torch.Tensor, cpu_default: str, allowed) -> str:
@@ -31,6 +34,44 @@ def _resolve(impl: str, t: torch.Tensor, cpu_default: str, allowed) -> str:
     if impl not in allowed:
         raise ValueError(f"unknown impl {impl!r}; expected one of {allowed}")
     return impl
+
+
+class SGNSLoss(torch.autograd.Function):
+    """Per-example SGNS loss whose forward and backward are one fused
+    function each: ``fwd(center, ctx, neg) -> loss`` and
+    ``bwd(center, ctx, neg, dout) -> (dc, dx, dn)`` (the CUDA kernels, or
+    on the CPU in tests their plain versions). Only the three inputs are
+    saved: the backward recomputes the logits, as the JAX package's
+    ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(fctx, center, ctx, neg, fwd, bwd):
+        fctx.save_for_backward(center, ctx, neg)
+        fctx.bwd = bwd
+        return fwd(center, ctx, neg)
+
+    @staticmethod
+    def backward(fctx, dout):
+        center, ctx, neg = fctx.saved_tensors
+        # the gradient of a mean arrives expanded (stride 0)
+        dc, dx, dn = fctx.bwd(center, ctx, neg, dout.float().contiguous())
+        return dc, dx, dn, None, None
+
+
+def sgns_loss(center, ctx, neg, *, impl: str = "auto"):
+    """Per-example SGNS loss, differentiable with respect to all three
+    inputs.
+
+    center, ctx: (B, D); neg: (B, K, D), float32 or bfloat16 -> (B,)
+    float32. ``impl``: "cuda" (the fused kernels), "ref" (the plain version,
+    differentiated by autograd) or "auto" (by the tensors' device).
+    """
+    impl = _resolve(impl, center, "ref", ("ref", "cuda"))
+    if impl == "ref":
+        return _ref.sgns_loss_ref(center, ctx, neg)
+    return SGNSLoss.apply(center.contiguous(), ctx.contiguous(),
+                          neg.contiguous(), _sg.sgns_fwd_cuda,
+                          _sg.sgns_bwd_cuda)
 
 
 def ell_mean(idx, valid, emb, *, impl: str = "auto"):

@@ -1,16 +1,50 @@
 """Plain PyTorch versions of the port's kernels — the semantics of record.
 
-Torch counterparts of ``repro.kernels.ref`` (``ell_mean_ref``,
-``h_index_ref``, ``topk_ref``) plus the sort-free ``h_index_count`` of
-``repro.kernels.hindex``. They are what the CPU runs, and what every CUDA
+Torch counterparts of ``repro.kernels.ref`` (``sgns_loss_ref``,
+``sgns_grads_ref``, ``ell_mean_ref``, ``h_index_ref``, ``topk_ref``) plus
+the sort-free ``h_index_count`` of ``repro.kernels.hindex``. They are what the CPU runs, and what every CUDA
 kernel is held against on the card. Scores and means are fp32 whatever the
 input type; on the card a caller that compares against them keeps TF32 off.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["ell_mean_ref", "h_index_ref", "h_index_count", "topk_ref"]
+__all__ = ["sgns_loss_ref", "sgns_grads_ref", "ell_mean_ref", "h_index_ref",
+           "h_index_count", "topk_ref"]
+
+
+def _logits(center, ctx, neg):
+    c, x, n = center.float(), ctx.float(), neg.float()
+    pos = torch.sum(c * x, dim=-1)
+    negl = torch.einsum("bkd,bd->bk", n, c)
+    return c, x, n, pos, negl
+
+
+def sgns_loss_ref(center: torch.Tensor, ctx: torch.Tensor,
+                  neg: torch.Tensor) -> torch.Tensor:
+    """SkipGram negative-sampling loss per example.
+
+    center, ctx: (B, D); neg: (B, K, D). Returns (B,) float32; logits
+    accumulate in float32 whatever the input dtype.
+    """
+    _, _, _, pos, negl = _logits(center, ctx, neg)
+    return -(F.logsigmoid(pos) + F.logsigmoid(-negl).sum(dim=-1))
+
+
+def sgns_grads_ref(center, ctx, neg, dout):
+    """Analytic gradients of ``sum(sgns_loss * dout)`` with respect to
+    (center, ctx, neg), each returned in its input's dtype."""
+    c, x, n, pos, negl = _logits(center, ctx, neg)
+    d = dout.float()
+    dpos = (torch.sigmoid(pos) - 1.0) * d  # (B,)
+    dneg = torch.sigmoid(negl) * d[:, None]  # (B, K)
+    dcenter = dpos[:, None] * x + torch.einsum("bk,bkd->bd", dneg, n)
+    dctx = dpos[:, None] * c
+    dnegs = dneg[:, :, None] * c[:, None, :]
+    return (dcenter.to(center.dtype), dctx.to(ctx.dtype),
+            dnegs.to(neg.dtype))
 
 
 def ell_mean_ref(idx: torch.Tensor, valid: torch.Tensor,

@@ -13,10 +13,12 @@ edges after each block, with incremental cores verified against the
 Matula–Beck oracle at the end; finally replay microbatched query traffic
 over both existing and brand-new nodes. Every input is drawn from numpy's
 ``default_rng``, so the JAX package and the port can be driven on identical
-inputs.
+inputs. ``--train`` replaces the seeded k0-core table by real CoreWalk +
+SGNS embeddings of the base graph (``core.pipeline.embed_graph``; the fused
+SGNS kernels on the card).
 
-Not in this port yet, and refused with an error: ``--train`` / ``--retrain``
-(SGNS training), ``--wal-dir`` / ``--fault-plan`` (crash safety),
+Not in this port yet, and refused with an error: ``--retrain`` (it needs
+``serve/retrain.py``), ``--wal-dir`` / ``--fault-plan`` (crash safety),
 ``--jax-profile``, and ``--shards`` > 1. ``--no-pipeline`` is accepted and
 changes nothing: the port ingests every block serially.
 """
@@ -28,6 +30,7 @@ import time
 import numpy as np
 
 from repro_torch.core.kcore import core_numbers_host, degeneracy
+from repro_torch.core.pipeline import EmbedConfig, embed_graph
 from repro_torch.core.propagation import propagate
 from repro_torch.device import resolve_device
 from repro_torch.graph import datasets, generators
@@ -40,6 +43,7 @@ from repro_torch.serve import (
     IncrementalCore,
     ServiceStats,
 )
+from repro_torch.skipgram.trainer import SGNSConfig
 
 __all__ = ["main", "build_service"]
 
@@ -77,6 +81,7 @@ def build_service(
     compact_every: int = 512,
     prop_iters: int = 20,
     seed: int = 0,
+    train: bool = False,
     retrain_threshold: float = 0.1,
     repair_policy: str = "adaptive",
     crossover_margin: float = 1.0,
@@ -86,9 +91,12 @@ def build_service(
     """Returns (service, stream_edges, base_core, k0), on ``device``.
 
     The same split, k0-core table and propagation as the JAX package's
-    ``build_service`` without ``train``: the k0-core rows are drawn from
+    ``build_service``. Without ``train`` the k0-core rows are drawn from
     ``default_rng(seed)`` and the lower shells filled by the host (scipy)
-    propagation, so both packages start from the same store.
+    propagation, so both packages start from the same store; with ``train``
+    CoreWalk + SGNS embed the base graph's k0-core on ``device`` (walks and
+    SGNS draw from torch generators, so the table matches the JAX package's
+    in quality, not in bits).
     ``repair_policy`` selects the block-repair decision rule (``adaptive``
     measured crossover / ``region`` legacy static trigger / ``fallback``
     always re-peel). Ingest is serial: there is no pipelined variant.
@@ -103,12 +111,25 @@ def build_service(
     k0 = min(k0, degeneracy(core))
 
     in_core = core >= k0
-    rng = np.random.default_rng(seed)
-    emb = np.zeros((g.n_nodes, dim), np.float32)
-    emb[in_core] = rng.normal(size=(int(in_core.sum()), dim)).astype(
-        np.float32
-    ) / np.sqrt(dim)
-    emb = propagate(base_graph, core, k0, emb, n_iters=prop_iters)
+    if train:
+        emb = embed_graph(
+            base_graph,
+            EmbedConfig(
+                method="corewalk",
+                k0=k0,
+                sgns=SGNSConfig(dim=dim, impl="auto", seed=seed),
+                prop_iters=prop_iters,
+                seed=seed,
+                device=str(device),
+            ),
+        ).embeddings
+    else:
+        rng = np.random.default_rng(seed)
+        emb = np.zeros((g.n_nodes, dim), np.float32)
+        emb[in_core] = rng.normal(size=(int(in_core.sum()), dim)).astype(
+            np.float32
+        ) / np.sqrt(dim)
+        emb = propagate(base_graph, core, k0, emb, n_iters=prop_iters)
 
     # store every base node the offline pass embedded (the paper's batch
     # output); capacity < n exercises LRU eviction + host spillover
@@ -135,14 +156,14 @@ def build_service(
 def _refuse(ap, args) -> None:
     """Flags of the JAX launcher that this port does not implement yet."""
     for flag, on in (
-        ("--train", args.train), ("--retrain", args.retrain),
+        ("--retrain", args.retrain),
         ("--wal-dir", args.wal_dir), ("--fault-plan", args.fault_plan),
         ("--jax-profile", args.jax_profile), ("--shards", args.shards != 1),
     ):
         if on:
             ap.error(f"{flag} is not implemented in the PyTorch port yet "
-                     "(training, crash safety, profiling and sharding come "
-                     "in later slices)")
+                     "(retraining, crash safety, profiling and sharding "
+                     "come in later slices)")
 
 
 def main(argv=None):
@@ -166,7 +187,7 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help=f"row-shard across N devices: {not_yet} above 1")
     ap.add_argument("--train", action="store_true",
-                    help=f"real CoreWalk+SGNS base embeddings: {not_yet}")
+                    help="real CoreWalk+SGNS base embeddings (slower)")
     ap.add_argument("--retrain", action="store_true",
                     help=f"drift-triggered retraining loop: {not_yet}")
     ap.add_argument("--retrain-threshold", type=float, default=0.1,
@@ -231,6 +252,7 @@ def main(argv=None):
         capacity=args.capacity,
         compact_every=args.compact_every,
         seed=args.seed,
+        train=args.train,
         retrain_threshold=args.retrain_threshold,
         repair_policy=args.repair_policy,
         crossover_margin=args.crossover_margin,

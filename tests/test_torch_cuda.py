@@ -6,7 +6,9 @@ package, so it runs on a machine with only PyTorch and ``nvcc``:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Tolerances: the ELL mean 1e-5 in fp32 and 2e-2 in bf16 (summation order),
+Tolerances: the SGNS loss and gradients 1e-5 in fp32 and 2e-2 in bf16
+(fp32 dots summed in another order, then one bf16 rounding), the ELL mean
+1e-5 in fp32 and 2e-2 in bf16 (summation order),
 the h-index exact, the top-k scores at 1e-5 with ids equal off near-ties
 (fp32 dot products of width d summed in another order).
 """
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ellmean, hindex, ops, ref, topk
+from repro_torch.kernels import ellmean, hindex, ops, ref, sgns, topk
 
 ELL_CASES = [(8, 4, 16, 128), (16, 7, 32, 128), (5, 3, 8, 150),
              (12, 1, 4, 256), (64, 1766, 37701, 128)]
@@ -53,6 +55,73 @@ def test_ell_mean_kernel_matches_plain(cuda, n, l, m, d, dtype):
     want = ref.ell_mean_ref(idx, valid, emb)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 8193])
+@pytest.mark.parametrize("d", [1, 150, 256])
+@pytest.mark.parametrize("k", [1, 5, 15])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgns_kernels_match_plain(cuda, b, d, k, dtype):
+    rng = np.random.default_rng(b * 131 + d * 7 + k)
+    c, x, n, dout = _on(cuda, *[(rng.standard_normal(s) * 0.3).astype(
+        np.float32) for s in ((b, d), (b, d), (b, k, d), (b,))])
+    c, x, n = (t.to(dtype) for t in (c, x, n))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    before = (sgns.fwd_launches, sgns.bwd_launches)
+    loss = sgns.sgns_fwd_cuda(c, x, n)
+    grads = sgns.sgns_bwd_cuda(c, x, n, dout)
+    assert (sgns.fwd_launches, sgns.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    torch.testing.assert_close(loss, ref.sgns_loss_ref(c, x, n), rtol=tol,
+                               atol=tol)
+    for got, want in zip(grads, ref.sgns_grads_ref(c, x, n, dout)):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_sgns_loss_autograd_runs_both_kernels(cuda):
+    """``ops.sgns_loss`` on CUDA tensors: one forward and one backward
+    launch, gradients (through the stride-0 dout of ``.mean()``) equal to
+    autograd of the plain loss."""
+    rng = np.random.default_rng(3)
+    ins = _on(cuda, *[(rng.standard_normal(s) * 0.3).astype(np.float32)
+                      for s in ((64, 150), (64, 150), (64, 5, 150))])
+    leaves = [t.clone().requires_grad_() for t in ins]
+    plain = [t.clone().requires_grad_() for t in ins]
+    before = (sgns.fwd_launches, sgns.bwd_launches)
+    ops.sgns_loss(*leaves).mean().backward()
+    assert (sgns.fwd_launches, sgns.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    ref.sgns_loss_ref(*plain).mean().backward()
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-7)
+    with pytest.raises(ValueError, match="contiguous"):
+        sgns.sgns_bwd_cuda(*ins, torch.ones((), device=cuda).expand(64))
+
+
+@pytest.mark.cuda
+def test_train_sgns_on_the_card_lowers_the_loss(cuda):
+    from repro_torch.core.corewalk import deepwalk_plan
+    from repro_torch.graph import datasets
+    from repro_torch.skipgram.corpus import build_corpus
+    from repro_torch.skipgram.trainer import SGNSConfig, train_sgns
+
+    g = datasets.load("tiny")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    corpus = build_corpus(g.to_ell(device=cuda),
+                          deepwalk_plan(g.n_nodes, 10), 20, gen)
+    cfg = SGNSConfig(dim=32, batch=512, seed=0)
+    before = (sgns.fwd_launches, sgns.bwd_launches)
+    first = train_sgns(corpus, cfg, steps=1)
+    res = train_sgns(corpus, cfg, steps=60)
+    assert (sgns.fwd_launches - before[0], sgns.bwd_launches - before[1]) \
+        == (61, 61)
+    assert res.embeddings.shape == (g.n_nodes, 32)
+    assert np.isfinite(res.embeddings).all()
+    assert res.final_loss < first.final_loss - 0.5, (first, res)
 
 
 @pytest.mark.cuda

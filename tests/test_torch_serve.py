@@ -15,7 +15,7 @@ import repro.serve as jserve
 from repro.core.kcore import core_numbers_host as j_core_numbers_host
 from repro.launch import serve_embed as jlaunch
 from repro_torch.core.kcore import core_numbers_host
-from repro_torch.graph import generators
+from repro_torch.graph import datasets, generators
 from repro_torch.launch import serve_embed
 from repro_torch.serve import (
     DynamicGraph,
@@ -235,12 +235,28 @@ def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys):
     assert n > 0
     out = capsys.readouterr().out
     assert "core mismatches vs oracle: 0" in out and "top-4" in out
-    for flags in (["--train"], ["--retrain"], ["--wal-dir", "x"],
+    for flags in (["--retrain"], ["--wal-dir", "x"],
                   ["--fault-plan", "repair:1"], ["--jax-profile", "x"],
                   ["--shards", "2"]):
         with pytest.raises(SystemExit):
             serve_embed.main(["--device", "cpu", "--dataset", "tiny", *flags])
         assert "not implemented in the PyTorch port" in capsys.readouterr().err
+
+
+def test_launcher_trains_the_base_on_cpu(capsys):
+    """``--train``: CoreWalk + SGNS embed the base graph's k0-core (the JAX
+    launcher's path), then the stream and the queries run as without it."""
+    n = serve_embed.main(["--device", "cpu", "--dataset", "tiny", "--train",
+                          "--requests", "32", "--block-size", "16",
+                          "--verify", "--batch", "16", "--dim", "16"])
+    assert n > 0
+    assert "core mismatches vs oracle: 0" in capsys.readouterr().out
+    g = datasets.load("tiny")
+    svc, _, core, k0 = serve_embed.build_service(
+        g, dim=16, batch=16, train=True, device="cpu")
+    rows = np.where(core >= k0)[0]
+    emb = svc.embed(rows)
+    assert np.isfinite(emb).all() and (np.linalg.norm(emb, axis=1) > 0).all()
 
 
 def test_entry_points_raise_when_cuda_is_absent():
