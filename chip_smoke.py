@@ -38,12 +38,38 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 7. where a training step's time goes: ``torch.profiler`` over 100 SGNS
    steps on the CoreWalk corpus at the table's settings, device time by
    kernel and the device's busy share of the window (reported, not held to
-   a limit).
+   a limit);
+8. LM serving: ``repro_torch.launch.serve`` at qwen3-4b's full width (36
+   layers, d_model 2560, 32/8 heads, vocabulary 151,936, bf16; weights from
+   its ``init_model`` with a seeded generator on the card), 12 requests in 8
+   slots, prompts of 1024, 64 new tokens each: 128 decode steps, four rows
+   swapped in at step 64 while the other four run past their cache's end.
+   Held: 1,024 tokens decoded, exactly 36 x 128 flash-decode launches, no
+   NaN or inf in any logits, every token in [0, vocab), the swapped rows'
+   cache holding their prefill. Printed: prefill and swap times, decode
+   tokens/s and ms per step, peak memory;
+9. decode parity at full width: one step from the live cache (ragged
+   lengths, four rows past the end) with the kernel and with the plain
+   version bound into ``models.attention`` for that call: caches equal bit
+   for bit but for the rows written in layers 1 and up, which with the
+   logits agree within 5e-2 x their largest magnitude; the greedy tokens'
+   agreement over 8 teacher-forced steps (reported); ``torch.profiler``
+   over 20 decode steps (device time by kernel class, launches per step, busy
+   share; reported);
+10. a small LM reference: reduced qwen3-4b (fp32, G = 4) served on the card
+   and on the CPU with the same weights and schedule: token streams equal,
+   logits within 1e-4;
+11. flash-decode against its plain version (2e-5 fp32, 3e-2 bf16 and int8
+   with bf16 queries) at the live serving inputs (layers 0 and 35 of one
+   step, timed rotating through six layers) and at a gemma2-2b shape
+   (softcap 50, window 4096), a large ragged bf16 shape and the same with
+   an int8 cache, with the library time (one SDPA call, softcap 0 and no
+   int8 only) and the bound from the visible rows.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving and the offline path, each path's count beside it); the last line
-is ``{"ok": true, "device": {...}}``.
+serving, the offline and the LM path, each path's count beside it); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -74,6 +100,32 @@ JAX_GITHUB_QUICK = {
     "CoreWalk": (72.5893, 124018, 454),
 }
 F1_BAND = 3.0
+# LM serving at qwen3-4b's full width: 12 requests in 8 slots, 64 new tokens
+# each, so 64 steps, a swap of four rows, and 64 more steps while the other
+# four rows run past their cache's end (1088 positions)
+LM_FLAGS = ["--arch", "qwen3-4b", "--preset", "full", "--slots", "8",
+            "--requests", "12", "--prompt-len", "1024", "--max-new", "64",
+            "--seed", "0", "--device", "cuda"]
+LM_SHAPE = (36, 2560, 32, 8, 128, 9728, 151936, "bfloat16")  # qwen3-4b
+LM_DECODED = 8 * 128
+LM_LAUNCHES = 36 * 128  # one flash-decode launch per layer per step
+SNAP_STEP = 64  # the step after the swap: the cache the parity phases take
+LM_LOGIT_TOL = 5e-2  # x max|logit|: bf16 rounding of the attention output
+LM_LAYERS = (0, 7, 14, 21, 28, 35)  # 6 x 35.6 MB of K/V > twice the L2
+# flash-decode against its plain version, (rtol, atol) by the queries' type.
+# Both accumulate in fp32 and round once to q's type, so in bf16 they differ
+# by at most one ulp (< 2**-7 x |out|, < 7.8e-4 below 0.1), well under 1e-2
+# x |out| + 1e-3; outputs at the smoke's shapes are about 0.03-0.05 (mean of
+# ~1,000-4,000 unit values), so a fixed 3e-2 would pass a wrong kernel
+TOL_DECODE = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
+TOL_SDPA = 3e-2  # SDPA against the plain version: it rounds P to bf16
+# flash-decode at made-up shapes, bf16: (label, B, H, Hkv, Dh, S, softcap,
+# window, int8 cache); the last is the one before it with an int8 cache
+DECODE_SHAPES = [
+    ("gemma2-2b shape", 8, 8, 4, 256, 8192, 50.0, 4096, False),
+    ("large", 32, 32, 8, 128, 8192, 0.0, 0, False),
+    ("large int8", 32, 32, 8, 128, 8192, 0.0, 0, True),
+]
 
 SOURCES = {
     "ell_mean": ("src/repro_torch/csrc/ellmean.cu",
@@ -86,6 +138,8 @@ SOURCES = {
                  "src/repro/kernels/sgns.py:66"),
     "sgns_bwd": ("src/repro_torch/csrc/sgns.cu",
                  "src/repro/kernels/sgns.py:86"),
+    "decode_attention": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:134"),
 }
 SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
 
@@ -735,10 +789,401 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
     return recs
 
 
+# ------------------------------------------------------------- LM side ----
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _clone(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def lm_serve_phase(torch, np, counters):
+    """The LM serving path at qwen3-4b's full width on the card, through
+    ``repro_torch.launch.serve`` (its flag parsing, its ``init_model`` from
+    a seeded generator on the card, its continuous-batching loop). Returns
+    (cfg, params, launch counts, the cache and next tokens right after the
+    first swap)."""
+    from repro_torch.launch import serve as lm
+    from repro_torch.models.steps import make_prefill_step
+
+    args, cfg, params, requests = lm.setup(LM_FLAGS)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    expect((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.param_dtype)
+           == LM_SHAPE, f"not qwen3-4b at full width: {cfg}")
+    log(f"lm: {cfg.name} full width, {n_params / 1e9:.3f} B parameters "
+        f"({n_bytes / 1e9:.2f} GB), {args.slots} slots, {args.requests} requests, prompt "
+        f"{args.prompt_len}, max_new {args.max_new}")
+    state = {"bad": torch.zeros((), dtype=torch.bool, device=args.device)}
+
+    def on_step(step, cache, logits):  # its time is not in decode_seconds
+        state["bad"] |= ~torch.isfinite(logits).all()
+        if step == SNAP_STEP:  # the first step after the swap: ragged
+            state["snap"] = (_clone(cache), logits[:, -1].argmax(-1)[
+                :, None].to(torch.int32))
+
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    res = lm.serve(cfg, params, requests, slots=args.slots,
+                   max_new=args.max_new, device=args.device, on_step=on_step)
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    steps = res.step_tokens.shape[0]
+    log(f"lm serve: {res.served} requests, {res.n_decoded} tokens in {steps} "
+        f"decode steps; launches {counts}")
+    expect(res.n_decoded == LM_DECODED, f"n_decoded {res.n_decoded} != "
+           f"{LM_DECODED}")
+    want = cfg.n_layers * steps
+    expect(counts["decode_attention"] == want == LM_LAUNCHES,
+           f"flash_decode launches {counts['decode_attention']} != "
+           f"{cfg.n_layers} x {steps} = {LM_LAUNCHES}")
+    for name, n in counts.items():
+        expect(name == "decode_attention" or n == 0,
+               f"{name} launched {n} times on the LM path")
+    expect(not bool(state["bad"]), "NaN or inf in the decode logits")
+    expect(0 <= int(res.step_tokens.min())
+           and int(res.step_tokens.max()) < cfg.vocab_size,
+           "a token outside [0, vocab)")
+    # all rows start together, so rows 0-3 finish first and take requests
+    # 8-11 in order: their cache rows hold those prompts' B = 1 prefill
+    # (recomputed here), which no later decode write reaches
+    expect(res.served == args.requests, f"served {res.served}")
+    prefill = make_prefill_step(cfg, max_len=args.prompt_len + args.max_new)
+    for b in range(args.requests - args.slots):
+        _, row = prefill(params, {"tokens": torch.from_numpy(
+            requests[args.slots + b][None]).to(args.device)})
+        expect(all(torch.equal(res.cache[key][:, b, :args.prompt_len],
+                               row[key][:, 0, :args.prompt_len])
+                   for key in ("k", "v")), f"row {b}'s cache lost its prefill")
+        del row
+    lens = res.cache["len"].tolist()
+    s_max = args.prompt_len + args.max_new
+    expect(max(lens) > s_max, f"no row ran past the cache's end: {lens}")
+    swap_s = sum(res.swap_seconds)
+    rec = {
+        "n_decoded": res.n_decoded, "decode_steps": steps,
+        "prefill_ms": res.prefill_seconds * 1e3,
+        "prefill_tokens": args.slots * args.prompt_len,
+        "swap_prefill_ms": [t * 1e3 for t in res.swap_seconds],
+        "decode_s": res.decode_seconds,
+        "decode_tokens_per_s": res.n_decoded / res.decode_seconds,
+        "ms_per_step_with_swaps": res.decode_seconds * 1e3 / steps,
+        "ms_per_step": (res.decode_seconds - swap_s) * 1e3 / steps,
+        "peak_memory_gb": peak / 1e9, "final_lengths": lens,
+        "flash_decode_launches": counts["decode_attention"],
+    }
+    log("lm serve phase: " + json.dumps(rec))
+    return cfg, params, counts, state["snap"]
+
+
+def lm_decode_parity(torch, cfg, params, snap):
+    """One decode step from the live cache ``snap`` (ragged lengths, four
+    rows past the cache's end), with the kernel and with the plain version
+    bound into ``models.attention`` for that call only. The caches are
+    equal bit for bit except in the rows this step writes in layers 1 and
+    up: those hold k, v projected from a hidden state that already carries
+    the layers below's attention output, which the two versions round
+    differently in bf16; they, and the logits, must agree within 5e-2 x
+    their largest magnitude. Then the greedy tokens' agreement over 8
+    teacher-forced steps (reported). Returns the kernel's inputs at layers
+    ``LM_LAYERS`` of the first step."""
+    import functools
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as lm_attn
+    from repro_torch.models.steps import make_decode_step
+
+    decode = make_decode_step(cfg)
+    cache0, tok = snap
+    kernel = lm_attn.decode_attention
+    plain = functools.partial(ops.decode_attention, impl="ref")
+    seen = {"layer": 0, "inputs": {}}
+
+    def record(q, k, v, lens, **kw):
+        if seen["layer"] in LM_LAYERS:
+            seen["inputs"][seen["layer"]] = (q.clone(), k.clone(), v.clone(),
+                                             lens.clone(), kw)
+        seen["layer"] += 1
+        return kernel(q, k, v, lens, **kw)
+
+    def step(cache, tokens, attn):
+        lm_attn.decode_attention = attn
+        try:
+            return decode(params, cache, tokens)
+        finally:
+            lm_attn.decode_attention = kernel
+
+    ca, cb = _clone(cache0), _clone(cache0)
+    la, ca = step(ca, tok, record)
+    lb, cb = step(cb, tok, plain)
+    torch.cuda.synchronize()
+    s_len = cache0["k"].shape[2]
+    lens = cache0["len"].long()
+    rows = (lens < s_len).nonzero().flatten()  # rows whose write lands
+    at = lens[rows]
+    kept = torch.ones(lens.shape[0], s_len, dtype=torch.bool,
+                      device=lens.device)
+    kept[rows, at] = False
+    expect(torch.equal(ca["len"], cb["len"]), "lengths differ")
+    row_err = row_max = 0.0
+    for key in ("k", "v"):
+        expect(torch.equal(ca[key][:, kept], cb[key][:, kept])
+               and torch.equal(ca[key][0], cb[key][0]),
+               f"cache {key}: the kernel's and the plain step's differ "
+               "outside the rows written in layers 1 and up")
+        new_a, new_b = ca[key][1:, rows, at].float(), cb[key][1:, rows,
+                                                               at].float()
+        row_err = max(row_err, float((new_a - new_b).abs().max()))
+        row_max = max(row_max, float(new_b.abs().max()))
+    expect(row_err <= LM_LOGIT_TOL * row_max,
+           f"new cache rows differ by {row_err}")
+    err = float((la - lb).abs().max())
+    scale = float(lb.abs().max())
+    log(f"lm decode parity (full width, lengths {cache0['len'].tolist()}): "
+        f"caches equal bit for bit but for the {len(rows)} rows written in "
+        f"layers 1-{cfg.n_layers - 1} (max abs diff {row_err:.4g} against "
+        f"max {row_max:.4g}); logits max abs err {err:.4g} against "
+        f"max|logit| {scale:.4g} (limit {LM_LOGIT_TOL} x)")
+    expect(err <= LM_LOGIT_TOL * scale, f"logits differ by {err}")
+    ca, cb = _clone(cache0), _clone(cache0)
+    agree = 0
+    for _ in range(8):
+        la, ca = step(ca, tok, kernel)
+        lb, cb = step(cb, tok, plain)
+        ta, tb = la[:, -1].argmax(-1), lb[:, -1].argmax(-1)
+        agree += int((ta == tb).sum())
+        tok = ta[:, None].to(torch.int32)
+    share = agree / (8 * tok.shape[0])
+    log(f"lm greedy agreement kernel vs plain over 8 teacher-forced steps: "
+        f"{share:.4f}")
+    return seen["inputs"]
+
+
+def lm_reference_phase(torch, np):
+    """Reduced qwen3-4b (fp32, n_heads=8, n_kv_heads=2) served on the card
+    and on the CPU with the same weights and schedule: token streams equal,
+    logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm
+    from repro_torch.models.transformer import init_model
+
+    cfg = get_config("qwen3-4b").reduced(n_heads=8, n_kv_heads=2)
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    requests = lm.make_requests(cfg.vocab_size, 5, 8, 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        logs = []
+        res = lm.serve(cfg, _tree_to(params, dev), requests, slots=2,
+                       max_new=4, device=dev,
+                       on_step=lambda s, c, lg: logs.append(lg.cpu()))
+        out[dev] = (res, torch.stack(logs))
+    (rg, lg), (rc, lc) = out["cuda"], out["cpu"]
+    err = float((lg - lc).abs().max())
+    expect(rg.n_decoded == rc.n_decoded == 24, "n_decoded differs")
+    expect(np.array_equal(rg.step_tokens, rc.step_tokens)
+           and rg.streams == rc.streams, "token streams differ")
+    expect(err <= 1e-4, f"logits differ from the CPU's by {err}")
+    log(f"lm reference: reduced qwen3-4b (G=4) served on cuda == cpu: "
+        f"{rg.step_tokens.shape[0]} steps, token streams equal, logits max "
+        f"abs diff {err:.2e}")
+
+
+def lm_profile(torch, cfg, params, snap, steps=20):
+    """Device time by kernel class over ``steps`` decode steps from the live
+    cache (after as many unprofiled ones), launches per step and the busy
+    share (reported, not held)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.steps import make_decode_step
+
+    decode = make_decode_step(cfg)
+    cache, tok = _clone(snap[0]), snap[1]
+
+    def run():
+        nonlocal cache
+        for _ in range(steps):
+            _, cache = decode(params, cache, tok)
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, classes = {}, {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        n, us = dev.get(e.name, (0, 0.0))
+        dev[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, (n, us) in dev.items():
+        low = name.lower()
+        if "flash_decode" in low:
+            cls = "flash_decode"
+        elif any(w in low for w in ("gemm", "gemv", "cutlass", "xmma",
+                                    "cublas", "splitk", "nvjet")):
+            cls = "gemm/gemv"
+        elif "memcpy" in low or "memset" in low:
+            cls = "copies"
+        else:
+            cls = "elementwise/other"
+        cn, cus = classes.get(cls, (0, 0.0))
+        classes[cls] = (cn + n, cus + us)
+    busy_ms = sum(us for _, us in dev.values()) / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {
+        "steps": steps, "unprofiled_ms_per_step": plain_ms,
+        "profiled_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": busy_ms / steps,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "launches_per_step": sum(n for n, _ in dev.values()) / steps,
+        "by_class_ms_per_step": {c: us / 1e3 / steps
+                                 for c, (_, us) in classes.items()},
+        "launches_by_class_per_step": {c: n / steps
+                                       for c, (n, _) in classes.items()},
+        "top_kernels": [{"name": k[:90], "calls": n,
+                         "ms_per_step": us / 1e3 / steps}
+                        for k, (n, us) in top],
+    }
+    if not dev:
+        log("lm profile: the profiler saw no device time (not measured)")
+    log("lm profile: " + json.dumps(out))
+    return out
+
+
+def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
+                 iters=20):
+    """flash_decode against its plain version on ``sets`` (tuples q, k, v,
+    lens[, k_scale, v_scale]; parity on the first, timing rotated through
+    all), with the library time (one SDPA call, softcap 0 and no int8
+    only) and the bound from the visible rows."""
+    def split(t):
+        q, k, v, lens = t[:4]
+        kw = {"softcap": softcap, "window": window}
+        if len(t) > 4:
+            kw.update(k_scale=t[4], v_scale=t[5])
+        return q, k, v, lens, kw
+
+    q, k, v, lens, kw = split(sets[0])
+    got = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+    want = ref.decode_attention_ref(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = TOL_DECODE[str(q.dtype).split(".")[-1]]
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    expect(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+           f"flash_decode {label}: max abs err {err} against max|out| "
+           f"{scale} (rtol {rtol}, atol {atol})")
+    b, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    end = lens.clamp_max(s)
+    lo = (lens - window).clamp_min(0) if window > 0 else torch.zeros_like(
+        lens)
+    vis = int((end - lo).clamp_min(0).sum())
+    nbytes = vis * hkv * dh * 2 * k.element_size() \
+        + (vis * hkv * 8 if "k_scale" in kw else 0) \
+        + 2 * q.numel() * q.element_size() + 8 * b
+    b_ms, b_by = bound(nbytes, 4.0 * vis * h * dh)
+
+    def kern(*t):
+        q, k, v, lens, kw = split(t)
+        ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+
+    def plain(*t):
+        q, k, v, lens, kw = split(t)
+        ref.decode_attention_ref(q, k, v, lens, **kw)
+
+    lib_ms = None
+    if softcap == 0 and "k_scale" not in kw:
+        pos = torch.arange(s, device=q.device)[None]
+
+        def lib(*t):  # one SDPA call over the visible positions' mask
+            q, k, v, lens, _ = split(t)
+            lo = (lens - window).clamp_min(0) if window > 0 else \
+                torch.zeros_like(lens)
+            mask = (pos < lens[:, None]) & (pos >= lo[:, None])
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
+
+        lib_out = lib(*sets[0])
+        expect(torch.allclose(lib_out.float(), want.float(), rtol=TOL_SDPA,
+                              atol=TOL_SDPA),
+               f"flash_decode {label}: SDPA disagrees with the plain version")
+        lib_ms = time_rotating(torch, lib, sets, iters)
+    rec = {
+        "shape": f"B={b} H={h} Hkv={hkv} Dh={dh} S={s} "
+                 f"{str(k.dtype).split('.')[-1]} softcap={softcap} "
+                 f"window={window} visible={vis}",
+        "max_abs_err": err, "max_abs_out": scale, "rtol": rtol, "atol": atol,
+        "ms": time_rotating(torch, kern, sets, iters),
+        "plain_ms": time_rotating(torch, plain, sets, max(iters // 4, 3)),
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log(f"flash_decode {label}: {rec}")
+    return rec
+
+
+def decode_shapes(torch, F, ops, ref, live, dev="cuda"):
+    """flash_decode at the live serving inputs (layers ``LM_LAYERS`` of one
+    step: parity at the first and last, timing rotated through all) and at
+    three made-up shapes: gemma2-2b's (softcap 50, window 4096), a large
+    ragged bf16 one and the same with an int8 cache."""
+    from repro_torch.models.attention import quantize_kv_rows
+
+    recs = []
+    layers = sorted(live)
+    for lay in (layers[0], layers[-1]):
+        kw = live[lay][4]
+        expect(kw["softcap"] == 0.0 and not kw["window"]
+               and kw["k_scale"] is None, f"layer {lay}: {kw}")
+        recs.append(check_decode(
+            torch, F, ops, ref, [live[lay][:4]] + [live[x][:4] for x in layers
+                                                  if x != lay],
+            f"serve layer {lay}"))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for label, b, h, hkv, dh, s, softcap, window, int8 in DECODE_SHAPES:
+        if not int8:
+            q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+            k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+                    .bfloat16() for _ in range(2))
+            lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            lens[-1] = s + 7  # a finished row past the cache's end
+            sets = [(q, k, v, lens)]
+        else:  # the previous shape's inputs with an int8 cache
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            sets = [(q, kq, vq, lens, ks, vs)]
+            del k, v, kq, vq
+        recs.append(check_decode(torch, F, ops, ref, sets, label,
+                                 softcap=softcap, window=window, iters=10))
+        del sets
+    return recs[0], recs[1:]
+
+
 # -------------------------------------------------------------- main ----
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -752,11 +1197,12 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import (build, ellmean, hindex, ops, ref, sgns,
-                                     topk)
+    from repro_torch.kernels import (build, ellmean, flash_decode, hindex,
+                                     ops, ref, sgns, topk)
 
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
@@ -770,6 +1216,7 @@ def main() -> int:
         "ell_mean": (ellmean, "launches"), "h_index": (hindex, "launches"),
         "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
         "sgns_bwd": (sgns, "bwd_launches"),
+        "decode_attention": (flash_decode, "launches"),
     })
     svc, serve_counts = serve_phase(torch, np, counters)
     reference_phase(torch, np)
@@ -784,13 +1231,20 @@ def main() -> int:
         serve_rec[name] = train[name]
         large_rec[name] = [large[name]]
     step_profile(torch, split)
+    cfg, params, lm_counts, snap = lm_serve_phase(torch, np, counters)
+    live = lm_decode_parity(torch, cfg, params, snap)
+    lm_profile(torch, cfg, params, snap)
+    del params, snap
+    lm_reference_phase(torch, np)
+    serve_rec["decode_attention"], large_rec["decode_attention"] = \
+        decode_shapes(torch, F, ops, ref, live)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     kernels = []
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name],
-                   "offline": offline_counts[name]}
+                   "offline": offline_counts[name], "lm": lm_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src_path,
@@ -799,6 +1253,7 @@ def main() -> int:
             **{k: serve_rec[name][k] for k in keys},
             "large": [{k: b[k] for k in keys} for b in large_rec[name]],
         })
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

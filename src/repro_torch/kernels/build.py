@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ellmean", "hindex", "sgns", "topk")
+SOURCES = ("ellmean", "flash_decode", "hindex", "sgns", "topk")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

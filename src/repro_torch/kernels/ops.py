@@ -10,22 +10,25 @@ The output contracts are those of ``repro.kernels.ops``: ``sgns_loss``
 gives (B,) float32, differentiable through both SGNS kernels; ``ell_mean``
 gives (N, D) in emb's dtype with empty rows 0; ``h_index_sweep`` gives (R,) int32;
 ``top_k_scores`` gives ``(vals, idx)`` ordered by (score desc, index asc)
-with -inf / -1 padding. The TPU tiling work of the JAX wrappers (lane and
-row padding, the left-pack argsort, the final sort) has no counterpart: the
-kernels take the shapes as they come and return ordered results.
+with -inf / -1 padding; ``decode_attention`` gives (B, H, Dh) in q's dtype.
+The TPU tiling work of the JAX wrappers (lane and row padding, the
+left-pack argsort, the final sort, the decode block size that must divide
+S) has no counterpart: the kernels take the shapes as they come and return
+ordered results.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ellmean as _em
+from . import flash_decode as _fd
 from . import hindex as _hx
 from . import ref as _ref
 from . import sgns as _sg
 from . import topk as _tk
 
 __all__ = ["sgns_loss", "SGNSLoss", "ell_mean", "h_index_sweep",
-           "top_k_scores", "normalize_rows"]
+           "top_k_scores", "normalize_rows", "decode_attention"]
 
 
 def _resolve(impl: str, t: torch.Tensor, cpu_default: str, allowed) -> str:
@@ -134,4 +137,35 @@ def top_k_scores(q, table, k, *, valid=None, impl: str = "auto"):
     return _tk.topk_cuda(
         q.to(torch.float32).contiguous(), table.to(torch.float32).contiguous(),
         bias, int(k),
+    )
+
+
+def decode_attention(q, k, v, cache_len, *, softcap: float = 0.0, window=0,
+                     k_scale=None, v_scale=None, impl: str = "auto"):
+    """Single-token GQA decode attention over a padded KV cache.
+
+    q: (B, H, Dh); k, v: (B, S, Hkv, Dh) (int8 with (B, S, Hkv) float32
+    ``k_scale`` / ``v_scale``); cache_len: (B,) -> (B, H, Dh) in q's dtype.
+    ``window`` > 0, a Python int or a 0-dim tensor (a per-layer window as
+    data), keeps the positions ``max(len - window, 0) <= s < len`` of each
+    row; a length above S sees the S cached positions. ``impl``: "cuda" (the
+    kernel; the cache must be contiguous), "ref" (the plain version) or
+    "auto" (by the tensors' device).
+    """
+    impl = _resolve(impl, q, "ref", ("ref", "cuda"))
+    if impl == "ref":
+        return _ref.decode_attention_ref(
+            q, k, v, cache_len, softcap=softcap, window=window,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    lens = cache_len.to(torch.int32).contiguous()
+    if isinstance(window, torch.Tensor):
+        win_lo = torch.where(window > 0, (lens - window).clamp_min(0), 0)
+    elif window > 0:
+        win_lo = (lens - window).clamp_min(0)
+    else:
+        win_lo = torch.zeros_like(lens)
+    return _fd.decode_attention_cuda(
+        q.contiguous(), k, v, lens, win_lo.to(torch.int32), softcap=softcap,
+        k_scale=k_scale, v_scale=v_scale,
     )

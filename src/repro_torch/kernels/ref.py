@@ -1,18 +1,20 @@
 """Plain PyTorch versions of the port's kernels — the semantics of record.
 
 Torch counterparts of ``repro.kernels.ref`` (``sgns_loss_ref``,
-``sgns_grads_ref``, ``ell_mean_ref``, ``h_index_ref``, ``topk_ref``) plus
-the sort-free ``h_index_count`` of ``repro.kernels.hindex``. They are what the CPU runs, and what every CUDA
+``sgns_grads_ref``, ``ell_mean_ref``, ``h_index_ref``, ``topk_ref``,
+``decode_attention_ref``) plus the sort-free ``h_index_count`` of
+``repro.kernels.hindex``. They are what the CPU runs, and what every CUDA
 kernel is held against on the card. Scores and means are fp32 whatever the
 input type; on the card a caller that compares against them keeps TF32 off.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["sgns_loss_ref", "sgns_grads_ref", "ell_mean_ref", "h_index_ref",
-           "h_index_count", "topk_ref"]
+           "h_index_count", "topk_ref", "decode_attention_ref"]
 
 
 def _logits(center, ctx, neg):
@@ -124,3 +126,46 @@ def topk_ref(q: torch.Tensor, table: torch.Tensor, k: int,
         vals = torch.cat([vals, vals.new_full((n_q, k - kk), float("-inf"))], 1)
         idx = torch.cat([idx, idx.new_full((n_q, k - kk), -1)], 1)
     return vals, idx
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len: torch.Tensor, *, softcap: float = 0.0,
+                         window=0, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Single-token GQA decode attention over a padded KV cache.
+
+    q: (B, H, Dh) for the new token; k, v: (B, S, Hkv, Dh) cache (padded to
+    S; float32, bfloat16, or int8 with ``k_scale`` / ``v_scale`` (B, S, Hkv)
+    float32 scales that dequantise it); cache_len: (B,) lengths, which may
+    exceed S (only the S cached positions are visible then). H = G * Hkv,
+    query head h reads cache head h // G. ``window`` > 0 (an int or a 0-dim
+    tensor) keeps only the last ``window`` positions below each length.
+    Logits accumulate in float32, are scaled by 1/sqrt(Dh), capped by
+    ``softcap * tanh(. / softcap)`` when softcap > 0, and masked to -1e30
+    after the cap. Returns (B, H, Dh) in q's dtype.
+
+    Defined only for rows with at least one visible position (decode always
+    has one: length >= 1 and the window's lower bound below it). For a row
+    with none this softmax averages V uniformly where the CUDA kernel, like
+    the Pallas one, returns 0.
+    """
+    b, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, h // hkv, dh)
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].float()
+    if v_scale is not None:
+        vf = vf * v_scale[..., None].float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, kf) / float(np.sqrt(
+        np.float32(dh)))
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)[None, :]
+    lens = cache_len.to(q.device)[:, None]
+    window = torch.as_tensor(window, device=q.device)
+    win_lo = torch.where(window > 0, lens - window, 0)
+    mask = (pos < lens) & (pos >= win_lo)
+    logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, vf)
+    return out.reshape(b, h, dh).to(q.dtype)

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.train.optim import AdamState
 
@@ -24,9 +25,10 @@ Params = Dict[str, torch.Tensor]
 
 
 def init_params(n_nodes: int, dim: int, gen: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, *, device="cuda") -> Params:
     """word2vec-style init: uniform(-0.5, 0.5)/dim for input, zeros for
     output; ``gen`` must live on ``device``."""
+    device = resolve_device(device)
     u = torch.rand((n_nodes, dim), generator=gen, device=device)
     emb_in = (u - 0.5) / dim
     emb_out = torch.zeros((n_nodes, dim), device=device)
@@ -42,12 +44,13 @@ def batch_loss(params: Params, centers, contexts, negatives,
     return ops.sgns_loss(c, x, n, impl=impl).mean()
 
 
-def from_jax_params(params, opt_state=None, *, device="cpu"):
+def from_jax_params(params, opt_state=None, *, device="cuda"):
     """Carry the JAX package's SGNS parameters (and optionally its Adam
     state) across: ``params`` is ``{"emb_in", "emb_out"}`` of numpy arrays;
     ``opt_state`` is the state of ``repro.train.optim.adam`` with numpy
     leaves, i.e. ``(AdamState(count, mu, nu), (), count)``. Returns
     ``(params, AdamState or None)`` as torch tensors on ``device``."""
+    device = resolve_device(device)
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device)

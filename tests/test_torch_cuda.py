@@ -10,13 +10,18 @@ Tolerances: the SGNS loss and gradients 1e-5 in fp32 and 2e-2 in bf16
 (fp32 dots summed in another order, then one bf16 rounding), the ELL mean
 1e-5 in fp32 and 2e-2 in bf16 (summation order),
 the h-index exact, the top-k scores at 1e-5 with ids equal off near-ties
-(fp32 dot products of width d summed in another order).
+(fp32 dot products of width d summed in another order), flash-decode 2e-5
+with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
+ones (one bf16 rounding of the same fp32 result), the LM decode step on the card against the CPU
+1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
+and 1e-2 (logits).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ellmean, hindex, ops, ref, sgns, topk
+from repro_torch.kernels import (ellmean, flash_decode, hindex, ops, ref,
+                                 sgns, topk)
 
 ELL_CASES = [(8, 4, 16, 128), (16, 7, 32, 128), (5, 3, 8, 150),
              (12, 1, 4, 256), (64, 1766, 37701, 128)]
@@ -197,3 +202,136 @@ def test_service_on_the_card_matches_the_cpu(cuda):
     for k in (10, 40):  # one round of the kernel, then two
         (_, s_gpu), (_, s_cpu) = (s.top_k_neighbors(nodes, k) for s in svcs)
         np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-5, atol=1e-5)
+
+
+def _decode_inputs(dev, b, h, hkv, dh, s, kind, seed):
+    """q, k, v, lengths (ragged, one above S), scales (int8 kinds) on dev."""
+    rng = np.random.default_rng(seed)
+    q, k, v = _on(dev, *[rng.standard_normal(shape).astype(np.float32)
+                         for shape in ((b, h, dh), (b, s, hkv, dh),
+                                       (b, s, hkv, dh))])
+    lens = rng.integers(1, s + 1, b)
+    lens[-1] = s + 5  # a finished row decoding past its cache's end
+    lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    qdt = torch.bfloat16 if kind in ("bfloat16", "int8-bf16") else \
+        torch.float32
+    scales = {}
+    if kind.startswith("int8"):
+        from repro_torch.models.attention import quantize_kv_rows
+
+        k, scales["k_scale"] = quantize_kv_rows(k)
+        v, scales["v_scale"] = quantize_kv_rows(v)
+    elif kind == "bfloat16":
+        k, v = k.bfloat16(), v.bfloat16()
+    return q.to(qdt), k, v, lens, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8",
+                                  "int8-bf16"])
+def test_flash_decode_kernel_matches_plain(cuda, dh, g, kind):
+    """GQA groups, head dims, cache types; S not a multiple of 32 (48,
+    1000); B in {1, 3, 8}; softcap and window; ragged lengths with one above
+    S."""
+    # bf16 queries: both round an fp32 result once, so at most one ulp apart
+    # (< 1e-2 x |out| + 1e-3); fp32 queries: 2e-5
+    rtol, atol = (1e-2, 1e-3) if "bf16" in kind or kind == "bfloat16" \
+        else (2e-5, 2e-5)
+    for b, s in ((1, 48), (3, 1000), (8, 48)):
+        q, k, v, lens, scales = _decode_inputs(cuda, b, 2 * g, 2, dh, s,
+                                               kind, b * 1000 + dh + g)
+        for softcap, window in ((0.0, 0), (50.0, 0), (0.0, 16), (30.0, 40)):
+            before = flash_decode.launches
+            got = ops.decode_attention(q, k, v, lens, softcap=softcap,
+                                       window=window, **scales)
+            assert flash_decode.launches == before + 1
+            assert got.dtype == q.dtype and got.shape == q.shape
+            want = ref.decode_attention_ref(q, k, v, lens, softcap=softcap,
+                                            window=window, **scales)
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_decode_window_as_data(cuda):
+    q, k, v, lens, _ = _decode_inputs(cuda, 3, 8, 2, 128, 300, "float32", 9)
+    for w in (0, 50):
+        got = ops.decode_attention(q, k, v, lens, window=torch.tensor(
+            w, device=cuda))
+        torch.testing.assert_close(got, ops.decode_attention(
+            q, k, v, lens, window=w), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_decode_wrapper_refuses_what_it_cannot_take(cuda):
+    q, k, v, lens, _ = _decode_inputs(cuda, 2, 8, 2, 64, 40, "float32", 1)
+    lo = torch.zeros_like(lens)
+    fd = flash_decode.decode_attention_cuda
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fd(q.cpu(), k.cpu(), v.cpu(), lens.cpu(), lo.cpu())
+    with pytest.raises(ValueError, match="must be one of"):
+        fd(q, k.half(), v.half(), lens, lo)
+    with pytest.raises(ValueError, match="must be one of"):
+        fd(q, k, v, lens.long(), lo)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd(q, k.transpose(1, 2), v.transpose(1, 2), lens, lo)
+    with pytest.raises(ValueError, match="k_scale"):
+        fd(q, k.to(torch.int8), v.to(torch.int8), lens, lo)
+    with pytest.raises(ValueError, match="head_dim"):
+        fd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+           v[..., :48].contiguous(), lens, lo)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over,tol", [
+    ("qwen3-4b", dict(n_heads=8, n_kv_heads=2), 1e-4),
+    ("gemma2-2b", dict(sliding_window=6), 1e-4),
+    # int8 cache: a value next to a rounding midpoint may quantise one step
+    # apart (1/127 of its row's max), which moves the logits by about 1e-3
+    ("qwen3-4b", dict(n_heads=8, n_kv_heads=2, kv_quant=True), 1e-2),
+])
+def test_decode_step_on_the_card_matches_the_cpu(cuda, arch, over, tol):
+    """The reduced model's prefill and one decode step (through the
+    flash-decode kernel) on the card against the CPU (the plain version),
+    the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch).reduced(**over)
+    params = transformer.init_model(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (3, 8)))
+    nxt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (3, 1)))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        _, cache = transformer.forward_prefill(p, cfg, tokens=toks.to(dev),
+                                               max_len=12)
+        before = flash_decode.launches
+        logits, cache = transformer.forward_decode(p, cache, nxt.to(dev), cfg)
+        if dev != "cpu":
+            assert flash_decode.launches == before + cfg.n_layers
+        out[str(dev)] = (logits.cpu(), _tree_to(cache, "cpu"))
+    (lc, cc), (lg, cg) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(lg, lc, rtol=tol, atol=tol)
+    for key in cc:
+        if cc[key].dtype == torch.int32:
+            assert torch.equal(cg[key], cc[key]), key
+        elif cc[key].dtype == torch.int8:
+            # k and v differ in the last fp32 bits (another matmul order), so
+            # a value next to a rounding midpoint may land one step apart
+            diff = (cg[key].int() - cc[key].int()).abs()
+            assert int(diff.max()) <= 1 and float(
+                (diff > 0).float().mean()) < 1e-3, key
+        else:
+            torch.testing.assert_close(cg[key], cc[key], rtol=1e-5,
+                                       atol=1e-5)

@@ -144,7 +144,7 @@ def test_train_steps_match_jax(jax_corpus, steps):
     for s in range(steps):
         tparams, tstate = model.from_jax_params(
             jax.tree.map(np.asarray, jparams),
-            jax.tree.map(np.asarray, jstate))
+            jax.tree.map(np.asarray, jstate), device="cpu")
         assert tstate.count == s
         ids = jcorpus._sample(c.walks, c.noise_cdf, jax.random.PRNGKey(10 + s),
                               batch, window, n_neg, c.length, c.n_real)
