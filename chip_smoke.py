@@ -22,8 +22,11 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    on the same inputs, at the shapes the serving path gave it (taken from
    the live service) and at one large shape (the top-k there at k = 11
    and k = 100, one round and four), with kernel, plain and library
-   times from CUDA events and the bound (bytes over 3.35 TB/s or operations
-   over 67 TFLOP/s, the H100 SXM's published peaks);
+   device times (``time_ms``: the calls queued behind a spin kernel, CUDA
+   events around them, so the host's launch path is left out; the kernel
+   timed through its own wrapper alone), the kernel's CUDA-event time over
+   a loop of calls (``loop_ms``) and the bound (bytes over 3.35 TB/s or
+   operations over 67 TFLOP/s, the H100 SXM's published peaks);
 5. the offline path: the port's quick github table
    (``repro_torch.launch.tables``, seed 0: DeepWalk, the 13-core (Dw) row on
    the ``torch`` propagation backend, CoreWalk) at dim 150, batch 8192, with
@@ -31,7 +34,8 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    ``n_walks_run`` and ``n_sgns_steps`` equal to the JAX package's (CPU run,
    recorded in ``PERF.md``), F1 within 3 points of the JAX package's, one
    forward and one backward SGNS launch per step, and in the k-core row ELL
-   mean launches and a torch propagation within 1e-4 of the scipy one;
+   mean launches and a torch propagation within 1e-4 of the scipy one
+   (then the ELL mean at two of that row's propagation calls, see below);
 6. the SGNS kernels against their plain versions at the training shape
    (B=8192 K=5 D=150 fp32, 1e-5) and one large shape (B=65536 K=5 D=256
    bf16, 2e-2), timed on inputs rotated through more than twice the L2;
@@ -59,12 +63,21 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 10. a small LM reference: reduced qwen3-4b (fp32, G = 4) served on the card
    and on the CPU with the same weights and schedule: token streams equal,
    logits within 1e-4;
-11. flash-decode against its plain version (2e-5 fp32, 3e-2 bf16 and int8
-   with bf16 queries) at the live serving inputs (layers 0 and 35 of one
-   step, timed rotating through six layers) and at a gemma2-2b shape
-   (softcap 50, window 4096), a large ragged bf16 shape and the same with
-   an int8 cache, with the library time (one SDPA call, softcap 0 and no
-   int8 only) and the bound from the visible rows.
+11. flash-decode against its plain version (``TOL_DECODE``: 2e-5 with fp32
+   queries; rtol 1e-2 + atol 1e-3 with bf16 queries, bf16 or int8 cache)
+   at the live serving inputs (layers 0 and 35 of one step, timed rotating
+   through six layers) and at a gemma2-2b shape (softcap 50, window 4096),
+   a large ragged bf16 shape and the same with an int8 cache, with the
+   library time (one SDPA call, softcap 0 and no int8 only), the bound from
+   the visible rows and the number of splits of S the launch used.
+
+Every kernel record also holds ``x_bound`` (kernel / bound) and
+``x_library`` (kernel / library, where there is a library call). The ELL
+mean and flash-decode are also held to give the same bits on a second call
+(both are deterministic by design); the ELL mean is timed as well at two of
+the offline k-core row's propagation calls (one shell's rows against the
+table: the largest shell, and the largest that takes the row-split path)
+and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
@@ -89,6 +102,8 @@ TIE = 1e-6
 STREAM_FRAC = 0.15  # the launcher's default: 42,303 streamed edges
 TOL_SGNS = {"float32": 1e-5, "bfloat16": 2e-2}
 L2_BYTES = 50e6  # H100 L2 cache
+SPIN_HZ = 2.0e9  # cycles a second to size the spin kernel by (above the
+# H100's clock, so that the spin lasts at least as long as asked)
 # The JAX package's quick github table on the CPU, seed 0
 # (``benchmarks.table_github.run(quick=True)``; PERF.md): F1 (a quality
 # figure), walks and SGNS steps. Walks and steps depend only on the split
@@ -186,7 +201,45 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call from CUDA events around ``iters`` calls."""
+    """Mean device ms per call with the host's launch time left out: the
+    ``iters`` calls are queued behind a spin kernel that outlasts the
+    host's queueing, so CUDA events around them time the device alone (the
+    calls' kernels and the gaps between them). A kernel of a few
+    microseconds is then timed by itself and not by the Python that
+    launches it. If the host still took longer than the spin (a call that
+    waits on the device), the spin is lengthened and the timing repeated;
+    after three tries the time is returned host time included, and the log
+    says so."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = max(2.0 * iters * (time.perf_counter() - t0), 1e-3)
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for _ in range(3):
+        s.record()
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if queued_ms < s.elapsed_time(a):
+            return a.elapsed_time(b) / iters
+        spin_s *= 4
+    log(f"time_ms: the host took {queued_ms:.3f} ms to queue {iters} calls, "
+        "longer than the spin; this time includes host time")
+    return a.elapsed_time(b) / iters
+
+
+def loop_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call from CUDA events around ``iters`` calls: the device
+    time where the device is the limit, the host's launch rate where the
+    host is."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -205,10 +258,21 @@ def bound(bytes_: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ratios(rec: dict) -> dict:
+    """Add kernel / bound and kernel / library (None without a library
+    call) to a kernel record."""
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    lib = rec.get("library_ms")
+    rec["x_library"] = rec["ms"] / lib if lib else None
+    return rec
+
+
 # ------------------------------------------------------------ parity ----
 
 
 def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
+    from repro_torch.kernels import ellmean
+
     got = ops.ell_mean(idx, valid, emb, impl="cuda")
     want = ref.ell_mean_ref(idx, valid, emb)
     torch.cuda.synchronize()
@@ -217,6 +281,8 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
     expect(torch.allclose(got.float(), want.float(), rtol=TOL_ELL,
                           atol=TOL_ELL),
            f"ell_mean {label}: max abs err {err}")
+    expect(torch.equal(ops.ell_mean(idx, valid, emb, impl="cuda"), got),
+           f"ell_mean {label}: a second call gave other bits")
     flat = idx[valid].long()
     offsets = torch.zeros(idx.shape[0], dtype=torch.long, device=idx.device)
     offsets[1:] = torch.cumsum(valid.sum(1), 0)[:-1]
@@ -233,12 +299,17 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.ell_mean(idx, valid, emb,
                                                   impl="cuda"), iters),
+        "loop_ms": loop_ms(torch, lambda: ops.ell_mean(idx, valid, emb,
+                                                       impl="cuda"), iters),
         "plain_ms": time_ms(torch, lambda: ref.ell_mean_ref(idx, valid, emb),
                             max(iters // 4, 3)),
         "library_ms": time_ms(torch, lambda: F.embedding_bag(
             flat, emb, offsets, mode="mean"), iters),
         "bound_ms": b_ms, "bound_by": b_by,
+        "path": "row-split" if ellmean.row_split(n, l, emb.device)
+                else "warp-per-row",
     }
+    ratios(rec)
     log(f"ell_mean {label}: {rec}")
     return rec
 
@@ -295,11 +366,13 @@ def check_hindex(torch, ops, ref, tiers, label, iters=20):
                             for v, _, _ in tiers),
         "max_abs_err": 0.0,
         "ms": time_ms(torch, run("cuda"), iters),
+        "loop_ms": loop_ms(torch, run("cuda"), iters),
         "plain_ms": time_ms(torch, run("ref"), max(iters // 4, 3)),
         "count_ms": time_ms(torch, run("count"), max(iters // 4, 3)),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    ratios(rec)
     log(f"h_index {label}: {rec}")
     return rec
 
@@ -335,6 +408,8 @@ def topk_agree(torch, ref, got_v, got_i, q, table, k, valid):
 
 
 def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
+    from repro_torch.kernels import topk
+
     got_v, got_i = ops.top_k_scores(q, table, k, valid=valid, impl="cuda")
     err, n_tie = topk_agree(torch, ref, got_v, got_i, q, table, k, valid)
     bias = torch.zeros(table.shape[0], device=table.device)
@@ -346,8 +421,11 @@ def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
     rec = {
         "shape": f"Q={nq} N={n} D={d} k={k}",
         "max_abs_err": err, "near_tie_positions": n_tie,
-        "ms": time_ms(torch, lambda: ops.top_k_scores(
-            q, table, k, valid=valid, impl="cuda"), iters),
+        # the kernels alone, on the bias that ops.top_k_scores makes
+        "ms": time_ms(torch, lambda: topk.topk_cuda(q, table, bias, k),
+                      iters),
+        "loop_ms": loop_ms(torch, lambda: topk.topk_cuda(q, table, bias, k),
+                           iters),
         "plain_ms": time_ms(torch, lambda: ref.topk_ref(q, table, k,
                                                         valid=valid),
                             max(iters // 4, 3)),
@@ -355,6 +433,7 @@ def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
             q @ table.T + bias, k, dim=1), iters),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    ratios(rec)
     log(f"top_k {label}: {rec}")
     return rec
 
@@ -662,6 +741,50 @@ def offline_phase(torch, np, counters):
     return rows, total, sp
 
 
+def propagation_shapes(torch, np, ops, ref, F, sp):
+    """The ELL mean at two of the k-core row's propagation calls on the
+    split ``sp`` (``core/propagation.py``: one shell's ELL rows of the train
+    graph against the (n + 1, dim) table; each call's shape is one shell's):
+    the largest shell, and the largest shell that takes the row-split path.
+    The table is seeded noise at the table's width."""
+    from repro_torch.core import kcore
+    from repro_torch.core.propagation import propagation_schedule
+    from repro_torch.graph import datasets
+    from repro_torch.kernels import ellmean
+    from repro_torch.launch import tables
+
+    s, models = tables.table("github", quick=True)
+    k0f = next(f for _, _, f in models if f is not None)
+    k0 = tables.k0_of(kcore.core_numbers_host(datasets.load(s.dataset)), k0f)
+    g = sp.train_graph
+    core = kcore.core_numbers_host(g)
+    k0 = min(k0, kcore.degeneracy(core))
+    nbr, _ = g.ell_arrays()
+    core_ext = np.concatenate([core, [-1]])
+    shells = [(int((core == k).sum()), k)
+              for k in propagation_schedule(core, k0)]
+    width = nbr.shape[1]
+    paths = {k: ellmean.row_split(n, width, "cuda") for n, k in shells}
+    log(f"propagation (k0 {k0}, L {width}, dim {s.dim}): shells (N, k) "
+        f"{shells}; row-split path for k in "
+        f"{sorted(k for k, r in paths.items() if r)}")
+    picks = [max(shells)]
+    split_shells = [x for x in shells if paths[x[1]]]
+    if split_shells:
+        picks.append(max(split_shells))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    table = torch.randn((g.n_nodes + 1, s.dim), generator=gen, device="cuda")
+    recs = []
+    for _, k in picks:
+        rows = np.where(core == k)[0]
+        idx = torch.tensor(nbr[rows], device="cuda")
+        valid = torch.tensor((nbr[rows] != g.n_nodes)
+                             & (core_ext[nbr[rows]] >= k), device="cuda")
+        recs.append(check_ell(torch, ops, ref, F, idx, valid, table,
+                              f"propagation shell {k}"))
+    return recs
+
+
 def step_profile(torch, sp):
     """Device time by kernel and the busy share of 100 SGNS steps (after 120
     unprofiled), on the CoreWalk corpus of the quick github table's split
@@ -719,13 +842,13 @@ def rotation(torch, make, nbytes):
     return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def time_rotating(torch, fn, sets, iters):
+def time_rotating(torch, fn, sets, iters, timer=None, **kw):
     state = {"i": 0}
 
     def step():
         fn(*sets[state["i"] % len(sets)])
         state["i"] += 1
-    return time_ms(torch, step, iters)
+    return (timer or time_ms)(torch, step, iters, **kw)
 
 
 def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
@@ -771,6 +894,9 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
             "shape": shape, "max_abs_err": err_f,
             "ms": time_rotating(torch, lambda c, x, n, _: sgns.sgns_fwd_cuda(
                 c, x, n), sets, iters),
+            "loop_ms": time_rotating(torch, lambda c, x, n, _:
+                                     sgns.sgns_fwd_cuda(c, x, n), sets,
+                                     iters, loop_ms),
             "plain_ms": time_rotating(torch, lambda c, x, n, _:
                                       ref.sgns_loss_ref(c, x, n), sets,
                                       max(iters // 4, 3)),
@@ -779,12 +905,15 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
         "sgns_bwd": {
             "shape": shape, "max_abs_err": err_b,
             "ms": time_rotating(torch, sgns.sgns_bwd_cuda, sets, iters),
+            "loop_ms": time_rotating(torch, sgns.sgns_bwd_cuda, sets, iters,
+                                     loop_ms),
             "plain_ms": time_rotating(torch, ref.sgns_grads_ref, sets,
                                       max(iters // 4, 3)),
             "library_ms": None, "bound_ms": bb_ms, "bound_by": bb_by,
         },
     }
     for name, rec in recs.items():
+        ratios(rec)
         log(f"{name} {label}: {rec}")
     return recs
 
@@ -1081,6 +1210,8 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
             kw.update(k_scale=t[4], v_scale=t[5])
         return q, k, v, lens, kw
 
+    from repro_torch.kernels import flash_decode
+
     q, k, v, lens, kw = split(sets[0])
     got = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
     want = ref.decode_attention_ref(q, k, v, lens, **kw)
@@ -1091,6 +1222,9 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
     expect(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
            f"flash_decode {label}: max abs err {err} against max|out| "
            f"{scale} (rtol {rtol}, atol {atol})")
+    expect(torch.equal(ops.decode_attention(q, k, v, lens, impl="cuda",
+                                            **kw), got),
+           f"flash_decode {label}: a second call gave other bits")
     b, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     end = lens.clamp_max(s)
@@ -1102,9 +1236,14 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
         + 2 * q.numel() * q.element_size() + 8 * b
     b_ms, b_by = bound(nbytes, 4.0 * vis * h * dh)
 
-    def kern(*t):
+    expect(all(torch.equal(t[3], lens) for t in sets),
+           f"flash_decode {label}: the timed sets' lengths differ")
+
+    def kern(*t):  # the kernel alone, on the window bound ops computes
         q, k, v, lens, kw = split(t)
-        ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
+        flash_decode.decode_attention_cuda(
+            q, k, v, lens, lo, softcap=softcap, k_scale=kw.get("k_scale"),
+            v_scale=kw.get("v_scale"))
 
     def plain(*t):
         q, k, v, lens, kw = split(t)
@@ -1134,9 +1273,12 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
                  f"window={window} visible={vis}",
         "max_abs_err": err, "max_abs_out": scale, "rtol": rtol, "atol": atol,
         "ms": time_rotating(torch, kern, sets, iters),
+        "loop_ms": time_rotating(torch, kern, sets, iters, loop_ms),
         "plain_ms": time_rotating(torch, plain, sets, max(iters // 4, 3)),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "splits": flash_decode.splits(q, k),
     }
+    ratios(rec)
     log(f"flash_decode {label}: {rec}")
     return rec
 
@@ -1145,7 +1287,8 @@ def decode_shapes(torch, F, ops, ref, live, dev="cuda"):
     """flash_decode at the live serving inputs (layers ``LM_LAYERS`` of one
     step: parity at the first and last, timing rotated through all) and at
     three made-up shapes: gemma2-2b's (softcap 50, window 4096), a large
-    ragged bf16 one and the same with an int8 cache."""
+    ragged bf16 one and the same with an int8 cache, each timed rotating
+    through two caches (the second the first rolled by one batch row)."""
     from repro_torch.models.attention import quantize_kv_rows
 
     recs = []
@@ -1167,12 +1310,17 @@ def decode_shapes(torch, F, ops, ref, live, dev="cuda"):
             lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
                                  dtype=torch.int32)
             lens[-1] = s + 7  # a finished row past the cache's end
-            sets = [(q, k, v, lens)]
+            # a second cache to time against, so that no call finds the
+            # previous one's rows in the L2
+            k2, v2 = torch.roll(k, 1, 0), torch.roll(v, 1, 0)
+            sets = [(q, k, v, lens), (q, k2, v2, lens)]
         else:  # the previous shape's inputs with an int8 cache
-            kq, ks = quantize_kv_rows(k)
-            vq, vs = quantize_kv_rows(v)
-            sets = [(q, kq, vq, lens, ks, vs)]
-            del k, v, kq, vq
+            sets = []
+            for kk, vv in ((k, v), (k2, v2)):
+                kq, ks = quantize_kv_rows(kk)
+                vq, vs = quantize_kv_rows(vv)
+                sets.append((q, kq, vq, lens, ks, vs))
+            del k, v, k2, v2, kq, vq
         recs.append(check_decode(torch, F, ops, ref, sets, label,
                                  softcap=softcap, window=window, iters=10))
         del sets
@@ -1223,6 +1371,8 @@ def main() -> int:
     serve_rec = serve_shapes(torch, np, ops, ref, F, svc)
     large_rec = large_shapes(torch, ops, ref, F)
     _, offline_counts, split = offline_phase(torch, np, counters)
+    large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
+                                                split)
     train = check_sgns(torch, ref, sgns, 8192, 5, 150, torch.float32,
                        "train")
     large = check_sgns(torch, ref, sgns, 65536, 5, 256, torch.bfloat16,
@@ -1239,8 +1389,8 @@ def main() -> int:
     serve_rec["decode_attention"], large_rec["decode_attention"] = \
         decode_shapes(torch, F, ops, ref, live)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+    keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name],

@@ -4,7 +4,10 @@ The Hopper counterpart of the Pallas kernel in ``repro.kernels.ellmean``:
 ``out[i] = mean(emb[idx[i, j]] for valid j)``, empty rows 0, fp32
 accumulation, output in emb's dtype, the (N, L, D) gather never
 materialised. The kernel reads ``idx``/``valid`` directly, so unlike the TPU
-path there is no left-pack. The plain version is ``ref.ell_mean_ref``.
+path there is no left-pack. Few long rows (fewer than 8 rows per SM, at
+least 256 slots a row) take a block per row, the rest a warp per row
+(the rule is in the source; :func:`row_split` reports it). The plain
+version is ``ref.ell_mean_ref``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 
 from . import build
 
-__all__ = ["ell_mean_cuda", "launches"]
+__all__ = ["ell_mean_cuda", "row_split", "launches"]
 
 launches = 0  # kernel launches since the last reset (a plain count)
 
@@ -29,6 +32,22 @@ def _fn():
         fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def row_split(n: int, l: int, device) -> bool:
+    """Whether an (N, L) launch on ``device`` (a CUDA device) takes the
+    row-split kernel (a block per row) rather than a warp per row. Launches
+    nothing."""
+    lib = build.library("ellmean")
+    fn = lib.ell_mean_path
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    path = ctypes.c_int(0)
+    build.check(lib, fn(n, l, torch.device(device).index or 0,
+                        ctypes.byref(path)), "ell_mean path")
+    return bool(path.value)
 
 
 def ell_mean_cuda(idx: torch.Tensor, valid: torch.Tensor,

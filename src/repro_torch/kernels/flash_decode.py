@@ -7,7 +7,10 @@ softcap, a per-row window lower bound passed as data, ragged per-row lengths
 (clamped to S), and an optional int8 cache with (B, S, Hkv) fp32 scales.
 fp32 accumulation, output in q's dtype. The cache is read in its own layout,
 with no copy: it must be contiguous, as a per-layer slice of a contiguous
-(L, B, S, Hkv, Dh) cache is. The plain version is
+(L, B, S, Hkv, Dh) cache is. One launch splits each row's visible range
+over a cluster of up to 8 blocks and combines the splits in a fixed order
+(the splitting rule is in the source; :func:`splits` reports it), so two
+calls on the same inputs give the same bits. The plain version is
 ``ref.decode_attention_ref``; ``ops.decode_attention`` computes the window
 bound and dispatches.
 """
@@ -19,11 +22,11 @@ import torch
 
 from . import build
 
-__all__ = ["decode_attention_cuda", "launches", "HEAD_DIMS"]
+__all__ = ["decode_attention_cuda", "splits", "launches", "HEAD_DIMS"]
 
 launches = 0  # kernel launches since the last reset (a plain count)
 
-HEAD_DIMS = (32, 64, 128, 256)  # Dh / 32 elements per lane, one vector load
+HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2
 
@@ -37,6 +40,25 @@ def _fn():
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def splits(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The number of splits of S a launch on (q, k) uses (q: (B, H, Dh),
+    k: (B, S, Hkv, Dh), both on one CUDA device). Launches nothing."""
+    lib = build.library("flash_decode")
+    fn = lib.flash_decode_splits
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, i, i, i, i, i, ctypes.POINTER(i)]
+        fn.restype = i
+    b, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kv = _INT8 if k.dtype == torch.int8 else _Q_DTYPES[q.dtype]
+    n = ctypes.c_int(0)
+    build.check(lib, fn(b, s, h, hkv, dh, _Q_DTYPES[q.dtype], kv,
+                        q.device.index, ctypes.byref(n)),
+                "flash_decode splits")
+    return n.value
 
 
 def _aligned(t: torch.Tensor, name: str) -> None:

@@ -162,8 +162,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = softcap * torch.tanh(logits / softcap)
     pos = torch.arange(s, device=q.device)[None, :]
     lens = cache_len.to(q.device)[:, None]
-    window = torch.as_tensor(window, device=q.device)
-    win_lo = torch.where(window > 0, lens - window, 0)
+    if isinstance(window, torch.Tensor):
+        window = window.to(q.device)
+        win_lo = torch.where(window > 0, lens - window, 0)
+    else:  # a Python int: nothing to copy to the device
+        win_lo = lens - window if window > 0 else torch.zeros_like(lens)
     mask = (pos < lens) & (pos >= win_lo)
     logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(logits, dim=-1)

@@ -12,7 +12,8 @@ Tolerances: the SGNS loss and gradients 1e-5 in fp32 and 2e-2 in bf16
 the h-index exact, the top-k scores at 1e-5 with ids equal off near-ties
 (fp32 dot products of width d summed in another order), flash-decode 2e-5
 with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
-ones (one bf16 rounding of the same fp32 result), the LM decode step on the card against the CPU
+ones (one bf16 rounding of the same fp32 result; int8 caches as their
+queries), the LM decode step on the card against the CPU
 1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
 and 1e-2 (logits).
 """
@@ -24,7 +25,11 @@ from repro_torch.kernels import (ellmean, flash_decode, hindex, ops, ref,
                                  sgns, topk)
 
 ELL_CASES = [(8, 4, 16, 128), (16, 7, 32, 128), (5, 3, 8, 150),
-             (12, 1, 4, 256), (64, 1766, 37701, 128)]
+             (12, 1, 4, 256), (64, 1766, 37701, 128),
+             # few long rows: the row-split kernel (a block per row)
+             (1, 1766, 37701, 128), (3, 5000, 1000, 128),
+             (64, 5000, 37701, 128), (3, 1766, 500, 150),
+             (3, 1766, 500, 256), (2, 300, 100, 600)]
 H_CASES = [(1, 1), (3, 5), (17, 130), (200, 7), (1000, 2048), (4096, 32)]
 TOPK_CASES = [(1, 1, 1, 1), (4, 100, 16, 5), (8, 1024, 32, 10),
               (3, 7, 8, 10), (17, 513, 130, 13), (64, 37701, 128, 11),
@@ -60,6 +65,67 @@ def test_ell_mean_kernel_matches_plain(cuda, n, l, m, d, dtype):
     want = ref.ell_mean_ref(idx, valid, emb)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _sparse_ell(dev, n, l, m, d, dtype, seed):
+    """ELL rows as the serving flush and the propagation give them: each
+    row's valid slots first (its degree), some of them not resident; row 0
+    has none, row 2 (if any) every slot."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 40, n)
+    deg[0] = 0
+    if n > 2:
+        deg[2] = l
+    valid = (np.arange(l)[None, :] < deg[:, None]) & (rng.random((n, l))
+                                                       < 0.8)
+    valid[0] = False
+    idx, valid, emb = _on(dev, rng.integers(0, m, (n, l)).astype(np.int32),
+                          valid,
+                          rng.standard_normal((m, d)).astype(np.float32))
+    return idx, valid, emb.to(dtype)
+
+
+def _ell_holds(idx, valid, emb):
+    """The kernel once (one launch) against the plain version, then again:
+    the same bits. Returns the output."""
+    before = ellmean.launches
+    got = ops.ell_mean(idx, valid, emb)
+    assert ellmean.launches == before + 1 and got.dtype == emb.dtype
+    want = ref.ell_mean_ref(idx, valid, emb)
+    tol = 1e-5 if emb.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(ops.ell_mean(idx, valid, emb), got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l", [(1, 1766), (3, 5000), (64, 1766),
+                                 (64, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_mean_few_long_rows(cuda, n, l, dtype):
+    """The row-split kernel at the serving flush's shape and longer rows:
+    sparse rows, an empty row (0), a full row, fp32 sums in bf16 too, and
+    two calls bit-identical."""
+    assert ellmean.row_split(n, l, cuda)
+    idx, valid, emb = _sparse_ell(cuda, n, l, 37701, 128, dtype, n + l)
+    got = _ell_holds(idx, valid, emb)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+def test_ell_mean_path_threshold(cuda):
+    """Both sides of the rule: fewer than 8 rows per SM with rows of at
+    least 256 slots take the row-split kernel, anything else a warp per
+    row; each side matches the plain version and repeats its bits."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, l, d, rows in ((8 * sms - 8, 256, 128, True),
+                          (8 * sms, 256, 128, False),
+                          (8 * sms - 8, 255, 150, False),
+                          (1, 256, 150, True), (1, 255, 128, False),
+                          (8 * sms - 7, 300, 64, False)):
+        assert ellmean.row_split(n, l, cuda) is rows, (n, l)
+        for dtype in (torch.float32, torch.bfloat16):
+            _ell_holds(*_sparse_ell(cuda, n, l, 5000, d, dtype, n + l))
 
 
 @pytest.mark.cuda
@@ -252,6 +318,83 @@ def test_flash_decode_kernel_matches_plain(cuda, dh, g, kind):
                                             window=window, **scales)
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=atol)
+
+
+SPLIT_CASES = [
+    # label, B, H, Hkv, Dh, S, lengths, window, softcap
+    ("B=1 S=8192", 1, 32, 8, 128, 8192, [8192], 0, 0.0),
+    ("lengths of 1 and shorter than a split", 4, 32, 8, 128, 4096,
+     [1, 5, 200, 4096], 0, 0.0),
+    ("a window of 40: most splits empty", 2, 16, 4, 128, 4096, [4096, 3000],
+     40, 0.0),
+    ("a length above S", 3, 8, 2, 64, 2048, [2048, 2100, 999], 0, 0.0),
+    ("gemma2-2b: Dh=256 G=2", 2, 8, 4, 256, 8192, [8192, 5000], 4096, 50.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8-bf16"])
+def test_flash_decode_splits_match_plain(cuda, case, kind):
+    """Shapes where S is split across a cluster of blocks: one launch, the
+    plain version's result, and the same bits from a second call."""
+    _, b, h, hkv, dh, s, lens, window, softcap = case
+    q, k, v, _, scales = _decode_inputs(cuda, b, h, hkv, dh, s, kind, s + dh)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert flash_decode.splits(q, k) > 1
+    rtol, atol = (2e-5, 2e-5) if kind == "float32" else (1e-2, 1e-3)
+    before = flash_decode.launches
+    got = ops.decode_attention(q, k, v, lens, softcap=softcap, window=window,
+                               **scales)
+    assert flash_decode.launches == before + 1
+    want = ref.decode_attention_ref(q, k, v, lens, softcap=softcap,
+                                    window=window, **scales)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    again = ops.decode_attention(q, k, v, lens, softcap=softcap,
+                                 window=window, **scales)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_flash_decode_row_with_no_visible_position_is_zero(cuda, kind):
+    """A row whose window starts at or past its end gives 0 (as the Pallas
+    kernel does), with no NaN from its empty splits, and leaves every other
+    row's bits as they are."""
+    q, k, v, lens, _ = _decode_inputs(cuda, 3, 16, 4, 128, 1024, kind, 21)
+    lens[:] = torch.tensor([1024, 700, 333], dtype=torch.int32)
+    assert flash_decode.splits(q, k) > 1
+    fd = flash_decode.decode_attention_cuda
+    lo = torch.zeros_like(lens)
+    full = fd(q, k, v, lens, lo)
+    lo[1] = 700
+    got = fd(q, k, v, lens, lo)
+    assert torch.isfinite(got.float()).all()
+    assert not got[1].any()
+    assert torch.equal(got[[0, 2]], full[[0, 2]])
+    rtol, atol = (2e-5, 2e-5) if kind == "float32" else (1e-2, 1e-3)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    torch.testing.assert_close(got[[0, 2]].float(), want[[0, 2]].float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_decode_split_threshold(cuda):
+    """Both sides of the splitting rule: S = 127 is one split, S = 128 two
+    (at most one per two 32-position tiles); enough (b, c) pairs to fill two
+    waves of blocks leave S whole. Each matches the plain version."""
+    res = torch.cuda.get_device_properties(cuda).multi_processor_count * 16
+    for b, hkv, s, one in ((2, 2, 127, True), (2, 2, 128, False),
+                           (-(-2 * res // 8), 8, 256, True)):
+        q, k, v, lens, _ = _decode_inputs(cuda, b, 4 * hkv, hkv, 128, s,
+                                          "bfloat16", s)
+        n = flash_decode.splits(q, k)
+        assert (n == 1) if one else (n == 2), (b, s, n)
+        got = ops.decode_attention(q, k, v, lens)
+        want = ref.decode_attention_ref(q, k, v, lens)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -161,3 +161,155 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         ops.decode_attention(q, k, v, lens, impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
         ops.decode_attention(q, k, v, lens, impl="pallas")
+
+
+# ---- the CUDA kernel's split-and-combine arithmetic, on the CPU ----------
+#
+# ``csrc/flash_decode.cu`` cuts each row's visible range into ``nsplit`` runs
+# of whole 32-position tiles; in a run each of 4 warps keeps an online
+# softmax (m, l, acc) over its 8 positions of every tile; the warps are
+# combined in warp order into the run's partial, and the runs' partials in
+# split order. ``_split_decode`` renders exactly that in plain torch (never
+# on a main path) so that the combine, empty runs included, is checked
+# where there is no card.
+
+TILE, WARPS = 32, 4
+NEG = -1e30
+
+
+def _combine(m, l, acc):
+    """Partials (P, ...), (P, ...), (P, ..., Dh) combined in index order,
+    as the kernel's epilogue does: (m, l, acc) of the whole."""
+    mx = m.max(0).values
+    f = torch.exp(m - mx)
+    tot, a = torch.zeros_like(l[0]), torch.zeros_like(acc[0])
+    for j in range(m.shape[0]):
+        tot = tot + l[j] * f[j]
+        a = a + acc[j] * f[j][..., None]
+    return mx, tot, a
+
+
+def _split_decode(q, k, v, lens, win_lo, nsplit, *, softcap=0.0,
+                  k_scale=None, v_scale=None):
+    """(B, H, Dh) float32: the kernel's partials per split, per warp."""
+    b, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, hkv, g, dh)
+    out = torch.zeros(b, hkv, g, dh)
+    for bi in range(b):
+        end = min(int(lens[bi]), s)
+        lo = max(int(win_lo[bi]), 0)
+        n = max(end - lo, 0)
+        per = -(-(-(-n // nsplit)) // TILE) * TILE
+        parts = []
+        for j in range(nsplit):
+            s_lo = min(lo + j * per, max(end, lo))
+            s_hi = min(s_lo + per, end)
+            m = torch.full((WARPS, hkv, g), NEG)
+            l = torch.zeros(WARPS, hkv, g)
+            acc = torch.zeros(WARPS, hkv, g, dh)
+            for t0 in range(s_lo, s_hi, TILE):
+                pos = torch.arange(t0, t0 + TILE)
+                live = pos < s_hi
+                at = pos.clamp_max(s - 1)
+                kk = k[bi, at].float() * live[:, None, None]  # zero-filled
+                vv = v[bi, at].float() * live[:, None, None]
+                ks = vs = torch.ones(TILE, hkv)
+                if k_scale is not None:
+                    ks = k_scale[bi, at] * live[:, None]
+                    vs = v_scale[bi, at] * live[:, None]
+                d = torch.einsum("cgd,tcd->cgt", qf[bi], kk)
+                d = d * ks.T[:, None, :] * float(1.0 / np.sqrt(dh))
+                if softcap > 0.0:
+                    d = softcap * torch.tanh(d / softcap)
+                d = torch.where(live, d, torch.tensor(NEG))
+                # warp w owns positions 8w .. 8w + 7 of the tile
+                d = d.reshape(hkv, g, WARPS, TILE // WARPS).permute(2, 0, 1, 3)
+                mnew = torch.maximum(m, d.max(-1).values)
+                p = torch.exp(d - mnew[..., None])
+                p = torch.where(live.reshape(WARPS, 1, 1, -1), p,
+                                torch.tensor(0.0))
+                alpha = torch.exp(m - mnew)
+                l = l * alpha + p.sum(-1)
+                pv = p * vs.T.reshape(hkv, 1, WARPS, -1).permute(2, 0, 1, 3)
+                vw = vv.reshape(WARPS, TILE // WARPS, hkv, dh)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "wcgt,wtcd->wcgd", pv, vw)
+                m = mnew
+            parts.append(_combine(m, l, acc))
+        m, l, acc = (torch.stack(x) for x in zip(*parts))
+        _, tot, a = _combine(m, l, acc)
+        out[bi] = a / tot.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, dh)
+
+
+def _win_lo(lens, window):
+    return (lens - window).clamp_min(0) if window > 0 else \
+        torch.zeros_like(lens)
+
+
+SPLIT_CASES = [
+    # label, B, H, Hkv, Dh, S, lens, window, softcap
+    ("one tile, lengths of 1", 3, 8, 4, 32, 96, [1, 2, 96], 0, 0.0),
+    ("rows shorter than a split", 4, 8, 2, 64, 512, [5, 33, 70, 512], 0,
+     0.0),
+    ("window: the last split only", 2, 4, 4, 32, 512, [512, 300], 40, 0.0),
+    ("lengths above S, softcap", 3, 8, 2, 64, 200, [200, 257, 230], 64,
+     30.0),
+    ("gemma2-2b-like", 2, 8, 4, 256, 384, [384, 129], 100, 50.0),
+]
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_split_combine_matches_jax_ref(case, nsplit):
+    """Per split (m, l, acc), the warps and the splits combined in order,
+    with empty splits, windows, lengths above S and softcap, against the
+    JAX reference. fp32 2e-5: the same fp32 terms summed in another order
+    (by tile, warp and split instead of one softmax)."""
+    _, b, h, hkv, dh, s, lens_, window, softcap = case
+    q_, k_, v_, _ = _inputs(b, h, hkv, dh, s, seed=nsplit + dh)
+    lens_ = np.array(lens_, np.int32)
+    (jq, jk, jv, jl), (q, k, v, lens) = _both("float32", q_, k_, v_, lens_)
+    got = _split_decode(q, k, v, lens, _win_lo(lens, window), nsplit,
+                        softcap=softcap)
+    want = jref.decode_attention_ref(jq, jk, jv, jl, softcap=softcap,
+                                     window=window)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("nsplit", [1, 5])
+def test_split_combine_int8_matches_jax_ref(nsplit):
+    """The int8 cache: the K scale on the finished dot product, the V scale
+    on the softmax weight, as the kernel applies them."""
+    q_, k_, v_, _ = _inputs(2, 8, 4, 128, 256, seed=12)
+    lens_ = np.array([77, 256], np.int32)
+    (jq, jk, jv, jl), (q, k, v, lens) = _both("float32", q_, k_, v_, lens_)
+    jkq, jks = jquantize(jk)
+    jvq, jvs = jquantize(jv)
+    kq, ks = quantize_kv_rows(k)
+    vq, vs = quantize_kv_rows(v)
+    got = _split_decode(q, kq, vq, lens, _win_lo(lens, 0), nsplit,
+                        k_scale=ks, v_scale=vs)
+    want = jref.decode_attention_ref(jq, jkq, jvq, jl, k_scale=jks,
+                                     v_scale=jvs)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("nsplit", [1, 4])
+def test_split_combine_empty_row_is_zero_as_pallas(nsplit):
+    """A row with no visible position (its window starts past the cache's
+    end) combines to 0, as the Pallas kernel gives; every split of it is
+    empty, and no NaN appears. The other rows match the JAX reference."""
+    q_, k_, v_, _ = _inputs(3, 8, 2, 64, 64, seed=13)
+    lens_ = np.array([64, 100, 40], np.int32)  # row 1: 100 - 16 >= 64
+    (jq, jk, jv, jl), (q, k, v, lens) = _both("float32", q_, k_, v_, lens_)
+    got = _split_decode(q, k, v, lens, _win_lo(lens, 16), nsplit)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    pallas = jops.decode_attention(jq, jk, jv, jl, window=16,
+                                   impl="pallas_interpret", block_s=16)
+    _close(got, pallas, 2e-5)
+    want = jref.decode_attention_ref(jq, jk, jv, jl, window=16)
+    _close(got[[0, 2]], np.asarray(want)[[0, 2]], 2e-5)
