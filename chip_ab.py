@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ELL mean and flash-decode kernels of one source tree on one GPU.
+"""Time the port's ELL mean, flash-decode, top-k and h-index kernels of one
+source tree on one GPU.
 
     python3 chip_ab.py --src SRC_DIR [--tag NAME]
 
@@ -12,7 +13,14 @@ split against a (n + 1, 150) table, and one call per shell summed), and
 flash-decode at the serving shape (B=8 H=32 Hkv=8 Dh=128 S=1088 bf16,
 8,456 visible positions, rotated through six caches), gemma2-2b's
 (softcap 50, window 4096), a large ragged one and the same with an int8
-cache. Inputs come from fixed seeds, so two trees see the same data. Each
+cache; the top-k at the serving shape (64 queries of ``github-like``'s
+service, built as the smoke builds it but before any ingest, against its
+resident table, k = 11) and at the large one (Q=64 N=2^21 D=128, 90% of
+the rows live, k = 11, 100 and 300), through the kernels' own wrapper;
+the h-index at the serving shape (the two tiers of an all-node descent
+sweep of that service, each tier and both) and at two large ones
+(R=2^20 W=32, R=2^14 W=2048, left-packed rows). Inputs come from fixed
+seeds, so two trees see the same data. Each
 time is the device time per call with the host's launch time left out
 (``chip_smoke.time_ms``: the calls queued behind a spin kernel, CUDA
 events around them) beside the CUDA-event time of a loop of calls
@@ -32,6 +40,47 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
+def top_k_and_h_index(torch, sm, ops, topk, out, timed, serve_topk,
+                      serve_tiers):
+    """The top-k and h-index timings into ``out``."""
+    dev = "cuda"
+
+    def tk(label, q, table, live, k, iters):
+        bias = torch.zeros(table.shape[0], device=dev)
+        bias.masked_fill_(~live, float("-inf"))
+        out["top_k"][label] = timed(
+            lambda: topk.topk_cuda(q, table, bias, k), iters)
+
+    def hx(label, tiers, iters=20):
+        def sweep():
+            for values, valid, est in tiers:
+                ops.h_index_sweep(values, valid, est, impl="cuda")
+        out["h_index"][label] = timed(sweep, iters)
+
+    q, table, live = serve_topk
+    tk(f"serve Q=64 N={table.shape[0]} D=128 k=11", q, table, live, 11, 20)
+    shapes = [f"R={v.shape[0]} W={v.shape[1]}" for v, _, _ in serve_tiers]
+    hx("serve " + " + ".join(shapes), serve_tiers)
+    for label, tier in zip(shapes, serve_tiers):
+        hx(f"serve tier {label}", [tier])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = ops.normalize_rows(torch.randn((1 << 21, 128), generator=gen,
+                                           device=dev))
+    live = torch.rand(1 << 21, generator=gen, device=dev) < 0.9
+    q = ops.normalize_rows(torch.randn((64, 128), generator=gen, device=dev))
+    for k in (11, 100, 300):
+        tk(f"large Q=64 N=2^21 D=128 k={k}", q, table, live, k, 10)
+    del table
+    for r, w, vmax in ((1 << 20, 32, 64), (1 << 14, 2048, 400)):
+        values = torch.randint(0, vmax, (r, w), generator=gen, device=dev,
+                               dtype=torch.int32)
+        deg = torch.randint(1, w + 1, (r,), generator=gen, device=dev)
+        valid = torch.arange(w, device=dev)[None, :] < deg[:, None]
+        est = torch.randint(0, vmax, (r,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        hx(f"large R={r} W={w}", [(values, valid, est)], 10)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
@@ -49,14 +98,16 @@ def main() -> int:
     from repro_torch.core import kcore
     from repro_torch.core.propagation import propagation_schedule
     from repro_torch.graph import datasets, splits
-    from repro_torch.kernels import build, flash_decode, ops
+    from repro_torch.kernels import build, flash_decode, ops, topk
+    from repro_torch.launch.serve_embed import build_service
     from repro_torch.models.attention import quantize_kv_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("ellmean", "flash_decode"))
+    build.build(("ellmean", "flash_decode", "hindex", "topk"))
     dev = "cuda"
     out = {"tag": args.tag, "src": str(Path(args.src).resolve()),
-           "card": sm.nvidia_smi(), "ell_mean": {}, "flash_decode": {}}
+           "card": sm.nvidia_smi(), "ell_mean": {}, "flash_decode": {},
+           "top_k": {}, "h_index": {}}
 
     def timed(fn, iters, sets=None):
         """{"ms": device ms a call, "loop_ms": CUDA events around a loop of
@@ -73,6 +124,14 @@ def main() -> int:
             lambda: ops.ell_mean(idx, valid, emb, impl="cuda"), iters)
 
     g = datasets.load("github-like", seed=0)
+    svc = build_service(g, stream_frac=sm.STREAM_FRAC, dim=128, batch=64,
+                        device=dev)[0]
+    nodes = torch.tensor(np.random.default_rng(11).integers(
+        0, svc.graph.n_nodes, 64), device=dev)
+    top_k_and_h_index(torch, sm, ops, topk, out, timed,
+                      sm.topk_inputs(torch, ops, svc, nodes),
+                      sm.sweep_inputs(torch, np, svc))
+    del svc
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr, _ = g.ell_arrays()
     rows = np.random.default_rng(11).integers(0, g.n_nodes, 64)

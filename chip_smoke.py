@@ -13,15 +13,23 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    incremental cores checked against the peeling oracle (0 mismatches),
    then embed, link-score and top-10 traffic. Every kernel's launch count
    is set to 0 just before and read just after; each must be > 0 (the
-   top-k counts both of its kernels, two launches per round of 32);
+   top-k counts both of its kernels, ``topk_partial`` and ``topk_merge``:
+   two launches per pass of up to 128 entries, each also counted on its
+   own; the h-index counts its narrow and wide kernels on their own too).
+   While this phase runs, a counting wrapper bound into
+   ``ops.h_index_sweep`` tallies the (R, W) of every h-index launch; the
+   5 most frequent shapes are printed with their counts and timed on the
+   first call's inputs at each;
 3. a small reference: the same path on a 300-node graph on the card and on
    the CPU (plain versions), cores equal after every block, embeddings and
-   link scores within 1e-5, top-10 and top-40 ids (one and two rounds of
-   the top-k kernel) equal off near-ties;
+   link scores within 1e-5, top-10 and top-40 ids (one pass of the top-k
+   kernels each) equal off near-ties;
 4. kernel parity and timing: each kernel against its plain PyTorch version
    on the same inputs, at the shapes the serving path gave it (taken from
-   the live service) and at one large shape (the top-k there at k = 11
-   and k = 100, one round and four), with kernel, plain and library
+   the live service; the h-index's two tiers also each on its own) and at
+   one large shape (the top-k there at k = 11, 100 and 300: one pass, one
+   and three, so the multi-pass path runs on the card), with kernel,
+   plain and library
    device times (``time_ms``: the calls queued behind a spin kernel, CUDA
    events around them, so the host's launch path is left out; the kernel
    timed through its own wrapper alone), the kernel's CUDA-event time over
@@ -72,9 +80,9 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    the visible rows and the number of splits of S the launch used.
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
-``x_library`` (kernel / library, where there is a library call). The ELL
-mean and flash-decode are also held to give the same bits on a second call
-(both are deterministic by design); the ELL mean is timed as well at two of
+``x_library`` (kernel / library, where there is a library call). Every
+kernel but the SGNS pair is also held to give the same bits on a second
+call (all are deterministic by design); the ELL mean is timed as well at two of
 the offline k-core row's propagation calls (one shell's rows against the
 table: the largest shell, and the largest that takes the row-split path)
 and records which of its two paths each shape takes.
@@ -186,6 +194,37 @@ class Counters:
     def read(self) -> dict:
         return {name: getattr(mod, attr)
                 for name, (mod, attr) in self.table.items()}
+
+
+class SweepTally:
+    """While bound (``with``), counts the (R, W) of every h-index sweep
+    through ``ops.h_index_sweep`` (the repair's and the k-core's entry) and
+    keeps a copy of the first call's inputs at each shape; every call goes
+    on to the kernel as before."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = {}
+        self.first = {}
+
+    def __enter__(self):
+        self.orig = self.ops.h_index_sweep
+        self.ops.h_index_sweep = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.h_index_sweep = self.orig
+
+    def __call__(self, values, valid, est, **kw):
+        key = tuple(values.shape)
+        if key[0]:  # the wrapper launches nothing for no rows
+            self.counts[key] = self.counts.get(key, 0) + 1
+            if key not in self.first:
+                self.first[key] = (values.clone(), valid.clone(), est.clone())
+        return self.orig(values, valid, est, **kw)
+
+    def top(self, n):
+        return sorted(self.counts.items(), key=lambda kv: -kv[1])[:n]
 
 
 def nvidia_smi() -> str:
@@ -337,7 +376,8 @@ def probes_of(torch, values, valid, est):
 
 def check_hindex(torch, ops, ref, tiers, label, iters=20):
     """``tiers``: list of (values, valid, est) swept together (one sweep of
-    a two-tier descent is two launches); the record covers all of them."""
+    a two-tier descent is two launches); the record covers all of them,
+    and with more than one tier holds each tier's own under "tiers"."""
     errs = 0
     for values, valid, est in tiers:
         got = ops.h_index_sweep(values, valid, est, impl="cuda")
@@ -346,6 +386,9 @@ def check_hindex(torch, ops, ref, tiers, label, iters=20):
         torch.cuda.synchronize()
         errs += int((got != want).sum())
         expect(torch.equal(cnt, want), f"h_index {label}: count != ref")
+        expect(torch.equal(ops.h_index_sweep(values, valid, est,
+                                             impl="cuda"), got),
+               f"h_index {label}: a second call gave other bits")
     expect(errs == 0, f"h_index {label}: {errs} rows differ from the ref")
 
     def run(impl):
@@ -372,6 +415,10 @@ def check_hindex(torch, ops, ref, tiers, label, iters=20):
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if len(tiers) > 1:
+        rec["tiers"] = [check_hindex(torch, ops, ref, [t],
+                                     f"{label}, tier {n}", iters)
+                        for n, t in enumerate(tiers)]
     ratios(rec)
     log(f"h_index {label}: {rec}")
     return rec
@@ -412,6 +459,10 @@ def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
 
     got_v, got_i = ops.top_k_scores(q, table, k, valid=valid, impl="cuda")
     err, n_tie = topk_agree(torch, ref, got_v, got_i, q, table, k, valid)
+    again_v, again_i = ops.top_k_scores(q, table, k, valid=valid,
+                                        impl="cuda")
+    expect(torch.equal(again_v, got_v) and torch.equal(again_i, got_i),
+           f"top_k {label}: a second call gave other bits")
     bias = torch.zeros(table.shape[0], device=table.device)
     bias.masked_fill_(~valid, float("-inf"))
     n, d = table.shape
@@ -421,6 +472,7 @@ def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
     rec = {
         "shape": f"Q={nq} N={n} D={d} k={k}",
         "max_abs_err": err, "near_tie_positions": n_tie,
+        "passes": -(-k // topk.ROUND_K),  # topk_partial + topk_merge each
         # the kernels alone, on the bias that ops.top_k_scores makes
         "ms": time_ms(torch, lambda: topk.topk_cuda(q, table, bias, k),
                       iters),
@@ -449,7 +501,7 @@ def large_shapes(torch, ops, ref, F):
     q = ops.normalize_rows(torch.randn((64, 128), generator=gen, device=dev))
     out = {"top_k": [check_topk(torch, ops, ref, q, table, live, k,
                                 f"large k={k}", iters=10)
-                     for k in (11, 100)]}  # one round, then four
+                     for k in (11, 100, 300)]}  # one pass, one, three
     n, l = 1 << 18, 32
     idx = torch.randint(0, 1 << 21, (n, l), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -558,6 +610,29 @@ def serve_phase(torch, np, counters):
     return svc, counts
 
 
+def sweep_tally(torch, ops, ref, tally, n=5):
+    """The ``n`` most frequent (R, W) of the serving path's h-index
+    launches, each timed on the first call's inputs at that shape; and the
+    sum of launches x (time - bound) over them. Returns (tally record,
+    timing records)."""
+    total = sum(tally.counts.values())
+    recs, weighted = [], 0.0
+    for (r, w), count in tally.top(n):
+        rec = check_hindex(torch, ops, ref, [tally.first[(r, w)]],
+                           f"serving shape R={r} W={w} x {count}")
+        rec["launches"] = count
+        weighted += count * (rec["ms"] - rec["bound_ms"])
+        recs.append(rec)
+    covered = sum(rec["launches"] for rec in recs)
+    out = {"launches": total, "shapes": len(tally.counts),
+           "top": [{"R": r, "W": w, "launches": c}
+                   for (r, w), c in tally.top(n)],
+           "top_launches_x_excess_ms": weighted,
+           "top_share_of_launches": covered / max(total, 1)}
+    log(f"h_index shapes on the serving path: {out}")
+    return out, recs
+
+
 def lockstep(np, svcs, stream, block_size, churn, seed):
     """Drive services through the same blocks and churn, checking that
     their cores agree after every block."""
@@ -602,7 +677,7 @@ def reference_phase(torch, np):
     expect(np.allclose(l_gpu, l_cpu, rtol=1e-5, atol=1e-5),
            "link scores differ from the CPU path")
     n_near = {}
-    for k in (10, 40):  # one round of the top-k kernel, then two
+    for k in (10, 40):  # one pass of the top-k kernels each
         # one more on the CPU, so a tie across the k-th position shows
         i_gpu, s_gpu = svcs[0].top_k_neighbors(nodes, k)
         i_cpu, s_cpu = svcs[1].top_k_neighbors(nodes, k + 1)
@@ -636,6 +711,16 @@ def serve_shapes(torch, np, ops, ref, F, svc):
     valid = (idx != svc.graph.node_cap) & (slots < st.capacity)
     out = {"ell_mean": check_ell(torch, ops, ref, F, slots.contiguous(),
                                  valid, st.table(), "serve")}
+    out["h_index"] = check_hindex(torch, ops, ref,
+                                  sweep_inputs(torch, np, svc), "serve")
+    q, tn, live = topk_inputs(torch, ops, svc, nodes)
+    out["top_k"] = check_topk(torch, ops, ref, q, tn, live, 11, "serve")
+    return out
+
+
+def sweep_inputs(torch, np, svc):
+    """The two tiers (values, valid, est) of an all-node descent sweep of
+    the live service, as its repair would launch them."""
     inc = svc.cores
     n = svc.graph.n_nodes
     cand = np.arange(n, dtype=np.int64)
@@ -648,15 +733,19 @@ def serve_shapes(torch, np, ops, ref, F, svc):
     est = a["est_full"].clone()
     est[a["cand"]] = a["seed"]
     parts = torch.split(a["seed"], [t[0].shape[0] for t in a["tiers"]])
-    tiers = [(est[i].contiguous(), v, p.contiguous())
-             for (i, v), p in zip(a["tiers"], parts)]
-    out["h_index"] = check_hindex(torch, ops, ref, tiers, "serve")
+    return [(est[i].contiguous(), v, p.contiguous())
+            for (i, v), p in zip(a["tiers"], parts)]
+
+
+def topk_inputs(torch, ops, svc, nodes):
+    """(queries, table, live rows) of a top-k call of the live service:
+    the embeddings of ``nodes`` against the resident table, normalised."""
+    st = svc.store
     q = ops.normalize_rows(torch.tensor(svc.embed(nodes.cpu().numpy()),
-                                        device=dev))
+                                        device=svc.device))
     tn = ops.normalize_rows(st.table())
-    live = torch.tensor(st.row_valid(), device=dev)
-    out["top_k"] = check_topk(torch, ops, ref, q, tn, live, 11, "serve")
-    return out
+    live = torch.tensor(st.row_valid(), device=svc.device)
+    return q, tn, live
 
 
 # ------------------------------------------------------------ offline ----
@@ -1365,11 +1454,19 @@ def main() -> int:
         "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
         "sgns_bwd": (sgns, "bwd_launches"),
         "decode_attention": (flash_decode, "launches"),
+        # each kernel of the top-k's pass, and the h-index's two kernels
+        "top_k.partial": (topk, "partial_launches"),
+        "top_k.merge": (topk, "merge_launches"),
+        "h_index.narrow": (hindex, "narrow_launches"),
+        "h_index.wide": (hindex, "wide_launches"),
     })
-    svc, serve_counts = serve_phase(torch, np, counters)
+    with SweepTally(ops) as tally:  # the serving phase only
+        svc, serve_counts = serve_phase(torch, np, counters)
+    shape_tally, tally_recs = sweep_tally(torch, ops, ref, tally)
     reference_phase(torch, np)
     serve_rec = serve_shapes(torch, np, ops, ref, F, svc)
     large_rec = large_shapes(torch, ops, ref, F)
+    large_rec["h_index"] += tally_recs
     _, offline_counts, split = offline_phase(torch, np, counters)
     large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
                                                 split)
@@ -1392,17 +1489,31 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
+    paths = (serve_counts, offline_counts, lm_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name],
                    "offline": offline_counts[name], "lm": lm_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
-        kernels.append({
+        rec = {
             "name": name, "route": "cuda", "source": src_path,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             **{k: serve_rec[name][k] for k in keys},
             "large": [{k: b[k] for k in keys} for b in large_rec[name]],
-        })
+        }
+        parts = [key for key in counters.table
+                 if key.startswith(name + ".")]
+        if parts:  # the kernels of one wrapper, each counted
+            rec["launches_by_kernel"] = {
+                key.split(".")[1]: sum(c[key] for c in paths)
+                for key in parts}
+            expect(sum(rec["launches_by_kernel"].values()) == rec["launches"],
+                   f"{name}: its kernels' launches do not sum to its count")
+        if name == "h_index":
+            rec["tiers"] = [{k: t[k] for k in keys}
+                            for t in serve_rec[name]["tiers"]]
+            rec["serving_shapes"] = shape_tally
+        kernels.append(rec)
     log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

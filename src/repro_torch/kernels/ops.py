@@ -124,7 +124,7 @@ def top_k_scores(q, table, k, *, valid=None, impl: str = "auto"):
     q: (Q, D); table: (N, D); valid: optional (N,) bool row mask. Returns
     ``(vals (Q, k) float32, idx (Q, k) int32)`` ordered by (score desc,
     index asc); -inf / -1 pad when fewer than k valid candidates exist. The
-    kernel runs ceil(k / 32) rounds (``topk.ROUND_K``), one pass over the
+    kernel runs ceil(k / 128) rounds (``topk.ROUND_K``), one pass over the
     table each.
     """
     impl = _resolve(impl, table, "ref", ("ref", "cuda"))

@@ -34,7 +34,11 @@ H_CASES = [(1, 1), (3, 5), (17, 130), (200, 7), (1000, 2048), (4096, 32)]
 TOPK_CASES = [(1, 1, 1, 1), (4, 100, 16, 5), (8, 1024, 32, 10),
               (3, 7, 8, 10), (17, 513, 130, 13), (64, 37701, 128, 11),
               (130, 5000, 64, 32), (5, 300, 16, 33), (64, 37701, 128, 75),
-              (3, 50, 8, 70), (9, 2000, 40, 128)]
+              (3, 50, 8, 70), (9, 2000, 40, 128), (64, 37701, 128, 100),
+              (64, 20000, 128, 128), (64, 20000, 128, 129),
+              (64, 37701, 128, 300), (70, 9000, 150, 300), (2, 600, 33, 129)]
+# h-index with scattered (not left-packed) masks: (R, W)
+H_SCATTER = [(300, 33), (64, 2049), (40, 5000), (2000, 32), (500, 2048)]
 
 
 @pytest.fixture
@@ -210,15 +214,51 @@ def test_h_index_kernel_matches_plain(cuda, r, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,w", H_SCATTER)
+def test_h_index_kernel_scattered_masks(cuda, r, w):
+    """Valid slots anywhere in the row (the kernel counts the mask itself),
+    est 0, est above W, rows with no valid slot, values above est; the
+    narrow and wide kernels by W, each the same bits on a second call."""
+    rng = np.random.default_rng(r + 7 * w)
+    vmax = min(w, 400) + 8
+    vals = rng.integers(0, vmax, (r, w)).astype(np.int32)
+    valid = rng.random((r, w)) < rng.random((r, 1))
+    est = rng.integers(0, vmax + 10, r).astype(np.int32)
+    est[0], est[1] = 0, w + 50
+    valid[2] = False
+    vals[3] = vmax + 100
+    vals, valid, est = _on(cuda, vals, valid, est)
+    before = (hindex.narrow_launches, hindex.wide_launches)
+    got = ops.h_index_sweep(vals, valid, est)
+    wide = int(w > hindex.NARROW_MAX)
+    assert (hindex.narrow_launches - before[0],
+            hindex.wide_launches - before[1]) == (1 - wide, wide)
+    assert torch.equal(got, ref.h_index_ref(vals, valid, est))
+    assert torch.equal(ops.h_index_sweep(vals, valid, est), got)
+
+
+@pytest.mark.cuda
+def test_h_index_kernel_refuses_too_wide_rows(cuda):
+    w = hindex.max_width() + 1
+    x = torch.zeros((1, w), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="histogram"):
+        hindex.h_index_cuda(x, x.bool(), x[:, 0].contiguous())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nq,n,d,k", TOPK_CASES)
 def test_topk_kernel_matches_plain(cuda, nq, n, d, k):
     rng = np.random.default_rng(nq * 7 + n)
     q, table, valid = _on(cuda, rng.normal(size=(nq, d)).astype(np.float32),
                           rng.normal(size=(n, d)).astype(np.float32),
                           rng.random(n) < 0.8)
-    before = topk.launches
+    before = (topk.launches, topk.partial_launches, topk.merge_launches)
     got_v, got_i = ops.top_k_scores(q, table, k, valid=valid)
-    assert topk.launches == before + 2 * -(-k // topk.ROUND_K)
+    rounds = -(-k // topk.ROUND_K)  # one pass over the table for k <= 128
+    assert (topk.launches - before[0], topk.partial_launches - before[1],
+            topk.merge_launches - before[2]) == (2 * rounds, rounds, rounds)
+    again_v, again_i = ops.top_k_scores(q, table, k, valid=valid)
+    assert torch.equal(again_v, got_v) and torch.equal(again_i, got_i)
     want_v, want_i = (x.cpu().numpy() for x in
                       ref.topk_ref(q, table, k + 1, valid=valid))
     got_v, got_i = got_v.cpu().numpy(), got_i.cpu().numpy()
@@ -230,6 +270,24 @@ def test_topk_kernel_matches_plain(cuda, nq, n, d, k):
     near[:, 1:] |= gap
     near[:, :-1] |= gap
     assert not ((got_i != want_i[:, :k]) & ~near[:, :k]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 100, 300])
+def test_topk_kernel_repeated_rows_keep_index_order(cuda, k):
+    """Repeated table rows tie exactly. Small integer entries make every
+    score an exact integer in fp32 whatever the summation order, so ties
+    (repeated rows and distinct rows alike) are exact in both versions, and
+    the ids must be the plain version's: the lower index first, across the
+    blocks' ranges and the rounds."""
+    rng = np.random.default_rng(k)
+    base = rng.integers(-3, 4, (700, 32)).astype(np.float32)
+    table = base[rng.integers(0, 700, 30000)]  # every row ~43 times
+    q = rng.integers(-3, 4, (16, 32)).astype(np.float32)
+    q, table, valid = _on(cuda, q, table, rng.random(30000) < 0.9)
+    got_v, got_i = ops.top_k_scores(q, table, k, valid=valid)
+    want_v, want_i = ref.topk_ref(q, table, k, valid=valid)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
 
 
 @pytest.mark.cuda
@@ -265,7 +323,7 @@ def test_service_on_the_card_matches_the_cpu(cuda):
     nodes = rng.integers(0, svcs[0].graph.n_nodes, 48)
     np.testing.assert_allclose(svcs[0].embed(nodes), svcs[1].embed(nodes),
                                rtol=1e-5, atol=1e-5)
-    for k in (10, 40):  # one round of the kernel, then two
+    for k in (10, 40):  # one pass of the kernels each
         (_, s_gpu), (_, s_cpu) = (s.top_k_neighbors(nodes, k) for s in svcs)
         np.testing.assert_allclose(s_gpu, s_cpu, rtol=1e-5, atol=1e-5)
 

@@ -225,11 +225,15 @@ def test_unknown_impl_raises():
 
 
 def test_topk_chunking_covers_the_table():
+    """The planner's row ranges cover the table in whole 256-row tiles, one
+    round per 128 entries, no more blocks than are resident."""
     from repro_torch.kernels import topk
 
-    for n, nq in [(1, 1), (37701, 64), (1 << 21, 64), (5000, 200)]:
-        chunks, rows = topk.chunking(n, nq)
-        assert rows % 64 == 0 and chunks * rows >= n > (chunks - 1) * rows
-    for d in (1, 4, 128, 130, 436):
-        dp = topk.padded_width(d)
-        assert dp >= d and dp % 4 == 0 and (dp // 4) % 8 == 1
+    for n, nq, k in [(1, 1, 1), (37701, 64, 11), (1 << 21, 64, 100),
+                     (5000, 200, 300)]:
+        rounds = topk.plan(n, nq, k, lambda kr: 264)
+        assert len(rounds) == -(-k // topk.ROUND_K)
+        for _, kr, chunks, rows in rounds:
+            assert rows % topk.TILE_ROWS == 0
+            assert chunks * rows >= n > (chunks - 1) * rows
+            assert chunks * -(-nq // topk.QUERY_BLOCK) <= 264
