@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's ELL mean, flash-decode, top-k and h-index kernels of one
-source tree on one GPU.
+"""Time the port's ELL mean, flash-decode, top-k, h-index and SGNS kernels of
+one source tree on one GPU.
 
     python3 chip_ab.py --src SRC_DIR [--tag NAME]
 
@@ -19,8 +19,12 @@ resident table, k = 11) and at the large one (Q=64 N=2^21 D=128, 90% of
 the rows live, k = 11, 100 and 300), through the kernels' own wrapper;
 the h-index at the serving shape (the two tiers of an all-node descent
 sweep of that service, each tier and both) and at two large ones
-(R=2^20 W=32, R=2^14 W=2048, left-packed rows). Inputs come from fixed
-seeds, so two trees see the same data. Each
+(R=2^20 W=32, R=2^14 W=2048, left-packed rows); the SGNS forward and
+backward at the smoke's two shapes (B=8192 K=5 D=150 fp32, B=65536 K=5
+D=256 bf16), rotated through input sets that stream more than twice the
+L2, with a hash of the forward's losses (and of the backward's gradients)
+on the first set of each shape, so that two trees' bits can be compared.
+Inputs come from fixed seeds, so two trees see the same data. Each
 time is the device time per call with the host's launch time left out
 (``chip_smoke.time_ms``: the calls queued behind a spin kernel, CUDA
 events around them) beside the CUDA-event time of a loop of calls
@@ -81,6 +85,41 @@ def top_k_and_h_index(torch, sm, ops, topk, out, timed, serve_topk,
         hx(f"large R={r} W={w}", [(values, valid, est)], 10)
 
 
+def sgns_kernels(torch, sm, sgns, out, timed):
+    """The SGNS timings and bit hashes into ``out``."""
+    import hashlib
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for label, b, k, d, dt, iters in (
+            ("train B=8192 K=5 D=150 fp32", 8192, 5, 150, torch.float32, 20),
+            ("large B=65536 K=5 D=256 bf16", 65536, 5, 256, torch.bfloat16,
+             10)):
+        gen = torch.Generator(device="cuda").manual_seed(b + 31 * k + d)
+
+        def make():
+            c, x = (torch.randn((b, d), generator=gen, device="cuda")
+                    .mul_(0.3).to(dt) for _ in range(2))
+            n = torch.randn((b, k, d), generator=gen, device="cuda").mul_(0.3)
+            return c, x, n.to(dt), torch.randn(b, generator=gen, device="cuda")
+
+        sets = sm.rotation(torch, make, (2 * b * d + b * k * d)
+                           * torch.tensor([], dtype=dt).element_size())
+        first = sets[0]
+        out["sgns"][label] = {
+            "fwd": timed(lambda c, x, n, _: sgns.sgns_fwd_cuda(c, x, n),
+                         iters, sets),
+            "bwd": timed(sgns.sgns_bwd_cuda, iters, sets),
+            "loss_sha256": digest(sgns.sgns_fwd_cuda(*first[:3])),
+            "grads_sha256": digest(*sgns.sgns_bwd_cuda(*first)),
+        }
+        del sets, first
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
@@ -98,16 +137,16 @@ def main() -> int:
     from repro_torch.core import kcore
     from repro_torch.core.propagation import propagation_schedule
     from repro_torch.graph import datasets, splits
-    from repro_torch.kernels import build, flash_decode, ops, topk
+    from repro_torch.kernels import build, flash_decode, ops, sgns, topk
     from repro_torch.launch.serve_embed import build_service
     from repro_torch.models.attention import quantize_kv_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("ellmean", "flash_decode", "hindex", "topk"))
+    build.build(("ellmean", "flash_decode", "hindex", "sgns", "topk"))
     dev = "cuda"
     out = {"tag": args.tag, "src": str(Path(args.src).resolve()),
            "card": sm.nvidia_smi(), "ell_mean": {}, "flash_decode": {},
-           "top_k": {}, "h_index": {}}
+           "top_k": {}, "h_index": {}, "sgns": {}}
 
     def timed(fn, iters, sets=None):
         """{"ms": device ms a call, "loop_ms": CUDA events around a loop of
@@ -132,6 +171,7 @@ def main() -> int:
                       sm.topk_inputs(torch, ops, svc, nodes),
                       sm.sweep_inputs(torch, np, svc))
     del svc
+    sgns_kernels(torch, sm, sgns, out, timed)
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr, _ = g.ell_arrays()
     rows = np.random.default_rng(11).integers(0, g.n_nodes, 64)

@@ -23,12 +23,21 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 3. a small reference: the same path on a 300-node graph on the card and on
    the CPU (plain versions), cores equal after every block, embeddings and
    link scores within 1e-5, top-10 and top-40 ids (one pass of the top-k
-   kernels each) equal off near-ties;
+   kernels each) equal off near-ties; then the serving repair with a hub
+   (``generators.hub_with_cliques``: a node of degree 34,360, so its row of
+   the descent is W = 65,536): 2,000 inner edges streamed in blocks of 250
+   with 10% churn through ``DynamicGraph`` + ``IncrementalCore`` on the
+   card, the repair pinned to the window descent, the counts set to 0
+   before and read after (the fourth path, "hub"): 0 core mismatches
+   against the peeling oracle after every block, hub-kernel launches > 0,
+   no re-peel;
 4. kernel parity and timing: each kernel against its plain PyTorch version
    on the same inputs, at the shapes the serving path gave it (taken from
    the live service; the h-index's two tiers also each on its own) and at
    one large shape (the top-k there at k = 11, 100 and 300: one pass, one
-   and three, so the multi-pass path runs on the card), with kernel,
+   and three, so the multi-pass path runs on the card; the h-index's hub
+   kernel at R=64 W=65,536 and W = ``max_width()`` + 1, with est 0 rows and
+   a row with no valid slot), with kernel,
    plain and library
    device times (``time_ms``: the calls queued behind a spin kernel, CUDA
    events around them, so the host's launch path is left out; the kernel
@@ -45,8 +54,11 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    mean launches and a torch propagation within 1e-4 of the scipy one
    (then the ELL mean at two of that row's propagation calls, see below);
 6. the SGNS kernels against their plain versions at the training shape
-   (B=8192 K=5 D=150 fp32, 1e-5) and one large shape (B=65536 K=5 D=256
-   bf16, 2e-2), timed on inputs rotated through more than twice the L2;
+   (B=8192 K=5 D=150 fp32, 1e-5), one large shape (B=65536 K=5 D=256
+   bf16, 2e-2) and K = 2,048 negatives (B=64 D=150 fp32: 1e-5 against
+   the same formulas in fp64, and 1e-5 x max(1, max|plain|) against the
+   plain versions, whose fp32 sums of 2,048 terms drift), timed on inputs
+   rotated through more than twice the L2;
 7. where a training step's time goes: ``torch.profiler`` over 100 SGNS
    steps on the CoreWalk corpus at the table's settings, device time by
    kernel and the device's busy share of the window (reported, not held to
@@ -81,16 +93,17 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
-kernel but the SGNS pair is also held to give the same bits on a second
-call (all are deterministic by design); the ELL mean is timed as well at two of
+kernel is also held to give the same bits on a second call (all are
+deterministic by design); the ELL mean is timed as well at two of
 the offline k-core row's propagation calls (one shell's rows against the
 table: the largest shell, and the largest that takes the row-split path)
 and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the offline and the LM path, each path's count beside it); the
-last line is ``{"ok": true, "device": {...}}``.
+serving, the hub, the offline and the LM path, each path's count beside
+it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -155,6 +168,8 @@ SOURCES = {
                  "src/repro/kernels/ellmean.py:79"),
     "h_index": ("src/repro_torch/csrc/hindex.cu",
                 "src/repro/kernels/hindex.py:88"),
+    "h_index_hub": ("src/repro_torch/csrc/hindex.cu",
+                    "src/repro/kernels/hindex.py:88"),
     "top_k": ("src/repro_torch/csrc/topk.cu",
               "src/repro/kernels/topk.py:117"),
     "sgns_fwd": ("src/repro_torch/csrc/sgns.cu",
@@ -165,6 +180,11 @@ SOURCES = {
                          "src/repro/kernels/flash_decode.py:134"),
 }
 SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
+# the serving repair with a hub: 34,000 leaves (and 2,000 random edges
+# among them) and 12 cliques of 30, all joined to the hub; 2,000 of the
+# inner edges streamed in blocks of 250 with 10% churn
+HUB_GRAPH = (34000, 12, 30, 2000)
+HUB_STREAM, HUB_BLOCK, HUB_CHURN = 2000, 250, 0.1
 
 
 def log(msg: str) -> None:
@@ -526,6 +546,35 @@ def large_shapes(torch, ops, ref, F):
     return out
 
 
+def hub_shapes(torch, ops, ref, live):
+    """The h-index's hub kernel on ``live``, the hub tier of the hub
+    serving phase's first sweep (R=64 W=65,536: the hub's row and 63 padded
+    rows), and at R=64, W = 65,536 and W = ``max_width()`` + 1 (the
+    narrowest hub row): values in [0, 40,000), left-packed rows of random
+    degree, est random in [0, W + 10) but 0 on four rows, one row with no
+    valid slot. Returns (the live record, the two others)."""
+    from repro_torch.kernels import hindex
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    recs = [check_hindex(torch, ops, ref, [live], "hub serving tier")]
+    for w in (65536, hindex.max_width() + 1):
+        r = 64
+        values = torch.randint(0, 40000, (r, w), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        deg = torch.randint(0, w + 1, (r,), generator=gen, device="cuda")
+        valid = torch.arange(w, device="cuda")[None, :] < deg[:, None]
+        est = torch.randint(0, w + 10, (r,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        est[:4] = 0
+        valid[5] = False
+        before = hindex.hub_launches
+        recs.append(check_hindex(torch, ops, ref, [(values, valid, est)],
+                                 f"hub R={r} W={w}", iters=10))
+        expect(hindex.hub_launches > before,
+               f"h_index W={w}: the hub kernel was not launched")
+    return recs[0], recs[1:]
+
+
 # ------------------------------------------------------------ serving ----
 
 
@@ -695,6 +744,66 @@ def reference_phase(torch, np):
     log(f"reference: 300-node stream on cuda == cpu (cores every block, "
         f"embed max abs diff {err:.2e}, link scores, top-10 and top-40 ids; "
         f"near-tie positions that differ: {n_near})")
+
+
+def hub_serve_phase(torch, np, counters):
+    """The serving repair with a hub on the card (``DynamicGraph`` +
+    ``IncrementalCore``, the layer ``EmbeddingService`` drives; the
+    service's compaction would re-pack every row at 1.5x the hub's degree),
+    pinned to the window descent: the region policy, never capped, so every
+    repair sweeps the hub's row of W = 65,536. Returns (the launch counts,
+    the first sweep's hub tier: values, valid, est)."""
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import generators
+    from repro_torch.kernels import hindex, ops
+    from repro_torch.serve import DynamicGraph, IncrementalCore
+
+    t0 = time.perf_counter()
+    g, inner = generators.hub_with_cliques(*HUB_GRAPH, seed=0)
+    stream = inner[:HUB_STREAM]
+    streamed = set(map(tuple, stream.tolist()))
+    edges = g.edge_list()
+    base = edges[[tuple(e) not in streamed for e in edges.tolist()]]
+    dyn = DynamicGraph(g.n_nodes, base, width=16, device="cuda")
+    inc = IncrementalCore(dyn, repair_policy="region", repeel_frac=1.0,
+                          descend_budget=1 << 62)
+    hub_deg = int(dyn.degrees()[0])
+    expect(hub_deg > 32768, f"hub degree {hub_deg}")
+    t_build = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    live, mismatches, n_out = [], 0, 0
+    counters.reset()
+    t0 = time.perf_counter()
+    with SweepTally(ops) as tally:
+        for start in range(0, len(stream), HUB_BLOCK):
+            acc = dyn.add_edges(stream[start:start + HUB_BLOCK])
+            inc.on_edge_block(acc)
+            live.extend(map(tuple, acc))
+            pick = rng.choice(len(live), size=int(HUB_CHURN * HUB_BLOCK),
+                              replace=False)
+            gone = dyn.remove_edges(np.array([live[i] for i in pick]))
+            inc.on_remove(gone)
+            n_out += len(gone)
+            drop = set(pick.tolist())
+            live = [e for i, e in enumerate(live) if i not in drop]
+            mismatches += int((inc.core != core_numbers_host(
+                dyn.snapshot())).sum())
+        torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    counts = counters.read()
+    hub_keys = [k for k in tally.counts if k[1] > hindex.max_width()]
+    log(f"hub serving: {g.n_nodes} nodes, hub degree {hub_deg} ({t_build:.1f}"
+        f" s to build), {len(stream)} edges (+{n_out} retracted) in "
+        f"{t_ingest:.2f} s, blocks of {HUB_BLOCK}; {inc.descends} descents, "
+        f"{inc.sweeps} sweeps, {inc.repeels} re-peels; core mismatches vs "
+        f"oracle: {mismatches}; launches {counts}; sweep shapes "
+        f"{tally.top(4)}")
+    expect(mismatches == 0, f"hub serving: {mismatches} core mismatches")
+    expect(counts["h_index_hub"] > 0 and hub_keys,
+           "hub serving: no hub-kernel launch")
+    expect(inc.repeels == 0 and inc.phase_impl["descend"] == "fused[cuda]",
+           "hub serving: the repair left the kernel's descent")
+    return counts, tally.first[max(hub_keys, key=tally.counts.get)]
 
 
 def serve_shapes(torch, np, ops, ref, F, svc):
@@ -940,9 +1049,30 @@ def time_rotating(torch, fn, sets, iters, timer=None, **kw):
     return (timer or time_ms)(torch, step, iters, **kw)
 
 
-def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
+def sgns_fp64(torch, c, x, n, dout):
+    """The SGNS loss and gradients in float64, the formulas of the plain
+    versions: the yardstick where fp32 sums of many negatives drift."""
+    import torch.nn.functional as F
+
+    c, x, n, g = (t.double() for t in (c, x, n, dout))
+    pos = (c * x).sum(-1)
+    negl = torch.einsum("bkd,bd->bk", n, c)
+    loss = F.softplus(-pos) + F.softplus(negl).sum(-1)
+    dpos = (torch.sigmoid(pos) - 1.0) * g
+    dneg = torch.sigmoid(negl) * g[:, None]
+    return loss, (dpos[:, None] * x + torch.einsum("bk,bkd->bd", dneg, n),
+                  dpos[:, None] * c, dneg[:, :, None] * c[:, None, :])
+
+
+def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20,
+               fp64=False):
     """Both SGNS kernels against their plain versions at one shape; returns
-    ``{"sgns_fwd": record, "sgns_bwd": record}``."""
+    ``{"sgns_fwd": record, "sgns_bwd": record}``. With ``fp64`` (many
+    negatives) the kernels are held to ``sgns_fp64`` within the tolerance,
+    and to the plain versions within the tolerance x max(1, max|plain|):
+    the plain version's fp32 sums over K terms drift by about 1e-6 x their
+    magnitude (|dcenter| reaches about 80 at K = 2,048), the kernel's dc
+    sum is compensated."""
     tol = TOL_SGNS[str(dtype).split(".")[-1]]
     gen = torch.Generator(device="cuda").manual_seed(b + 31 * k + d)
     dt = getattr(torch, str(dtype).split(".")[-1])
@@ -962,16 +1092,34 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20):
     grads = sgns.sgns_bwd_cuda(c, x, n, dout)
     want_g = ref.sgns_grads_ref(c, x, n, dout)
     torch.cuda.synchronize()
+    what = ("loss", "dcenter", "dctx", "dneg")
+
+    def atol(w):
+        return tol * max(1.0, float(w.abs().max())) if fp64 else tol
+
+    if fp64:
+        exact = sgns_fp64(torch, c, x, n, dout)
+        for got, w, name in zip((loss, *grads), (exact[0], *exact[1]),
+                                what):
+            e = float((got.double() - w).abs().max())
+            expect(torch.allclose(got.double(), w, rtol=tol, atol=tol),
+                   f"sgns {label}: {name} off the fp64 value by {e}")
     err_f = float((loss - want).abs().max())
-    expect(torch.allclose(loss, want, rtol=tol, atol=tol),
+    expect(torch.allclose(loss, want, rtol=tol, atol=atol(want)),
            f"sgns_fwd {label}: max abs err {err_f}")
     err_b = 0.0
-    for got, w, what in zip(grads, want_g, ("dcenter", "dctx", "dneg")):
-        expect(got.dtype == dt, f"sgns_bwd {label}: {what} is {got.dtype}")
+    for got, w, name in zip(grads, want_g, what[1:]):
+        expect(got.dtype == dt, f"sgns_bwd {label}: {name} is {got.dtype}")
         e = float((got.float() - w.float()).abs().max())
         err_b = max(err_b, e)
-        expect(torch.allclose(got.float(), w.float(), rtol=tol, atol=tol),
-               f"sgns_bwd {label}: {what} max abs err {e}")
+        expect(torch.allclose(got.float(), w.float(), rtol=tol,
+                              atol=atol(w.float())),
+               f"sgns_bwd {label}: {name} max abs err {e}")
+    expect(torch.equal(sgns.sgns_fwd_cuda(c, x, n), loss),
+           f"sgns_fwd {label}: a second call gave other bits")
+    expect(all(torch.equal(a, g) for a, g in
+               zip(sgns.sgns_bwd_cuda(c, x, n, dout), grads)),
+           f"sgns_bwd {label}: a second call gave other bits")
     shape = f"B={b} K={k} D={d} {str(dt).split('.')[-1]}"
     flops = 2.0 * b * d * (k + 1)  # the K + 1 dots
     # forward: read the inputs, write the loss; backward: read the inputs and
@@ -1459,14 +1607,19 @@ def main() -> int:
         "top_k.merge": (topk, "merge_launches"),
         "h_index.narrow": (hindex, "narrow_launches"),
         "h_index.wide": (hindex, "wide_launches"),
+        "h_index.hub": (hindex, "hub_launches"),
+        "h_index_hub": (hindex, "hub_launches"),  # its own record too
     })
     with SweepTally(ops) as tally:  # the serving phase only
         svc, serve_counts = serve_phase(torch, np, counters)
     shape_tally, tally_recs = sweep_tally(torch, ops, ref, tally)
     reference_phase(torch, np)
+    hub_counts, hub_tier = hub_serve_phase(torch, np, counters)
     serve_rec = serve_shapes(torch, np, ops, ref, F, svc)
     large_rec = large_shapes(torch, ops, ref, F)
     large_rec["h_index"] += tally_recs
+    serve_rec["h_index_hub"], large_rec["h_index_hub"] = hub_shapes(
+        torch, ops, ref, hub_tier)
     _, offline_counts, split = offline_phase(torch, np, counters)
     large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
                                                 split)
@@ -1474,9 +1627,11 @@ def main() -> int:
                        "train")
     large = check_sgns(torch, ref, sgns, 65536, 5, 256, torch.bfloat16,
                        "large", iters=10)
+    many = check_sgns(torch, ref, sgns, 64, 2048, 150, torch.float32,
+                      "K=2048", iters=10, fp64=True)
     for name in ("sgns_fwd", "sgns_bwd"):
         serve_rec[name] = train[name]
-        large_rec[name] = [large[name]]
+        large_rec[name] = [large[name], many[name]]
     step_profile(torch, split)
     cfg, params, lm_counts, snap = lm_serve_phase(torch, np, counters)
     live = lm_decode_parity(torch, cfg, params, snap)
@@ -1489,9 +1644,9 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
-    paths = (serve_counts, offline_counts, lm_counts)
+    paths = (serve_counts, hub_counts, offline_counts, lm_counts)
     for name, (src_path, replaces) in SOURCES.items():
-        by_path = {"serve": serve_counts[name],
+        by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "offline": offline_counts[name], "lm": lm_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {

@@ -12,8 +12,10 @@
 // TB/s. The arithmetic (a compare or a histogram add per valid entry) is
 // far below the FP32/INT32 rate.
 //
-// Design: each row is read from memory once, and a row whose est is 0 (the
-// padded rows of a sweep) only has its est read.
+// Design: each row is read from memory once (a hub row's second level
+// reads it again, from the L2), and a row whose est is 0 (the padded rows
+// of a sweep) only has its est read. Three paths by W, each exact at every
+// W and equal to the TPU kernel's search:
 //
 // * Narrow rows (W <= 32): a thread per row, a persistent grid striding
 //   over the rows. The thread reads est; then the mask (two 16-byte loads
@@ -37,12 +39,45 @@
 //   stops at the first h with count(>= h) >= h: the largest, since
 //   count(>= h) - h only grows as h falls. That is the h the binary search
 //   of the TPU kernel finds, for every input.
-//   Rule: a warp per row at every W > 32 (the sweeps' rows are many: 4,096
-//   hub rows in the smallest all-node sweep), in blocks of up to 8 warps,
-//   as many as the shared memory holds at W + 1 bins a warp; the wrapper
-//   refuses a W whose bins do not fit one warp (h_index_max_width()).
+//   Rule: a warp per row at every 32 < W <= h_index_max_width() (the
+//   sweeps' rows are many: 4,096 hub rows in the smallest all-node sweep),
+//   in blocks of up to 8 warps, as many as the shared memory holds at W + 1
+//   bins a warp.
+// * Hub rows (W > h_index_max_width(), one warp's W + 1 bins no longer fit
+//   a block's shared memory; the serving repair pads a candidate of degree
+//   above 32,768 to W = 65,536): a cluster of 4 blocks of 512 threads per
+//   row, each block counting a slice of it (a block per row left one SM
+//   counting 65,536 slots: 21,000-28,000 clocks a level, clock64 on the
+//   card). The search
+//   narrows [L, U] = [0, min(est, W)] level by level: each level is one
+//   pass over the row that counts the
+//   valid values, clamped to min(est, W), that fall in [max(L, 1), U] into
+//   kHubBins bins of width s, the least power of two with kHubBins s >=
+//   U - L + 1 (a shift, not a division, per value). A suffix scan
+//   of the bins, plus the count above U carried from the level before,
+//   gives count(>= L + j s) for every bin j; the highest j with count(>= h)
+//   >= h at h = L + j s brackets the answer in [L + j s, L + (j + 1) s - 1],
+//   the next level's range. A level with s = 1 ends the search exactly. At
+//   kHubBins = 1,024 a row of W < 2^20 takes two levels (W = 65,536: bins
+//   of 128, then of 1), so it is read once from memory and once more from
+//   the L2, where the TPU kernel's binary search reads it ceil(log2(W + 1))
+//   times. The counts are integer atomics in shared memory (their order
+//   cannot change them), and the rows' values crowd into few bins (a hub's
+//   neighbours hold a few small core numbers; every value above est lands
+//   in the top bin): so each warp counts into bins of its own, offset by a
+//   word so that the warps' same bins sit in different banks, a thread adds
+//   a run of equal bins once; the warps' bins are summed, then every block
+//   sums the cluster's blocks' bins through distributed shared memory and
+//   runs the same scan (the same answer in each, no atomics across
+//   blocks). Each thread loads the masks of 4 groups of 16 slots, then the
+//   values of their words with a valid slot, before it counts any. Hub rows
+//   are few (one per hub candidate), so a cluster per row fills the card
+//   only for sweeps of many hubs; above 4,096 rows the clusters loop.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -53,6 +88,21 @@ constexpr int kSmemLimit = 232448;  // shared memory a block may use
 constexpr int kHeld = 4;  // 512-slot chunks of a wide row's mask a warp
                           // keeps in registers between its two passes
 constexpr int kMaxDevices = 64;
+constexpr int kHubThreads = 512;
+constexpr int kHubWarps = kHubThreads / 32;
+constexpr int kHubBins = 1024;  // a level's bins
+constexpr int kHubStride = kHubBins + 1;  // a warp's own bins, bank-offset
+constexpr int kHubChunk = kHubBins / kHubWarps;  // bins a warp scans
+constexpr int kHubUnroll = 4;  // 16-slot groups a thread loads at once
+// blocks a hub row is cut over, a cluster. One live row of W = 65,536
+// among 64 (the serving repair's hub tier): 0.0275 / 0.0241 / 0.0179 /
+// 0.0160 ms at 1 / 2 / 4 / 8 blocks; 64 live rows: 0.0391 / 0.0257 /
+// 0.0428 / 0.0703 ms (H100, 700 W): 4 keeps most of the gain on the
+// one-hub sweep without the waves of clusters that 8 costs on many rows
+constexpr int kHubSplit = 4;
+constexpr int kHubMaxClusters = 4096;  // a larger R loops over its rows
+// the warps' bins, the block's and the cluster's summed bins
+constexpr int kHubSmem = 4 * (kHubWarps * kHubStride + 2 * kHubBins);
 
 // Narrow rows (W <= 32): a thread per row. The row's valid values, each
 // clamped to [0, 32] (which keeps count(>= h) for every h <= W), are
@@ -241,6 +291,189 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A thread's run of equal bins of a hub level, added to its warp's bins
+// when the bin changes (and once at the end of the pass).
+struct Run {
+  int bin = -1, n = 0;
+  __device__ __forceinline__ void add(int* own, int b) {
+    if (b == bin) {
+      ++n;
+      return;
+    }
+    if (n) atomicAdd(&own[bin], n);
+    bin = b;
+    n = 1;
+  }
+  __device__ __forceinline__ void flush(int* own) {
+    if (n) atomicAdd(&own[bin], n);
+  }
+};
+
+// One valid value of a hub row at a level: clamped to hi, counted when it
+// lies in [max(lo, 1), up], in bin (x - lo) >> shift.
+__device__ __forceinline__ void hub_count(Run& run, int* own, int x, int hi,
+                                          int lo, int up, int shift) {
+  x = min(x, hi);
+  if (x >= 1 && x >= lo && x <= up) run.add(own, (x - lo) >> shift);
+}
+
+// kVec: W % 16 == 0 and both rows 16-byte aligned (vector loads).
+template <bool kVec>
+__global__ void __launch_bounds__(kHubThreads)
+    h_index_hub(const int32_t* __restrict__ vals,
+                const uint8_t* __restrict__ valid,
+                const int32_t* __restrict__ est, int32_t* __restrict__ out,
+                int64_t r, int w) {
+  extern __shared__ int smem[];
+  int* bins = smem + kHubWarps * kHubStride;  // this block's bins, summed
+  int* total = bins + kHubBins;               // the cluster's
+  __shared__ int warp_total[kHubWarps];
+  __shared__ int best_bin, best_above;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int* own = smem + warp * kHubStride;  // this warp's bins
+  // this block's slice of a row: kHubSplit slices, each a multiple of 16
+  const int per = (w + kHubSplit * 16 - 1) / (kHubSplit * 16) * 16;
+  const int begin = min(w, rank * per), end = min(w, begin + per);
+  const int64_t clusters = gridDim.x / kHubSplit;
+  for (int64_t row = blockIdx.x / kHubSplit; row < r; row += clusters) {
+    const int hi = min(max(est[row], 0), w);  // the same in every block
+    if (hi <= 0) {  // a padded row: nothing else is read
+      if (tid == 0 && rank == 0) out[row] = 0;
+      continue;
+    }
+    const uint8_t* m = valid + row * w;
+    const int32_t* v = vals + row * w;
+    // invariant: the answer lies in [lo, up]; count(>= lo) >= lo holds
+    // (lo = 0, or a level proved it); above = count(>= up + 1)
+    int lo = 0, up = hi, above = 0;
+    while (true) {
+      // bins of width 2^shift, the least power of two that covers the range
+      int shift = 0;
+      while (((int64_t)kHubBins << shift) < (int64_t)up - lo + 1) ++shift;
+      const int width = 1 << shift;
+      for (int b = tid; b < kHubWarps * kHubStride; b += kHubThreads)
+        smem[b] = 0;
+      if (tid == 0) best_bin = -1;
+      __syncthreads();
+      Run run;
+      if constexpr (kVec) {
+        constexpr int kStep = kHubThreads * 16;
+        for (int j0 = begin + tid * 16; j0 < end; j0 += kStep * kHubUnroll) {
+          unsigned words[kHubUnroll][4];
+#pragma unroll
+          for (int u = 0; u < kHubUnroll; ++u) {
+            const int j = j0 + u * kStep;
+            const uint4 mm = j < end ? *reinterpret_cast<const uint4*>(m + j)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+            words[u][0] = mm.x, words[u][1] = mm.y, words[u][2] = mm.z,
+            words[u][3] = mm.w;
+          }
+          int4 x[kHubUnroll][4];
+#pragma unroll
+          for (int u = 0; u < kHubUnroll; ++u)
+#pragma unroll
+            for (int qd = 0; qd < 4; ++qd)
+              x[u][qd] = words[u][qd] ? *reinterpret_cast<const int4*>(
+                                            v + j0 + u * kStep + 4 * qd)
+                                      : make_int4(0, 0, 0, 0);
+#pragma unroll
+          for (int u = 0; u < kHubUnroll; ++u)
+#pragma unroll
+            for (int qd = 0; qd < 4; ++qd) {
+              const unsigned wd = words[u][qd];
+              if (!wd) continue;
+              const int4 y = x[u][qd];
+              if (wd & 0xffu) hub_count(run, own, y.x, hi, lo, up, shift);
+              if (wd & 0xff00u) hub_count(run, own, y.y, hi, lo, up, shift);
+              if (wd & 0xff0000u)
+                hub_count(run, own, y.z, hi, lo, up, shift);
+              if (wd & 0xff000000u)
+                hub_count(run, own, y.w, hi, lo, up, shift);
+            }
+        }
+      } else {
+        for (int j = begin + tid; j < end; j += kHubThreads)
+          if (m[j]) hub_count(run, own, v[j], hi, lo, up, shift);
+      }
+      run.flush(own);
+      __syncthreads();
+      for (int b = tid; b < kHubBins; b += kHubThreads) {
+        int sum = 0;
+#pragma unroll
+        for (int u = 0; u < kHubWarps; ++u) sum += smem[u * kHubStride + b];
+        bins[b] = sum;
+      }
+      cluster.sync();  // every block's bins are summed
+      for (int b = tid; b < kHubBins; b += kHubThreads) {
+        int sum = 0;
+#pragma unroll
+        for (int q = 0; q < kHubSplit; ++q)
+          sum += cluster.map_shared_rank(bins, q)[b];
+        total[b] = sum;
+      }
+      // every block has read the others' bins (they are rewritten only
+      // after the next level's pass), and its total is complete
+      cluster.sync();
+      // warp u scans bins [u C, (u + 1) C) (consecutive lanes on
+      // consecutive bins): first their count, then from the top down 32 a
+      // step, lane l on bin top - l, an inclusive prefix over the lanes
+      // plus the carry from above giving count(>= h)
+      const int first = warp * kHubChunk;
+      int mine = 0;
+      for (int b = first + lane; b < first + kHubChunk; b += 32)
+        mine += total[b];
+      mine = __reduce_add_sync(kFull, mine);
+      if (lane == 0) warp_total[warp] = mine;
+      __syncthreads();
+      int carry = above;  // count(>= lo + (first + C) width)
+      for (int u = warp + 1; u < kHubWarps; ++u) carry += warp_total[u];
+      int found = -1, found_above = 0;
+      for (int top = first + kHubChunk - 1; top >= first; top -= 32) {
+        const int b = top - lane;
+        const int bin_count = total[b];
+        int c = bin_count;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, c, o);
+          if (lane >= o) c += y;
+        }
+        const int cum = carry + c;  // count(>= lo + b width)
+        const int64_t h = lo + (int64_t)b * width;
+        // bin 0: h = lo, which holds by the invariant
+        const unsigned ok =
+            __ballot_sync(kFull, h <= up && (b == 0 || cum >= h));
+        if (ok) {
+          const int l = __ffs(ok) - 1;
+          found = top - l;
+          found_above = __shfl_sync(kFull, cum - bin_count, l);
+          break;
+        }
+        carry = __shfl_sync(kFull, cum, 31);
+      }
+      if (lane) found = -1;  // one report a warp
+      if (found >= 0) atomicMax(&best_bin, found);
+      __syncthreads();
+      if (found >= 0 && found == best_bin) best_above = found_above;
+      __syncthreads();
+      const int j = best_bin;
+      const int new_above = best_above;
+      __syncthreads();  // every thread has read them before the next level
+      if (width == 1) {
+        lo += j;
+        break;
+      }
+      up = min(up, (int)(lo + (int64_t)(j + 1) * width - 1));
+      lo += j * width;
+      above = new_above;
+    }
+    if (tid == 0 && rank == 0) out[row] = lo;
+  }
+}
+
 // Warps a block of the wide kernel holds at width w (0: w too wide).
 int wide_warps(int w) {
   const long long per_warp = 4LL * (w + 1);
@@ -266,8 +499,9 @@ cudaError_t resident(K kern, int threads, int smem, int device, int* out) {
 
 }  // namespace
 
-// The widest row the kernel takes: the bins of one warp fill the shared
-// memory of a block.
+// The widest row of the wide (shared-memory histogram) kernel: the bins of
+// one warp fill the shared memory of a block. Wider rows take the hub
+// kernel.
 extern "C" int h_index_max_width() { return kSmemLimit / 4 - 1; }
 
 // Returns the cudaError_t of the launch.
@@ -298,6 +532,35 @@ extern "C" int h_index_launch(const void* vals, const void* valid,
     if (blocks > narrow_resident[device][vec])
       blocks = narrow_resident[device][vec];
     kern<<<(unsigned)blocks, kThreads, 0, s>>>(v, m, e, o, r, w);
+    return (int)cudaGetLastError();
+  }
+  if (w > h_index_max_width()) {  // hub rows: a cluster per row
+    const bool vec = w % 16 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(vals) |
+                       reinterpret_cast<uintptr_t>(valid)) & 15) == 0;
+    auto kern = vec ? h_index_hub<true> : h_index_hub<false>;
+    static bool hub_ready[kMaxDevices][2];
+    if (!hub_ready[device][vec]) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kHubSmem);
+      if (err != cudaSuccess) return (int)err;
+      hub_ready[device][vec] = true;
+    }
+    const long long clusters = r < kHubMaxClusters ? r : kHubMaxClusters;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(clusters * kHubSplit));
+    cfg.blockDim = dim3(kHubThreads);
+    cfg.dynamicSmemBytes = kHubSmem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kHubSplit;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, v, m, e, o, r, w);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   const int wpb = wide_warps(w);

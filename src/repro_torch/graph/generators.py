@@ -16,6 +16,7 @@ __all__ = [
     "barabasi_albert",
     "barabasi_albert_varying",
     "erdos_renyi",
+    "hub_with_cliques",
     "powerlaw_cluster",
     "stochastic_block_model",
 ]
@@ -144,3 +145,37 @@ def stochastic_block_model(
             if rng.random() < p:
                 edges.append((u, v))
     return Graph.from_edges(n, np.array(edges, dtype=np.int64))
+
+
+def hub_with_cliques(n_leaves: int, n_cliques: int, clique_size: int,
+                     n_leaf_edges: int, seed: int = 0):
+    """A hub of degree ``n_leaves + n_cliques * clique_size``: node 0 joined
+    to every node of ``n_cliques`` cliques (nodes 1 to n_cliques *
+    clique_size) and to ``n_leaves`` leaves (the nodes after them), plus
+    ``n_leaf_edges`` distinct random edges among the leaves.
+
+    Returns ``(graph, inner)``: ``inner`` holds the edges among the hub and
+    the cliques, shuffled. The cliques sit at core ``clique_size`` and the
+    leaves at 1 or 2, so a stream of inner edges, churned, keeps every
+    incremental repair's region to the hub and the cliques: the serving
+    repair then sweeps the hub's row, padded to a power of two above its
+    degree, and few others.
+    """
+    rng = np.random.default_rng(seed)
+    inner = [(0, v) for v in range(1, n_cliques * clique_size + 1)]
+    for c in range(n_cliques):
+        base = 1 + c * clique_size
+        inner += [(base + i, base + j) for i in range(clique_size)
+                  for j in range(i + 1, clique_size)]
+    inner = np.array(inner, dtype=np.int64)[rng.permutation(len(inner))]
+    first = n_cliques * clique_size + 1
+    n = first + n_leaves
+    leaves = np.stack([np.zeros(n_leaves, np.int64),
+                       np.arange(first, n, dtype=np.int64)], 1)
+    pairs = set()
+    while len(pairs) < n_leaf_edges:
+        u, v = (int(x) for x in rng.integers(first, n, 2))
+        if u != v:
+            pairs.add((min(u, v), max(u, v)))
+    extra = np.array(sorted(pairs), dtype=np.int64).reshape(-1, 2)
+    return Graph.from_edges(n, np.concatenate([inner, leaves, extra])), inner

@@ -4,9 +4,10 @@ The Hopper counterparts of the Pallas kernels in ``repro.kernels.sgns``
 (the paper's compute hot spot): ``sgns_fwd_cuda`` gives the per-example
 loss ``softplus(-<c, x>) + sum_k softplus(<n_k, c>)`` in fp32,
 ``sgns_bwd_cuda`` the analytic gradients of ``sum(loss * dout)``
-recomputed from the inputs, each in its input's dtype. Any batch size and
-width: nothing is padded. The plain versions are ``ref.sgns_loss_ref`` and
-``ref.sgns_grads_ref``.
+recomputed from the inputs, each in its input's dtype, in one pass over
+each example. Any batch size, width and number of negatives K: nothing is
+padded, and no per-K state sits in shared memory. The plain versions are
+``ref.sgns_loss_ref`` and ``ref.sgns_grads_ref``.
 """
 from __future__ import annotations
 
@@ -16,13 +17,10 @@ import torch
 
 from . import build
 
-__all__ = ["sgns_fwd_cuda", "sgns_bwd_cuda", "fwd_launches", "bwd_launches",
-           "MAX_NEG"]
+__all__ = ["sgns_fwd_cuda", "sgns_bwd_cuda", "fwd_launches", "bwd_launches"]
 
 fwd_launches = 0  # forward kernel launches since the last reset
 bwd_launches = 0  # backward kernel launches since the last reset
-
-MAX_NEG = 1536  # K floats per warp, eight warps, in 48 KB of shared memory
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,8 +32,9 @@ def _fns():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fwd.argtypes = [p, p, p, p, ll, i, i, i, i, p]
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, p]
         bwd.restype = ctypes.c_int
+        lib.sgns_bwd_max_reg_width.restype = i
     return lib, fwd, bwd
 
 
@@ -49,8 +48,6 @@ def _check(center, ctx, neg):
             f"shapes center {tuple(center.shape)}, ctx {tuple(ctx.shape)}, "
             f"neg {tuple(neg.shape)}: expected (B, D), (B, D), (B, K, D)"
         )
-    if neg.shape[1] > MAX_NEG:
-        raise ValueError(f"K = {neg.shape[1]} negatives > {MAX_NEG}")
     return b, d, neg.shape[1]
 
 
@@ -83,8 +80,13 @@ def sgns_bwd_cuda(center: torch.Tensor, ctx: torch.Tensor,
         raise ValueError(f"dout {tuple(dout.shape)} != ({b},)")
     dc, dx, dn = (torch.empty_like(t) for t in (center, ctx, neg))
     lib, _, fn = _fns()
+    scratch = None  # rows wider than the registers hold: dneg through it
+    if d > lib.sgns_bwd_max_reg_width():
+        scratch = torch.empty(b * k, dtype=torch.float32,
+                              device=center.device)
     code = fn(center.data_ptr(), ctx.data_ptr(), neg.data_ptr(),
               dout.data_ptr(), dc.data_ptr(), dx.data_ptr(), dn.data_ptr(),
+              None if scratch is None else scratch.data_ptr(),
               b, d, k, _DTYPES[center.dtype], center.device.index,
               build.stream_of(center.device))
     build.check(lib, code, "sgns backward kernel")

@@ -7,9 +7,12 @@ package, so it runs on a machine with only PyTorch and ``nvcc``:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: the SGNS loss and gradients 1e-5 in fp32 and 2e-2 in bf16
-(fp32 dots summed in another order, then one bf16 rounding), the ELL mean
-1e-5 in fp32 and 2e-2 in bf16 (summation order),
-the h-index exact, the top-k scores at 1e-5 with ids equal off near-ties
+(fp32 dots summed in another order, then one bf16 rounding; at K = 2,048
+also against the fp64 formulas, and against the plain versions scaled by
+their largest magnitude, as their fp32 sums of 2,048 terms drift), the ELL
+mean 1e-5 in fp32 and 2e-2 in bf16 (summation order), the h-index exact
+(at every width, hub rows included), the top-k scores at 1e-5 with ids
+equal off near-ties
 (fp32 dot products of width d summed in another order), flash-decode 2e-5
 with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
 ones (one bf16 rounding of the same fp32 result; int8 caches as their
@@ -132,28 +135,101 @@ def test_ell_mean_path_threshold(cuda):
             _ell_holds(*_sparse_ell(cuda, n, l, 5000, d, dtype, n + l))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 7, 8193])
-@pytest.mark.parametrize("d", [1, 150, 256])
-@pytest.mark.parametrize("k", [1, 5, 15])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_sgns_kernels_match_plain(cuda, b, d, k, dtype):
-    rng = np.random.default_rng(b * 131 + d * 7 + k)
-    c, x, n, dout = _on(cuda, *[(rng.standard_normal(s) * 0.3).astype(
-        np.float32) for s in ((b, d), (b, d), (b, k, d), (b,))])
-    c, x, n = (t.to(dtype) for t in (c, x, n))
+def _sgns_fp64(c, x, n, dout):
+    """The SGNS loss and gradients in float64 (the plain versions'
+    formulas)."""
+    c, x, n, g = (t.double() for t in (c, x, n, dout))
+    pos = (c * x).sum(-1)
+    negl = torch.einsum("bkd,bd->bk", n, c)
+    loss = (torch.nn.functional.softplus(-pos)
+            + torch.nn.functional.softplus(negl).sum(-1))
+    dpos = (torch.sigmoid(pos) - 1.0) * g
+    dneg = torch.sigmoid(negl) * g[:, None]
+    return loss, (dpos[:, None] * x + torch.einsum("bk,bkd->bd", dneg, n),
+                  dpos[:, None] * c, dneg[:, :, None] * c[:, None, :])
+
+
+def _sgns_holds(c, x, n, dout, dtype, many=False):
+    """Both SGNS kernels against their plain versions (one launch each),
+    and the same bits on a second call. ``many`` (K in the thousands): the
+    kernels are also held to the fp64 formulas at the tolerance, and to the
+    plain versions at the tolerance x max(1, max|plain|), whose fp32 sums
+    of K terms drift by about 1e-6 of their magnitude."""
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     before = (sgns.fwd_launches, sgns.bwd_launches)
     loss = sgns.sgns_fwd_cuda(c, x, n)
     grads = sgns.sgns_bwd_cuda(c, x, n, dout)
     assert (sgns.fwd_launches, sgns.bwd_launches) == (before[0] + 1,
                                                       before[1] + 1)
-    torch.testing.assert_close(loss, ref.sgns_loss_ref(c, x, n), rtol=tol,
-                               atol=tol)
+
+    def atol(want):
+        return tol * max(1.0, float(want.abs().max())) if many else tol
+
+    if many:
+        exact_loss, exact_grads = _sgns_fp64(c, x, n, dout)
+        for got, want in zip((loss, *grads), (exact_loss, *exact_grads)):
+            torch.testing.assert_close(got.double(), want, rtol=tol,
+                                       atol=tol)
+    want = ref.sgns_loss_ref(c, x, n)
+    torch.testing.assert_close(loss, want, rtol=tol, atol=atol(want))
     for got, want in zip(grads, ref.sgns_grads_ref(c, x, n, dout)):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
+                                   atol=atol(want.float()))
+    assert torch.equal(sgns.sgns_fwd_cuda(c, x, n), loss)
+    for again, got in zip(sgns.sgns_bwd_cuda(c, x, n, dout), grads):
+        assert torch.equal(again, got)
+
+
+def _sgns_inputs(dev, b, d, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    c, x, n, dout = _on(dev, *[(rng.standard_normal(s) * 0.3).astype(
+        np.float32) for s in ((b, d), (b, d), (b, k, d), (b,))])
+    return (*(t.to(dtype) for t in (c, x, n)), dout)
+
+
+# D: one element a lane (1, 7), 8-byte fp32 vectors in lane groups of 16
+# (150), 16-byte vectors (256), rows wider than the registers hold (1030)
+SGNS_D = [1, 7, 150, 256, 1030]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 8193])
+@pytest.mark.parametrize("d", SGNS_D)
+@pytest.mark.parametrize("k", [1, 5, 15])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgns_kernels_match_plain(cuda, b, d, k, dtype):
+    _sgns_holds(*_sgns_inputs(cuda, b, d, k, dtype, b * 131 + d * 7 + k),
+                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 33])
+@pytest.mark.parametrize("d", SGNS_D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgns_kernels_take_any_k(cuda, b, d, dtype):
+    """K = 2,048 negatives (K = 13: a chunk's tail), which the first design
+    refused above 1,536 (their logits sat in shared memory)."""
+    for k in (13, 2048):
+        _sgns_holds(*_sgns_inputs(cuda, b, d, k, dtype, b + d + k), dtype,
+                    many=k > 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 8, 150, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgns_kernels_on_unaligned_rows(cuda, d, dtype):
+    """Inputs and outputs whose storage starts one element past a 16-byte
+    boundary take narrower vectors (or none), with the same results."""
+    c, x, n, dout = _sgns_inputs(cuda, 65, d, 5, dtype, d)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    _sgns_holds(shifted(c), shifted(x), shifted(n), dout, dtype)
 
 
 @pytest.mark.cuda
@@ -238,11 +314,33 @@ def test_h_index_kernel_scattered_masks(cuda, r, w):
 
 
 @pytest.mark.cuda
-def test_h_index_kernel_refuses_too_wide_rows(cuda):
-    w = hindex.max_width() + 1
-    x = torch.zeros((1, w), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="histogram"):
-        hindex.h_index_cuda(x, x.bool(), x[:, 0].contiguous())
+@pytest.mark.parametrize("over", [1, 3, None])
+def test_h_index_kernel_refuses_too_wide_rows(cuda, over):
+    """Rows wider than ``max_width()``, which the wrapper once refused,
+    take the hub kernel: at ``max_width() + 1`` (a multiple of 16: vector
+    loads), ``max_width() + 3`` (scalar loads) and W = 65,536 (the serving
+    repair's width for a degree above 32,768), exact against the plain
+    versions, with est 0, est above W, a row with no valid slot and values
+    above est among the rows, and the same bits on a second call."""
+    w = 65536 if over is None else hindex.max_width() + over
+    assert w > hindex.max_width()
+    rng = np.random.default_rng(w)
+    r = 24
+    vals = rng.integers(0, 40000, (r, w)).astype(np.int32)
+    valid = rng.random((r, w)) < rng.random((r, 1))
+    est = rng.integers(0, w + 100, r).astype(np.int32)
+    est[0], est[1], est[4] = 0, w + 50, 7
+    valid[2] = False
+    vals[3] = w + 100
+    vals, valid, est = _on(cuda, vals, valid, est)
+    before = (hindex.launches, hindex.hub_launches, hindex.wide_launches)
+    got = ops.h_index_sweep(vals, valid, est)
+    assert (hindex.launches - before[0], hindex.hub_launches - before[1],
+            hindex.wide_launches - before[2]) == (1, 1, 0)
+    assert torch.equal(got, ref.h_index_ref(vals, valid, est))
+    assert torch.equal(got, ref.h_index_count(vals, valid, est))
+    assert torch.equal(ops.h_index_sweep(vals, valid, est), got)
+    assert int(got[0]) == 0 and int(got[2]) == 0 and int(got.max()) > 1000
 
 
 @pytest.mark.cuda
@@ -536,3 +634,38 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda, arch, over, tol):
         else:
             torch.testing.assert_close(cg[key], cc[key], rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hub_ingest_on_the_card_matches_the_oracle(cuda):
+    """A hub of degree 34,280 streamed through the serving repair on the
+    card, pinned to the window descent: its row of width 65,536 goes
+    through the hub kernel, and the cores equal the peeling oracle after
+    every block of inserts and churn."""
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import generators
+    from repro_torch.serve import DynamicGraph, IncrementalCore
+
+    g, inner = generators.hub_with_cliques(34000, 10, 28, 2000, seed=0)
+    stream = inner[:600]
+    streamed = set(map(tuple, stream.tolist()))
+    edges = g.edge_list()
+    base = edges[[tuple(e) not in streamed for e in edges.tolist()]]
+    dyn = DynamicGraph(g.n_nodes, base, width=16, device=cuda)
+    inc = IncrementalCore(dyn, repair_policy="region", repeel_frac=1.0,
+                          descend_budget=1 << 62)
+    before = hindex.hub_launches
+    rng = np.random.default_rng(2)
+    live = []
+    for start in range(0, len(stream), 100):
+        acc = dyn.add_edges(stream[start:start + 100])
+        inc.on_edge_block(acc)
+        live.extend(map(tuple, acc))
+        pick = rng.choice(len(live), size=10, replace=False)
+        gone = dyn.remove_edges(np.array([live[i] for i in pick]))
+        inc.on_remove(gone)
+        live = [e for i, e in enumerate(live) if i not in set(pick.tolist())]
+        np.testing.assert_array_equal(inc.core,
+                                      core_numbers_host(dyn.snapshot()))
+    assert hindex.hub_launches > before and inc.repeels == 0
+    assert inc.phase_impl["descend"] == "fused[cuda]"

@@ -13,10 +13,13 @@ to the semantics of record exactly:
   merge reads the partials rank by rank and stops early. Ids and values
   must equal ``ref.topk_ref`` exactly (the same scores, compared bit for
   bit);
-* the h-index (``csrc/hindex.cu``): the wide rows' histogram of
-  ``hi + 1`` bins and the warp's suffix scan from ``hi`` down in steps of
-  32, and the narrow rows' ballot search, against ``ref.h_index_ref`` and
-  the JAX package's sort-free ``h_index_count`` (exact integers).
+* the h-index (``csrc/hindex.cu``): the narrow rows' search (a thread per
+  row, a binary search over its packed values), the wide rows' histogram
+  of ``hi + 1`` bins and the warp's suffix scan from ``hi`` down in steps
+  of 32, and the hub rows' levels of coarse bins, each narrowing the
+  answer's range, scanned a warp's range of bins at a time, against
+  ``ref.h_index_ref`` and the JAX package's sort-free ``h_index_count``
+  (exact integers).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -370,9 +373,9 @@ def h_index_hist(values, valid, est):
 
 
 def h_index_ballot(values, valid, est):
-    """The narrow rows' search (W <= 32): the row in the lanes, masked to
-    -1; hi = min(est, W, popc(valid)); a binary search whose probe is
-    popc(ballot(v >= mid))."""
+    """The narrow rows' search (W <= 32, a thread per row): the row's
+    valid values; hi = min(est, W, valid count); a binary search whose
+    probe counts the values >= mid."""
     vals = torch.where(valid, values, -1)
     out = torch.zeros(values.shape[0], dtype=torch.int32)
     for row in range(values.shape[0]):
@@ -420,3 +423,89 @@ def test_h_index_histogram_matches_ref_and_jax(w, packed):
     assert torch.equal(h_index_hist(tv, tm, te), want)
     if w <= 32:
         assert torch.equal(h_index_ballot(tv, tm, te), want)
+
+
+HUB_BINS = 1024  # csrc/hindex.cu kHubBins
+HUB_WARPS = 16  # kHubThreads / 32
+
+
+def h_index_hub(values, valid, est, bins=HUB_BINS, warps=HUB_WARPS):
+    """The hub rows' search (W > the wide kernel's width): per row hi =
+    min(max(est, 0), W) and the range [lo, up] = [0, hi] with above =
+    count(>= up + 1) = 0. A level counts the valid values, clamped to hi,
+    that lie in [max(lo, 1), up] into ``bins`` bins of width the least
+    power of two with bins x width >= up - lo + 1; each of ``warps`` warps
+    scans its range of
+    bins from the top, 32 a step (lane l on bin top - l, an inclusive
+    prefix plus the carry of the warps and steps above is count(>= lo + b
+    width)), and reports the first bin b with count >= lo + b width (bin 0
+    always holds); the highest report j narrows the range to [lo + j width,
+    min(up, lo + (j + 1) width - 1)], with above = the count past bin j. A
+    level of width 1 ends it: the answer is lo + j."""
+    r, w = values.shape
+    out = torch.zeros(r, dtype=torch.int32)
+    per_warp = bins // warps
+    for row in range(r):
+        hi = min(max(int(est[row]), 0), w)
+        if hi <= 0:
+            continue
+        x = values[row][valid[row]].long().clamp_max(hi)
+        lo, up, above = 0, hi, 0
+        while True:
+            width = 1
+            while bins * width < up - lo + 1:
+                width *= 2
+            sel = x[(x >= max(lo, 1)) & (x <= up)]
+            hist = torch.bincount((sel - lo) // width, minlength=bins)
+            totals = hist.view(warps, per_warp).sum(1)
+            reports = []
+            for u in range(warps):
+                carry = above + int(totals[u + 1:].sum())
+                for top in range(u * per_warp + per_warp - 1, u * per_warp,
+                                 -32):
+                    b = top - torch.arange(32)
+                    cum = carry + torch.cumsum(hist[b], 0)
+                    h = lo + b * width
+                    ok = (h <= up) & ((b == 0) | (cum >= h))
+                    if bool(ok.any()):
+                        l_ = int(ok.nonzero()[0])
+                        reports.append((int(b[l_]),
+                                        int(cum[l_] - hist[b[l_]])))
+                        break
+                    carry = int(cum[-1])
+            j, past = max(reports)
+            if width == 1:
+                lo += j
+                break
+            up = min(up, lo + (j + 1) * width - 1)
+            lo, above = lo + j * width, past
+        out[row] = lo
+    return out
+
+
+@pytest.mark.parametrize("bins", [HUB_BINS, 64, 32])
+def test_h_index_hub_search_matches_ref_and_jax(bins):
+    """The hub search at W = 65,536 (the serving repair's width for a
+    degree above 32,768), exact against ``h_index_ref`` and the JAX
+    package's ``h_index_count``: two levels at the kernel's 1,024 bins,
+    three at 64 and four at 32 (so a level's range and carried count are
+    exercised past the first narrowing). Rows: est 0, est above W, no valid
+    slot, values above est, a small est, and dense and sparse rows."""
+    w, r = 65536, 8
+    rng = np.random.default_rng(bins)
+    vals = rng.integers(0, 40000, (r, w)).astype(np.int32)
+    valid = rng.random((r, w)) < np.array([0.5, 0.9, 0.5, 0.5, 0.3, 0.02,
+                                           0.7, 1.0])[:, None]
+    est = rng.integers(w // 2, w + 100, r).astype(np.int32)
+    est[0], est[1], est[4] = 0, w + 50, 9
+    valid[2] = False
+    vals[3] = w + 100
+    tv, tm, te = (torch.from_numpy(a) for a in (vals, valid, est))
+    want = ref.h_index_ref(tv, tm, te)
+    jax_count = np.asarray(jops.h_index_sweep(
+        jnp.asarray(vals), jnp.asarray(valid), jnp.asarray(est),
+        impl="count"))
+    np.testing.assert_array_equal(want.numpy(), jax_count)
+    assert torch.equal(h_index_hub(tv, tm, te, bins=bins,
+                                   warps=min(HUB_WARPS, bins // 32)), want)
+    assert int(want[3]) > 30000 and int(want[4]) == 9

@@ -271,3 +271,57 @@ def test_entry_points_raise_when_cuda_is_absent():
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_hub_row_of_width_65536_goes_through_the_descent(monkeypatch):
+    """A hub of degree 33,048 (``generators.hub_with_cliques``: 33,000
+    leaves and two 24-cliques) pads its row of the descent to W = 65,536,
+    above the card's wide h-index kernel (the hub kernel's width). Inner
+    edges are streamed in blocks with churn; the repair, pinned to the
+    window descent (the region policy uncapped, no re-peel), keeps the
+    cores equal to the peeling oracle and to the JAX package's after every
+    block. The service's compaction would re-pack every row at 1.5x the
+    hub's degree, so the repair layer is driven directly, in the loop of
+    ``EmbeddingService.stream_with_churn``."""
+    from repro_torch.serve import kcore_inc
+
+    g, inner = generators.hub_with_cliques(33000, 2, 24, 500, seed=0)
+    stream = inner[:120]
+    streamed = set(map(tuple, stream.tolist()))
+    edges = g.edge_list()
+    base = edges[[tuple(e) not in streamed for e in edges.tolist()]]
+    pin = dict(repair_policy="region", repeel_frac=1.0,
+               descend_budget=1 << 62)
+    dyn = DynamicGraph(g.n_nodes, base, width=16, device="cpu")
+    jdyn = jserve.DynamicGraph(g.n_nodes, base, width=16)
+    inc = IncrementalCore(dyn, **pin)
+    jinc = jserve.IncrementalCore(jdyn, **pin)
+    widths = []
+    sweep = kcore_inc.kops.h_index_sweep
+
+    def spy(values, valid, est, **kw):
+        widths.append(values.shape[1])
+        return sweep(values, valid, est, **kw)
+
+    monkeypatch.setattr(kcore_inc.kops, "h_index_sweep", spy)
+    rng = np.random.default_rng(1)
+    live = []
+    for start in range(0, len(stream), 30):
+        block = stream[start:start + 30]
+        acc = dyn.add_edges(block)
+        np.testing.assert_array_equal(acc, jdyn.add_edges(block))
+        inc.on_edge_block(acc)
+        jinc.on_edge_block(acc)
+        live.extend(map(tuple, acc))
+        pick = rng.choice(len(live), size=3, replace=False)
+        drop = np.array([live[i] for i in pick])
+        gone = dyn.remove_edges(drop)
+        np.testing.assert_array_equal(gone, jdyn.remove_edges(drop))
+        inc.on_remove(gone)
+        jinc.on_remove(gone)
+        live = [e for i, e in enumerate(live) if i not in set(pick.tolist())]
+        oracle = core_numbers_host(dyn.snapshot())
+        np.testing.assert_array_equal(inc.core, oracle)
+        np.testing.assert_array_equal(np.asarray(jinc.core), oracle)
+    assert max(widths) == 65536 and int(dyn.degrees()[0]) > 32768
+    assert inc.descends >= 8 and inc.repeels == 0

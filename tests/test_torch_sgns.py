@@ -179,3 +179,141 @@ def test_train_steps_match_jax(jax_corpus, steps):
             np.testing.assert_allclose(after_t[k].numpy()[ok], want[ok],
                                        rtol=1e-6, atol=1e-6)
     assert float(jnp.abs(jgrads["emb_in"]).max()) > 0 or steps == 1
+
+
+# ------------------------------------------- the backward kernel's algorithm
+
+
+def _fma(a, b, c):
+    """fp32 fused multiply-add: the product is exact in fp64, one rounding
+    (up to a rare double rounding, well inside the tolerances)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _sigmoid(z):
+    return (np.float32(1) / (np.float32(1) + np.exp(-z))).astype(np.float32)
+
+
+def bwd_plan(d):
+    """What ``csrc/sgns.cu`` launches for fp32 rows of width d <= 1024 on
+    16-byte aligned tensors: V elements a vector (4, else 2, else 1), the
+    smallest lane group G in {8, 16, 32} at which a lane holds at most 12
+    elements, else G = 32 with up to 32; returns (V, G, vectors a lane)."""
+    v = 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    nvec = d // v
+    for g in (8, 16, 32):
+        if -(-nvec // g) * v <= 12:
+            return v, g, 12 // v
+    return v, 32, 32 // v
+
+
+def model_sgns_bwd(c, x, n, dout, chunk=2):
+    """The backward kernel step for step, fp32, one example per lane group:
+    lane l holds the vectors l, l + G, ... of each row (zeros past D), its
+    partial dots run over its vectors in order, a butterfly over the G
+    lanes sums them; dx = dpos c and dc = dpos x; the negatives come
+    ``chunk`` rows at a time (a tail when K % chunk != 0), their dots reduced
+    together, then for q in order dn_q = dneg_q c and dc += dneg_q n_q,
+    compensated (Kahan)."""
+    b, k, d = n.shape
+    v, g, per_lane = bwd_plan(d)
+    vec = np.arange(g)[:, None] + g * np.arange(per_lane)[None, :]
+    live = vec < d // v  # (G, vectors)
+    idx = (vec[..., None] * v + np.arange(v)).clip(max=d - 1)  # (G, I, V)
+    live = np.broadcast_to(live[..., None], idx.shape)
+
+    def lanes(rows):  # (..., D) -> (..., G, I, V), zeros past D
+        return np.where(live, rows[..., idx], np.float32(0))
+
+    def dot(a, bb):  # the lanes' partial sums, then the butterfly
+        s = np.zeros(a.shape[:-3] + (g,), np.float32)
+        for i in range(per_lane):
+            for e in range(v):
+                s = _fma(a[..., i, e], bb[..., i, e], s)
+        o = g // 2
+        while o:
+            s = (s + s[..., np.arange(g) ^ o]).astype(np.float32)
+            o //= 2
+        assert (s == s[..., :1]).all()  # every lane holds the same sum
+        return s[..., :1, None, None]
+
+    cl, xl = lanes(c), lanes(x)
+    gd = dout.astype(np.float32)[:, None, None, None]
+    dpos = ((_sigmoid(dot(cl, xl)) - np.float32(1)) * gd).astype(np.float32)
+    dxl = (dpos * cl).astype(np.float32)
+    acc = (dpos * xl).astype(np.float32)
+    err = np.zeros_like(acc)
+    dnl = np.zeros((b, k) + cl.shape[1:], np.float32)
+    for q0 in range(0, k, chunk):
+        qs = range(q0, min(q0 + chunk, k))
+        rows = [lanes(n[:, q]) for q in qs]
+        sums = [dot(r, cl) for r in rows]
+        for q, r, s in zip(qs, rows, sums):
+            w = (_sigmoid(s) * gd).astype(np.float32)
+            dnl[:, q] = (w * cl).astype(np.float32)
+            y = _fma(w, r, -err)
+            t = (acc + y).astype(np.float32)
+            err = ((t - acc) - y).astype(np.float32)
+            acc = t
+
+    def rows_of(lanes_arr):  # (..., G, I, V) -> (..., D)
+        out = np.zeros(lanes_arr.shape[:-3] + (d,), np.float32)
+        out[..., idx[live]] = lanes_arr[..., live]
+        return out
+
+    return rows_of(acc), rows_of(dxl), rows_of(dnl)
+
+
+@pytest.mark.parametrize("d", [1, 7, 150, 256])
+@pytest.mark.parametrize("k", [1, 5, 13, 2048])
+def test_sgns_bwd_kernel_model_matches_plain_and_jax(d, k):
+    """The model of the backward kernel against ``ref.sgns_grads_ref`` and
+    the JAX package's ``sgns_grads_ref``, fp32, within 1e-5 (rtol and atol:
+    the logits' sums run in another order). At K = 2,048 |dc| reaches about
+    80; the model's compensated sum is within 1e-7 x that of an fp64 sum,
+    the plain versions' fp32 sums within 1e-6 x, inside the rtol."""
+    b = 3 if k == 2048 else 11
+    c, x, n = _inputs(b, d, k, seed=d + k)
+    dout = np.random.default_rng(k).standard_normal(b).astype(np.float32)
+    got = model_sgns_bwd(c, x, n, dout)
+    want_t = ref.sgns_grads_ref(*(torch.from_numpy(a) for a in (c, x, n)),
+                                torch.from_numpy(dout))
+    want_j = jref.sgns_grads_ref(*(jnp.asarray(a) for a in (c, x, n)),
+                                 jnp.asarray(dout))
+    for g, wt, wj in zip(got, want_t, want_j):
+        np.testing.assert_allclose(g, wt.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g, np.asarray(wj), rtol=1e-5, atol=1e-5)
+
+
+def test_sgns_bwd_plan_lane_groups():
+    """The lane-group rule at the widths the smoke and the tests use."""
+    assert bwd_plan(150) == (2, 16, 6)  # 10 elements a lane, 2 examples
+    assert bwd_plan(256) == (4, 32, 3)  # 8 elements a lane
+    assert bwd_plan(7) == (1, 8, 12)
+    assert bwd_plan(1) == (1, 8, 12)
+    assert bwd_plan(1024) == (4, 32, 8)  # 32 elements a lane
+
+
+def test_sgns_loss_takes_2048_negatives_like_jax():
+    """``ops.sgns_loss`` (the plain version on CPU tensors) at K = 2,048
+    against the JAX package's Pallas kernels in interpret mode: the loss
+    within 1e-5 relative (2,049 softplus terms summed in another order),
+    the gradients of sum(loss * dout) within 1e-5."""
+    b, d, k = 4, 16, 2048
+    arrays = _inputs(b, d, k, seed=9)
+    dout = np.random.default_rng(9).standard_normal(b).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    loss = ops.sgns_loss(*leaves)
+    (loss * torch.from_numpy(dout)).sum().backward()
+
+    def jloss(*a):
+        return jnp.sum(jops.sgns_loss(*a, impl="pallas_interpret")
+                       * jnp.asarray(dout))
+
+    j_in = [jnp.asarray(a) for a in arrays]
+    want = jops.sgns_loss(*j_in, impl="pallas_interpret")
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    for leaf, wg in zip(leaves, jax.grad(jloss, argnums=(0, 1, 2))(*j_in)):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(wg),
+                                   rtol=1e-5, atol=1e-5)
