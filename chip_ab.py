@@ -2,7 +2,7 @@
 """Time the port's ELL mean, flash-decode, top-k, h-index and SGNS kernels of
 one source tree on one GPU.
 
-    python3 chip_ab.py --src SRC_DIR [--tag NAME]
+    python3 chip_ab.py --src SRC_DIR [--tag NAME] [--offline]
 
 ``SRC_DIR`` is the ``src`` directory of a checkout (this one, or an older
 commit unpacked with ``git archive``); its ``repro_torch`` kernels are built
@@ -24,7 +24,10 @@ backward at the smoke's two shapes (B=8192 K=5 D=150 fp32, B=65536 K=5
 D=256 bf16), rotated through input sets that stream more than twice the
 L2, with a hash of the forward's losses (and of the backward's gradients)
 on the first set of each shape, so that two trees' bits can be compared.
-Inputs come from fixed seeds, so two trees see the same data. Each
+``--offline`` times the offline pipeline instead: the smoke's quick github
+table (DeepWalk, CoreWalk and the k-core row, ``launch.tables.run_model``
+on the card), each row's SGNS steps per second of embedding time beside a
+hash of its embeddings. Inputs come from fixed seeds, so two trees see the same data. Each
 time is the device time per call with the host's launch time left out
 (``chip_smoke.time_ms``: the calls queued behind a spin kernel, CUDA
 events around them) beside the CUDA-event time of a loop of calls
@@ -120,10 +123,37 @@ def sgns_kernels(torch, sm, sgns, out, timed):
         del sets, first
 
 
+def offline_rows(np, out):
+    """The quick github table's rows into ``out["offline"]``: SGNS steps,
+    steps per second of embedding time, and a hash of the embeddings."""
+    import hashlib
+
+    from repro_torch.core import kcore
+    from repro_torch.graph import datasets, splits
+    from repro_torch.launch import tables
+
+    s, models = tables.table("github", quick=True)
+    g = datasets.load(s.dataset)
+    core = kcore.core_numbers_host(g)
+    sp = splits.make_link_split(g, s.frac_removed, seed=0)
+    for label, method, k0f in models:
+        r = tables.run_model(sp, method, tables.k0_of(core, k0f), s, 0,
+                             "cuda")
+        emb = np.ascontiguousarray(r["result"].embeddings)
+        out["offline"][label] = {
+            "sgns_steps": r["n_sgns_steps"],
+            "embedding_s": r["times"]["embedding"],
+            "steps_per_s": r["n_sgns_steps"] / r["times"]["embedding"],
+            "emb_sha256": hashlib.sha256(emb.tobytes()).hexdigest()[:16],
+        }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="", help="a label for the output")
+    ap.add_argument("--offline", action="store_true",
+                    help="time the offline table's SGNS rows only")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -146,7 +176,12 @@ def main() -> int:
     dev = "cuda"
     out = {"tag": args.tag, "src": str(Path(args.src).resolve()),
            "card": sm.nvidia_smi(), "ell_mean": {}, "flash_decode": {},
-           "top_k": {}, "h_index": {}, "sgns": {}}
+           "top_k": {}, "h_index": {}, "sgns": {}, "offline": {}}
+    if args.offline:
+        offline_rows(np, out)
+        print(out["card"])
+        print(json.dumps(out))
+        return 0
 
     def timed(fn, iters, sets=None):
         """{"ms": device ms a call, "loop_ms": CUDA events around a loop of

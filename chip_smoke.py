@@ -30,7 +30,23 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    card, the repair pinned to the window descent, the counts set to 0
    before and read after (the fourth path, "hub"): 0 core mismatches
    against the peeling oracle after every block, hub-kernel launches > 0,
-   no re-peel;
+   no re-peel; and, after phase 4's serving shapes, the fifth path,
+   "resilience" (``resilience_phase``):
+   the serving configuration (``github-like``, dim 128, batch 64, blocks
+   of 1024, 10% churn) over the stream's first 16 blocks with the
+   drift-triggered retrainer attached (threshold ``RESIL_THRESHOLD``,
+   budget 2: the CoreWalk + SGNS refresh on the card's SGNS kernels), run
+   once uninterrupted (the twin), then, with the counts set to 0, under a
+   ``RecoveryManager`` (WAL + a snapshot every 4 records, fsync on) that
+   crashes at ``ingest_apply:12``, recovers (the retrainer re-attached
+   before the WAL replay), takes the rest of the stream and serves top-10
+   traffic. Held: one retrain before the snapshot the recovery starts from
+   and one after it, re-fired in the replay; graph, store, cores, baseline
+   and counters bit-identical to the twin; 0 core mismatches; h-index
+   launches in the replay; SGNS forward and backward launches equal to the
+   retrains' steps; every serving kernel launched. Printed: each retrain's
+   stage times and steps, WAL append + fsync ms a block, snapshot and
+   recovery seconds, the records replayed;
 4. kernel parity and timing: each kernel against its plain PyTorch version
    on the same inputs, at the shapes the serving path gave it (taken from
    the live service; the h-index's two tiers also each on its own) and at
@@ -57,8 +73,9 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    (B=8192 K=5 D=150 fp32, 1e-5), one large shape (B=65536 K=5 D=256
    bf16, 2e-2) and K = 2,048 negatives (B=64 D=150 fp32: 1e-5 against
    the same formulas in fp64, and 1e-5 x max(1, max|plain|) against the
-   plain versions, whose fp32 sums of 2,048 terms drift), timed on inputs
-   rotated through more than twice the L2;
+   plain versions, whose fp32 sums of 2,048 terms drift) and the retrain's
+   shape on the resilience path (B=4096 K=5 D=128 fp32, 1e-5), timed on
+   inputs rotated through more than twice the L2;
 7. where a training step's time goes: ``torch.profiler`` over 100 SGNS
    steps on the CoreWalk corpus at the table's settings, device time by
    kernel and the device's busy share of the window (reported, not held to
@@ -101,8 +118,8 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the offline and the LM path, each path's count beside
-it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
+serving, the hub, the resilience, the offline and the LM path, each path's
+count beside it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -185,6 +202,17 @@ SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
 # inner edges streamed in blocks of 250 with 10% churn
 HUB_GRAPH = (34000, 12, 30, 2000)
 HUB_STREAM, HUB_BLOCK, HUB_CHURN = 2000, 250, 0.1
+# the resilience path: the serving configuration over the stream's first 16
+# blocks; a snapshot every 4 WAL records, a crash at the 12th block applied
+# (ingest_apply counts ingests and retractions); the threshold puts one
+# drift-triggered retrain before the snapshot the recovery starts from and
+# one between it and the crash
+RESIL_BLOCKS, RESIL_BLOCK, RESIL_CHURN = 16, 1024, 0.1
+RESIL_SNAPSHOT_EVERY = 4
+RESIL_CRASH = "ingest_apply:12:crash"
+RESIL_THRESHOLD = 0.01  # the twin retrains after ops 5 and 11
+RESIL_BUDGET = 2
+RESIL_HANG_TIMEOUT = 120.0  # s: the watchdog around flushes and retrains
 
 
 def log(msg: str) -> None:
@@ -578,6 +606,25 @@ def hub_shapes(torch, ops, ref, live):
 # ------------------------------------------------------------ serving ----
 
 
+def top10_traffic(np, svc, rng, tag):
+    """One untimed and four checked top-10 calls of 64 random queries on
+    ``svc``: ids in range, never the query itself, scores in order.
+    Returns the (p50, p99) seconds of the checked calls."""
+    n_now = svc.graph.n_nodes
+    svc.top_k_neighbors(rng.integers(0, n_now, size=64), 10)  # warmup
+    svc.stats.topk_seconds.clear()
+    for _ in range(4):
+        nodes = rng.integers(0, n_now, size=64)
+        ids, sc = svc.top_k_neighbors(nodes, 10)
+        expect(ids.shape == (64, 10) and (ids >= -1).all()
+               and (ids < n_now).all() and (ids != nodes[:, None]).all(),
+               f"{tag}: top-k ids out of range or include the query")
+        fin = np.where(np.isfinite(sc), sc, -2.0)
+        expect((np.diff(fin, axis=1) <= 1e-6).all(),
+               f"{tag}: top-k not ordered")
+    return svc.topk_latency_percentiles()
+
+
 def serve_phase(torch, np, counters):
     """The serving path on the card; returns (service, launch counts)."""
     from repro_torch.graph import datasets
@@ -638,17 +685,7 @@ def serve_phase(torch, np, counters):
         f"{st.queries / t_query:.0f} queries/s; flush p50 {p50 * 1e3:.2f} "
         f"ms p99 {p99 * 1e3:.2f} ms; cold starts {st.cold_starts}, "
         f"unresolved {st.unresolved}")
-    svc.top_k_neighbors(rng.integers(0, n_now, size=64), 10)  # warmup
-    svc.stats.topk_seconds.clear()
-    for _ in range(4):
-        nodes = rng.integers(0, n_now, size=64)
-        ids, sc = svc.top_k_neighbors(nodes, 10)
-        expect(ids.shape == (64, 10) and (ids >= -1).all()
-               and (ids < n_now).all() and (ids != nodes[:, None]).all(),
-               "top-k ids out of range or include the query")
-        fin = np.where(np.isfinite(sc), sc, -2.0)
-        expect((np.diff(fin, axis=1) <= 1e-6).all(), "top-k not ordered")
-    t50, t99 = svc.topk_latency_percentiles()
+    t50, t99 = top10_traffic(np, svc, rng, "serving")
     log(f"top-10: 256 queries over {svc.store.resident} resident rows, p50 "
         f"{t50 * 1e3:.2f} ms p99 {t99 * 1e3:.2f} ms per call of 64")
     counts = counters.read()
@@ -855,6 +892,252 @@ def topk_inputs(torch, ops, svc, nodes):
     tn = ops.normalize_rows(st.table())
     live = torch.tensor(st.row_valid(), device=svc.device)
     return q, tn, live
+
+
+# --------------------------------------------------------- resilience ----
+
+
+def resilience_ops(np, stream):
+    """The resilience path's op list: the stream's first RESIL_BLOCKS
+    blocks of RESIL_BLOCK edges, each followed by the retraction of a
+    RESIL_CHURN share of it drawn from the edges submitted so far. A pure
+    function of the stream, so ops map 1:1 onto WAL records and the durable
+    sequence number is the resume index."""
+    rng = np.random.default_rng(2)
+    live, ops = [], []
+    for start in range(0, RESIL_BLOCKS * RESIL_BLOCK, RESIL_BLOCK):
+        block = np.asarray(stream[start:start + RESIL_BLOCK], np.int64)
+        ops.append(("ingest", block))
+        live.extend(map(tuple, block))
+        pick = rng.choice(len(live), size=int(RESIL_CHURN * len(block)),
+                          replace=False)
+        ops.append(("retract", np.asarray([live[i] for i in pick],
+                                          np.int64)))
+        gone = set(pick.tolist())
+        live = [e for i, e in enumerate(live) if i not in gone]
+    return ops
+
+
+def _apply_op(svc, op):
+    kind, edges = op
+    (svc.ingest_block if kind == "ingest" else svc.retract_block)(edges)
+
+
+class RetrainLog:
+    """Keeps the report of every retrain a service runs (auto retrains
+    return theirs to no one) and the op each fired after."""
+
+    def __init__(self):
+        self.reports = []
+        self.op = 0
+
+    def attach(self, svc):
+        from repro_torch.launch.serve_embed import attach_retrainer
+
+        attach_retrainer(svc, seed=0, budget=RESIL_BUDGET)
+        run = svc.retrainer.run
+
+        def logged(between=None):
+            rep = run(between)
+            if rep is not None:
+                self.reports.append((self.op, rep))
+            return rep
+        svc.retrainer.run = logged
+
+
+def resilience_phase(torch, np, counters):
+    """Drift-triggered retraining and crash safety on the card at the
+    serving configuration's width (``github-like``, dim 128, batch 64,
+    blocks of 1024, 10% churn), over the first RESIL_BLOCKS blocks of the
+    stream. An uninterrupted twin runs first; then, with every count set to
+    0, the path: a service under a ``RecoveryManager`` (WAL + a snapshot
+    every RESIL_SNAPSHOT_EVERY records, fsync on) crashes at RESIL_CRASH,
+    recovers from the newest snapshot plus the WAL tail (the retrainer
+    re-attached before replay), takes the rest of the stream, and serves
+    top-10 traffic. Held: the twin retrains before the snapshot the
+    recovery starts from and after it, and the replay re-fires the later
+    one; graph, store, cores, baseline and counters bit-identical to the
+    twin; 0 core mismatches against the peeling oracle; h-index launches in
+    the replay; SGNS forward and backward launches, and every serving
+    kernel, on the path; no flush or retrain outlasting the services' hang
+    watchdog (RESIL_HANG_TIMEOUT). Snapshot seconds run from the capture on the
+    serving thread to the commit on the writer thread (which shares the
+    GIL with ingest). Returns (launch counts, numbers)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import datasets
+    from repro_torch.kernels import hindex, sgns
+    from repro_torch.launch.serve_embed import build_service
+    from repro_torch.obs import metrics
+    from repro_torch.serve import RecoveryManager, faults
+    from repro_torch.serve.recovery import capture_state
+
+    g = datasets.load("github-like", seed=0)
+
+    def fresh(log):
+        t0 = time.perf_counter()
+        svc, stream, _, k0 = build_service(
+            g, stream_frac=STREAM_FRAC, dim=128, batch=64,
+            retrain_threshold=RESIL_THRESHOLD,
+            hang_timeout=RESIL_HANG_TIMEOUT, device="cuda")
+        log.attach(svc)
+        return svc, stream, k0, time.perf_counter() - t0
+
+    def run_ops(svc, ops, log, start=0):
+        for i in range(start, len(ops)):
+            log.op = i + 1
+            _apply_op(svc, ops[i])
+
+    # --- the uninterrupted twin
+    twin_log = RetrainLog()
+    twin, stream, k0, t_build = fresh(twin_log)
+    ops = resilience_ops(np, stream)
+    t0 = time.perf_counter()
+    run_ops(twin, ops, twin_log)
+    twin.sync()
+    t_twin = time.perf_counter() - t0
+    truth, truth_man = capture_state(twin, 0)
+    fired = [op for op, _ in twin_log.reports]
+    log(f"resilience twin: k0={k0}, {len(ops)} ops ({RESIL_BLOCKS} blocks of "
+        f"{RESIL_BLOCK}, churn {RESIL_CHURN}) in {t_twin:.2f} s "
+        f"(build {t_build:.1f} s), retrain threshold {RESIL_THRESHOLD}: "
+        f"retrains after ops {fired}")
+    del twin
+
+    # --- the path: crash, recover, resume, serve
+    path_log = RetrainLog()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    waldir = tempfile.mkdtemp(prefix="resilience_", dir=build_dir)
+    wal_s = []
+
+    def timed_wal(mgr):
+        append = mgr.wal.append
+
+        def wrapped(kind, edges):
+            t = time.perf_counter()
+            out = append(kind, edges)
+            wal_s.append(time.perf_counter() - t)
+            return out
+        mgr.wal.append = wrapped
+
+    snap_hist = metrics().histogram("recovery_snapshot_seconds")
+    snaps_before = len(snap_hist.values())
+    counters.reset()
+    svc, _, _, _ = fresh(path_log)
+    mgr = RecoveryManager(svc, waldir, snapshot_every=RESIL_SNAPSHOT_EVERY)
+    timed_wal(mgr)
+    faults.install(faults.FaultPlan.parse(RESIL_CRASH))
+    crashed = False
+    t0 = time.perf_counter()
+    try:
+        run_ops(svc, ops, path_log)
+    except faults.InjectedCrash as e:
+        crashed = True
+        log(f"resilience: {e} after {time.perf_counter() - t0:.2f} s")
+    finally:
+        faults.install(None)
+    expect(crashed, f"resilience: {RESIL_CRASH} did not fire")
+    try:
+        mgr.wait()  # the dead run's snapshot writer
+    except faults.InjectedCrash:
+        pass  # it died with the run
+    mgr.wal.close()
+    del svc, mgr
+
+    restored = {}
+    path_log.op = None  # retrains in the replay
+
+    def configure(s):
+        path_log.attach(s)
+        restored["retrains"] = s.stats.retrains
+    h0 = hindex.launches
+    svc, mgr, report = RecoveryManager.recover(
+        waldir, device="cuda", snapshot_every=RESIL_SNAPSHOT_EVERY,
+        configure=configure)
+    replay_h = hindex.launches - h0
+    refired = svc.stats.retrains - restored["retrains"]
+    timed_wal(mgr)
+    t0 = time.perf_counter()
+    run_ops(svc, ops, path_log, start=report["wal_seq"])
+    svc.sync()
+    t_resume = time.perf_counter() - t0
+    got, got_man = capture_state(svc, 0)
+    bad = [k for k in sorted(set(truth) | set(got))
+           if k not in truth or k not in got
+           or not np.array_equal(truth[k], got[k])]
+    oracle = core_numbers_host(svc.graph.snapshot())
+    mismatches = int((svc.cores.core[: len(oracle)] != oracle).sum())
+    snap = report["snapshot_wal_seq"]
+    log(f"resilience: recovered from snapshot@wal_seq {snap} + "
+        f"{report['replayed_records']} records ({report['replayed_edges']} "
+        f"edges) in {report['recovery_seconds']:.3f} s ({replay_h} h-index "
+        f"launches, {refired} retrain re-fired), resumed "
+        f"{len(ops) - report['wal_seq']} ops in {t_resume:.2f} s; state "
+        f"keys off the "
+        f"twin: {bad}; counters equal: {got_man['stats'] == truth_man['stats']}"
+        f"; core mismatches vs oracle: {mismatches}")
+    expect(any(op <= snap for op in fired)
+           and any(snap < op <= report["wal_seq"] for op in fired),
+           f"resilience: twin retrains after ops {fired}, not on both sides "
+           f"of the snapshot at {snap} before the crash at "
+           f"{report['wal_seq']}")
+    expect(restored["retrains"] >= 1 and refired >= 1,
+           f"resilience: {restored['retrains']} retrains in the snapshot, "
+           f"{refired} re-fired in the replay")
+    expect(bad == [], f"resilience: state differs from the twin in {bad}")
+    expect(got_man["stats"] == truth_man["stats"],
+           f"resilience: counters {got_man['stats']} != the twin's "
+           f"{truth_man['stats']}")
+    expect(mismatches == 0, f"resilience: {mismatches} core mismatches")
+    expect(replay_h > 0, "resilience: no h-index launch in the replay")
+    expect(truth_man["stats"]["hangs"] == got_man["stats"]["hangs"] == 0,
+           f"resilience: a flush or retrain outlasted the {RESIL_HANG_TIMEOUT}"
+           f" s watchdog")
+
+    # --- top-10 traffic on the recovered service
+    t50, t99 = top10_traffic(np, svc, np.random.default_rng(1),
+                             "resilience")
+    counts = counters.read()
+    mgr.close()
+    shutil.rmtree(waldir, ignore_errors=True)
+
+    reports = path_log.reports  # the crashed run's, the replay's, the rest's
+    stages = ("plan", "walks", "train", "align", "propagate", "swap",
+              "total")
+    snaps = snap_hist.values()[snaps_before:]
+    out = {
+        "threshold": RESIL_THRESHOLD, "twin_retrains_after_ops": fired,
+        "retrains": [{"after_op": op, "sgns_steps": r.sgns_steps,
+                      "n_walks": r.n_walks, "core_size": r.core_size,
+                      "drifted": r.drifted, "warm_rows": r.warm_rows,
+                      "anchors": r.anchors, "rows_swapped": r.rows_swapped,
+                      "seconds": {k: r.times[k] for k in stages}}
+                     for op, r in reports],
+        "wal_append_fsync_ms": {
+            "blocks": len(wal_s),
+            "mean": 1e3 * float(np.mean(wal_s)),
+            "p50": 1e3 * float(np.percentile(wal_s, 50)),
+            "max": 1e3 * float(np.max(wal_s))},
+        "snapshot_s": [float(x) for x in snaps],
+        "recovery_s": report["recovery_seconds"],
+        "replayed_records": report["replayed_records"],
+        "replayed_edges": report["replayed_edges"],
+        "snapshot_wal_seq": snap, "replay_h_index_launches": replay_h,
+        "topk_p50_ms": t50 * 1e3, "topk_p99_ms": t99 * 1e3,
+        "launches": counts,
+    }
+    log("resilience: " + json.dumps(out))
+    sgns_steps = sum(r.sgns_steps for _, r in reports)
+    expect(counts["sgns_fwd"] == counts["sgns_bwd"] == sgns_steps > 0,
+           f"resilience: SGNS launches {counts['sgns_fwd']}/"
+           f"{counts['sgns_bwd']} != {sgns_steps} steps")
+    for name in (*SERVING, "sgns_fwd", "sgns_bwd"):
+        expect(counts[name] > 0,
+               f"kernel {name} was not launched on the resilience path")
+    return counts, out
 
 
 # ------------------------------------------------------------ offline ----
@@ -1621,6 +1904,7 @@ def main() -> int:
     serve_rec["h_index_hub"], large_rec["h_index_hub"] = hub_shapes(
         torch, ops, ref, hub_tier)
     _, offline_counts, split = offline_phase(torch, np, counters)
+    resil_counts, _ = resilience_phase(torch, np, counters)
     large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
                                                 split)
     train = check_sgns(torch, ref, sgns, 8192, 5, 150, torch.float32,
@@ -1629,9 +1913,11 @@ def main() -> int:
                        "large", iters=10)
     many = check_sgns(torch, ref, sgns, 64, 2048, 150, torch.float32,
                       "K=2048", iters=10, fp64=True)
+    retrain = check_sgns(torch, ref, sgns, 4096, 5, 128, torch.float32,
+                         "retrain")
     for name in ("sgns_fwd", "sgns_bwd"):
         serve_rec[name] = train[name]
-        large_rec[name] = [large[name], many[name]]
+        large_rec[name] = [large[name], many[name], retrain[name]]
     step_profile(torch, split)
     cfg, params, lm_counts, snap = lm_serve_phase(torch, np, counters)
     live = lm_decode_parity(torch, cfg, params, snap)
@@ -1644,9 +1930,11 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
-    paths = (serve_counts, hub_counts, offline_counts, lm_counts)
+    paths = (serve_counts, hub_counts, resil_counts, offline_counts,
+             lm_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
+                   "resilience": resil_counts[name],
                    "offline": offline_counts[name], "lm": lm_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {

@@ -17,15 +17,22 @@ inputs. ``--train`` replaces the seeded k0-core table by real CoreWalk +
 SGNS embeddings of the base graph (``core.pipeline.embed_graph``; the fused
 SGNS kernels on the card).
 
-Not in this port yet, and refused with an error: ``--retrain`` (it needs
-``serve/retrain.py``), ``--wal-dir`` / ``--fault-plan`` (crash safety),
-``--jax-profile``, and ``--shards`` > 1. ``--no-pipeline`` is accepted and
-changes nothing: the port ingests every block serially.
+``--retrain`` attaches the drift-triggered retraining loop (CoreWalk + SGNS
+warm start on the card's SGNS kernels, Procrustes alignment, chunked hot
+swap). ``--wal-dir`` logs every block to a write-ahead log and keeps atomic
+snapshots; with ``--fault-plan ...:crash`` the run dies at the injected
+point, recovers from the newest snapshot plus the WAL tail (re-firing the
+auto-retrains), and reports what it replayed.
+
+Not in this port yet, and refused with an error: ``--jax-profile`` and
+``--shards`` > 1. ``--no-pipeline`` is accepted and changes nothing: the
+port ingests every block serially.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -41,7 +48,11 @@ from repro_torch.serve import (
     EmbeddingService,
     EmbeddingStore,
     IncrementalCore,
+    RecoveryManager,
+    RetrainConfig,
+    Retrainer,
     ServiceStats,
+    faults,
 )
 from repro_torch.skipgram.trainer import SGNSConfig
 
@@ -70,6 +81,26 @@ def _split_stream(g, stream_frac: float, seed: int):
     return base, stream
 
 
+def attach_retrainer(svc, *, seed: int = 0, prop_iters: int = 20,
+                     budget: int = 0) -> None:
+    """Attach the launcher's drift-triggered ``Retrainer`` in auto mode
+    (the JAX launcher's settings: 8 walks of 16 per budget unit, a quarter
+    epoch of SGNS at the store's dim, the fused kernels on the card).
+
+    ``build_service`` and a recovery's ``configure`` hook both call this,
+    so the retrains that a WAL replay re-fires run with the settings of the
+    ones they replay.
+    """
+    cfg = RetrainConfig(
+        n_walks=8,
+        walk_length=16,
+        sgns=SGNSConfig(dim=svc.store.dim, epochs=0.25, seed=seed),
+        prop_iters=prop_iters,
+        seed=seed,
+    )
+    svc.set_retrainer(Retrainer(svc, cfg), auto=True, budget=budget)
+
+
 def build_service(
     g,
     *,
@@ -82,10 +113,13 @@ def build_service(
     prop_iters: int = 20,
     seed: int = 0,
     train: bool = False,
+    retrain: bool = False,
     retrain_threshold: float = 0.1,
+    retrain_budget: int = 0,
     repair_policy: str = "adaptive",
     crossover_margin: float = 1.0,
     cold_cells_per_arc: float = 32.0,
+    hang_timeout: Optional[float] = None,
     device="cuda",
 ):
     """Returns (service, stream_edges, base_core, k0), on ``device``.
@@ -97,9 +131,16 @@ def build_service(
     CoreWalk + SGNS embed the base graph's k0-core on ``device`` (walks and
     SGNS draw from torch generators, so the table matches the JAX package's
     in quality, not in bits).
+    ``retrain=True`` attaches a drift-triggered ``Retrainer`` in auto mode
+    (``attach_retrainer``): after every block the service re-checks
+    ``retrain_pressure`` against ``retrain_threshold`` and, while
+    ``retrain_budget`` allows, refreshes the k0-core embeddings in place.
     ``repair_policy`` selects the block-repair decision rule (``adaptive``
     measured crossover / ``region`` legacy static trigger / ``fallback``
     always re-peel). Ingest is serial: there is no pipelined variant.
+    ``hang_timeout`` (seconds) arms the service's ``HangWatchdog`` around
+    its blocking device reads and retrains; a section that outlasts it is
+    counted in ``stats.hangs``.
     """
     device = resolve_device(device)
     base_edges, stream_edges = _split_stream(g, stream_frac, seed)
@@ -148,22 +189,22 @@ def build_service(
     inc.mark_refresh()
     svc = EmbeddingService(
         base, inc, store, batch=batch, compact_every=compact_every, k0=k0,
-        retrain_threshold=retrain_threshold,
+        retrain_threshold=retrain_threshold, hang_timeout=hang_timeout,
     )
+    if retrain:
+        attach_retrainer(svc, seed=seed, prop_iters=prop_iters,
+                         budget=retrain_budget)
     return svc, stream_edges, core, k0
 
 
 def _refuse(ap, args) -> None:
     """Flags of the JAX launcher that this port does not implement yet."""
     for flag, on in (
-        ("--retrain", args.retrain),
-        ("--wal-dir", args.wal_dir), ("--fault-plan", args.fault_plan),
         ("--jax-profile", args.jax_profile), ("--shards", args.shards != 1),
     ):
         if on:
             ap.error(f"{flag} is not implemented in the PyTorch port yet "
-                     "(retraining, crash safety, profiling and sharding "
-                     "come in later slices)")
+                     "(profiling and sharding come in later slices)")
 
 
 def main(argv=None):
@@ -189,10 +230,15 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="real CoreWalk+SGNS base embeddings (slower)")
     ap.add_argument("--retrain", action="store_true",
-                    help=f"drift-triggered retraining loop: {not_yet}")
+                    help="attach the drift-triggered retraining loop: "
+                         "re-embed the k0-core (CoreWalk+SGNS warm start), "
+                         "Procrustes-align, and hot-swap store versions "
+                         "whenever retrain pressure crosses the threshold")
     ap.add_argument("--retrain-threshold", type=float, default=0.1,
-                    help="k0-core membership drift fraction reported as "
-                         "retrain pressure")
+                    help="k0-core membership drift fraction that triggers "
+                         "a retrain")
+    ap.add_argument("--retrain-budget", type=int, default=2,
+                    help="max drift-triggered retrains per run (0 = no cap)")
     ap.add_argument("--repair-policy", default="adaptive",
                     choices=["adaptive", "region", "fallback"],
                     help="block core-repair decision rule: adaptive = "
@@ -228,9 +274,18 @@ def main(argv=None):
     ap.add_argument("--jax-profile", metavar="DIR", default=None,
                     help=f"device trace of the ingest phase: {not_yet}")
     ap.add_argument("--wal-dir", metavar="DIR", default=None,
-                    help=f"write-ahead log + snapshots: {not_yet}")
+                    help="crash-safe serving: write-ahead-log every ingest/"
+                         "retract block and keep atomic state snapshots "
+                         "under DIR; an injected crash recovers from the "
+                         "newest committed snapshot + WAL tail replay")
+    ap.add_argument("--snapshot-every", type=int, default=64,
+                    help="blocks between background snapshots (--wal-dir)")
     ap.add_argument("--fault-plan", metavar="SPEC", default=None,
-                    help=f"deterministic fault injection: {not_yet}")
+                    help="deterministic fault injection: 'point:hit[:mode]"
+                         ",...' — mode fault (recoverable error) or crash "
+                         "(process death; with --wal-dir the run recovers "
+                         "and continues); points: "
+                         + ", ".join(faults.POINTS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (the hand-written kernels) or "
@@ -253,7 +308,9 @@ def main(argv=None):
         compact_every=args.compact_every,
         seed=args.seed,
         train=args.train,
+        retrain=args.retrain,
         retrain_threshold=args.retrain_threshold,
+        retrain_budget=args.retrain_budget,
         repair_policy=args.repair_policy,
         crossover_margin=args.crossover_margin,
         cold_cells_per_arc=args.cold_cells_per_arc,
@@ -262,15 +319,59 @@ def main(argv=None):
     print(f"[serve-embed] base: {svc.graph.n_edges} edges, k0={k0}, "
           f"store {svc.store.resident}/{svc.store.capacity} resident")
 
+    recovery = None
+    if args.wal_dir:
+        recovery = RecoveryManager(
+            svc, args.wal_dir, snapshot_every=args.snapshot_every
+        )
+        print(f"[serve-embed] crash safety: WAL + snapshots under "
+              f"{args.wal_dir} (snapshot every {args.snapshot_every} blocks)")
+    if args.fault_plan:
+        faults.install(faults.FaultPlan.parse(args.fault_plan))
+        print(f"[serve-embed] fault plan armed: {args.fault_plan}")
+
+    # re-attach the retraining loop on a recovered service *before* WAL
+    # replay, so auto-retrains that fired in the original stream re-fire
+    # identically during replay
+    def _reconfigure(s):
+        if args.retrain:
+            attach_retrainer(s, seed=args.seed, budget=args.retrain_budget)
+
     # --- ingest the stream in blocks, with churn (deletions of streamed
     # edges) interleaved, periodic compaction + oracle verification
     t0 = time.perf_counter()
-    n_in, n_out = svc.stream_with_churn(
-        stream_edges,
-        block_size=args.block_size,
-        churn=args.churn,
-        rng=np.random.default_rng(args.seed + 2),
-    )
+    crashed = False
+    try:
+        n_in, n_out = svc.stream_with_churn(
+            stream_edges,
+            block_size=args.block_size,
+            churn=args.churn,
+            rng=np.random.default_rng(args.seed + 2),
+        )
+    except faults.InjectedCrash as e:
+        if recovery is None:
+            raise
+        crashed = True
+        plan = faults.active()
+        faults.install(None)  # the "new process" runs without the plan
+        try:
+            recovery.wait()  # the dead process's snapshot writer
+        except (faults.InjectedCrash, faults.InjectedFault):
+            pass  # it died with the process
+        recovery.wal.close()  # simulate process death: drop live handles
+        print(f"[serve-embed] CRASH injected ({e}; "
+              f"{plan.total_fired if plan else '?'} faults fired) — "
+              f"recovering from {args.wal_dir}")
+        svc, recovery, report = RecoveryManager.recover(
+            args.wal_dir, device=args.device,
+            snapshot_every=args.snapshot_every, configure=_reconfigure,
+        )
+        print(f"[serve-embed] recovered: snapshot@wal_seq "
+              f"{report['snapshot_wal_seq']} + {report['replayed_records']} "
+              f"replayed records ({report['replayed_edges']} edges) in "
+              f"{report['recovery_seconds']:.2f}s")
+        n_in = svc.stats.edges_ingested
+        n_out = svc.stats.edges_removed
     t_ingest = time.perf_counter() - t0
     mismatches = svc.cores.resync()  # oracle check (exactness expected)
     eps = (n_in + n_out) / max(t_ingest, 1e-9)
@@ -293,8 +394,28 @@ def main(argv=None):
           f"shell re-peels {pol['shell_repeel']['count']} "
           f"(widened {pol['shell_repeel']['widens']}, mean frac peeled "
           f"{pol['shell_repeel']['mean_frac_peeled']})")
+    st_i = svc.stats
+    if st_i.degraded_queries or st_i.retrain_failures or st_i.hangs:
+        print(f"[serve-embed] degradation: {st_i.degraded_queries} degraded "
+              f"queries, {st_i.retrain_failures} retrain rollbacks, "
+              f"{st_i.hangs} hangs (degraded={svc.degraded})")
+    if recovery is not None:
+        recovery.snapshot(blocking=True)  # durable final state
+        print(f"[serve-embed] durability: wal_seq {recovery.wal.seq}, "
+              f"{recovery.snapshots_written} snapshots written"
+              + (", recovered after injected crash" if crashed else ""))
     if args.verify and mismatches:
         raise SystemExit(f"incremental core drifted from oracle: {mismatches}")
+    if args.retrain:
+        st = svc.stats
+        rt = np.asarray(st.retrain_seconds) if len(st.retrain_seconds) \
+            else None
+        print(f"[serve-embed] retraining loop: {st.retrains} drift-triggered "
+              f"retrains (budget {args.retrain_budget or 'uncapped'}), "
+              f"last swap version {st.last_swap_version}, "
+              f"store versions {svc.store.version_counts()}"
+              + (f", retrain wall {rt.sum():.2f}s (max {rt.max():.2f}s)"
+                 if rt is not None else ""))
     # --- synthetic traffic: embeds over old+new nodes, plus link scores
     rng = np.random.default_rng(args.seed + 1)
     n_now = svc.graph.n_nodes
@@ -304,6 +425,7 @@ def main(argv=None):
     st0 = svc.stats
     svc.stats = ServiceStats(
         edges_ingested=st0.edges_ingested, compactions=st0.compactions,
+        retrains=st0.retrains, last_swap_version=st0.last_swap_version,
     )
 
     n_scores = int(round(args.requests * args.score_frac))
@@ -351,7 +473,9 @@ def main(argv=None):
     print(f"[serve-embed] staleness {svc.store.staleness(svc.cores.core):.3f}  "
           f"retrain pressure {svc.retrain_pressure():.3f} "
           f"(threshold {svc.retrain_threshold}, "
-          f"retrain={'yes' if svc.should_retrain() else 'no'})")
+          f"retrain={'yes' if svc.should_retrain() else 'no'}, "
+          f"retrains={st.retrains}, "
+          f"last_swap_version={st.last_swap_version})")
 
     if args.metrics_out:
         svc.publish_metrics()
@@ -368,6 +492,10 @@ def main(argv=None):
         print(f"[serve-embed] trace: {len(t.events)} spans "
               f"({len(names)} kinds: {', '.join(names)}) -> {args.trace}"
               + (f" [{t.dropped} dropped]" if t.dropped else ""))
+    if recovery is not None:
+        recovery.close()
+    if args.fault_plan:
+        faults.install(None)  # don't leak the plan to in-process callers
     return st.queries
 
 

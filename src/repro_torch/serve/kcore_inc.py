@@ -55,6 +55,11 @@ Every repair is synchronous: the JAX package's split into
 ``begin_update``/``finish_update`` tickets (so the service could stage the
 next block while a descent was in flight) is not ported, because here the
 descent loop reads a flag back every sweep and nothing would overlap.
+A descent dispatch that raises the fault harness's ``InjectedFault`` is
+retried ``dispatch_retries`` times with backoff, then the block is repaired
+by the exact host peel (``dispatch_failures`` / ``dispatch_recoveries``
+count both); any other error — a kernel that fails to build or launch —
+propagates to the caller.
 
 Device-resident path (``impl="device"``, the ``"auto"`` default) — the
 choices follow where the graph lives. On CUDA the maintainer makes the
@@ -115,6 +120,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs
 
+from . import faults
 from .stream import DynamicGraph
 from .util import pow2
 
@@ -471,6 +477,14 @@ class IncrementalCore:
         self.repairs = 0
         self.sweeps = 0
         self.descends = 0
+        # bounded retry around the descent dispatch; exhaustion falls back
+        # to the exact host peel (never an inexact answer). Only the fault
+        # harness's InjectedFault is retried: a kernel that fails to build
+        # or launch raises to the caller
+        self.dispatch_retries = 2
+        self.retry_backoff = 0.05
+        self.dispatch_failures = 0
+        self.dispatch_recoveries = 0
         self.promoted = 0
         self.demoted = 0
         self.repeels = 0
@@ -569,6 +583,16 @@ class IncrementalCore:
     def core(self) -> np.ndarray:
         """(n_nodes,) int32 current core numbers (live view, do not mutate)."""
         return self._core[: self.g.n_nodes]
+
+    @property
+    def baseline(self) -> np.ndarray:
+        """(n_nodes,) int32 core numbers at the last ``mark_refresh``.
+
+        The retraining subsystem reads this to pick alignment anchors
+        (nodes whose level has not moved since the serving table was built).
+        """
+        self._ensure_size()
+        return self._baseline[: self.g.n_nodes]
 
     def _ensure_size(self) -> None:
         n = self.g.n_nodes
@@ -808,6 +832,7 @@ class IncrementalCore:
         """
         g = self.g
         node_cap = g.node_cap
+        faults.check("device_dispatch")
         t0 = time.perf_counter()
         n_rows = len(cand)
         r_small, r_big, w_big, n_big, cells = self._tier_plan(
@@ -920,6 +945,41 @@ class IncrementalCore:
         self.repairs += 1
         return changed
 
+    def _dispatch_with_retry(self, cand, seed, old_cand, lo, hi, *,
+                             cand_deg):
+        """Bounded retry-with-backoff around the descent dispatch.
+
+        Retries an ``InjectedFault`` only, and re-raises the last one after
+        ``dispatch_retries`` retries; the caller then falls back to
+        :meth:`_recover_ref`. Any other error propagates at once.
+        """
+        for attempt in range(self.dispatch_retries + 1):
+            try:
+                return self._descend_dispatch(
+                    cand, seed, old_cand, lo, hi, cand_deg=cand_deg
+                )
+            except faults.InjectedFault:
+                self.dispatch_failures += 1
+                metrics().counter("repair_dispatch_failures_total").inc()
+                if attempt >= self.dispatch_retries:
+                    raise
+                time.sleep(self.retry_backoff * (2 ** attempt))
+
+    def _recover_ref(self, ctx: dict, hi: int) -> int:
+        """The dispatch kept failing: force the exact host ``"peel"`` path
+        for this block so cores stay exact while the device path recovers.
+
+        InjectedCrash is a BaseException and never lands here — a simulated
+        process death must not be absorbed into a host fallback."""
+        self.dispatch_recoveries += 1
+        metrics().counter("repair_dispatch_recoveries_total").inc()
+        saved = self.repeel_impl
+        self.repeel_impl = "peel"
+        try:
+            return self._finish_repeel(ctx, hi)
+        finally:
+            self.repeel_impl = saved
+
     def _commit(self, ctx: dict, cand, new) -> int:
         old = ctx["old"]
         self.repairs += 1
@@ -1017,9 +1077,12 @@ class IncrementalCore:
                 # legacy static trigger: a huge candidate matrix costs
                 # more to sweep than one exact vectorized re-peel
                 return self._finish_repeel(ctx, hi)
-            pending = self._descend_dispatch(
-                cand, seed, old[cand], lo, hi, cand_deg=cand_deg
-            )
+            try:
+                pending = self._dispatch_with_retry(
+                    cand, seed, old[cand], lo, hi, cand_deg=cand_deg
+                )
+            except faults.InjectedFault:
+                return self._recover_ref(ctx, hi)
             # the dispatch may tier-reorder the rows: resolve/commit against
             # the ordering the result actually maps to
             res = self._descend_read(pending)
@@ -1048,6 +1111,7 @@ class IncrementalCore:
         accepted (the return values of ``add_edges``/``remove_edges``).
         Returns the number of nodes whose core number changed.
         """
+        faults.check("repair")
         added = (
             np.asarray(added, np.int64).reshape(-1, 2)
             if added is not None else _EMPTY

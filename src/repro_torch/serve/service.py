@@ -22,15 +22,29 @@ through ``ingest_block`` (``DynamicGraph.add_edges`` + one
 ``IncrementalCore`` repair for the whole block) and are retracted through
 ``retract_block`` (``remove_edges`` + repair), with periodic compaction.
 ``retrain_pressure`` (k0-core membership drift since the last refresh)
-reports when retraining would be due.
+gates when retraining is due, and ``maybe_retrain`` acts on it: with a
+:class:`~repro_torch.serve.retrain.Retrainer` attached (``set_retrainer``),
+the drifted k0-core is re-embedded (CoreWalk + SGNS, warm start; the fused
+SGNS kernels on the card), Procrustes-aligned into the serving space, and
+hot-swapped into the store in chunks.
 
-Not in this port yet: retraining (``set_retrainer``/``maybe_retrain``), the
-write-ahead log and snapshots, the SLO engine, the hang watchdog, the
-degraded-mode flush that answered from stale rows when a flush raised, and
-pipelined ingest (staging block N+1 while block N's descent is in flight):
-the descent here reads a flag back every sweep, so the card would sit idle
-while the host staged, and every block is repaired before the next one is
-taken. A failing kernel or device error propagates to the caller.
+Fault tolerance, as in the JAX package: an attached
+:class:`~repro_torch.serve.recovery.RecoveryManager` logs every block to the
+write-ahead log before anything mutates and snapshots on its cadence; a
+flush retries a failed dispatch and then answers from the rows the store
+already holds (degraded mode); a failed retrain rolls the store back; a
+:class:`~repro_torch.distributed.watchdog.HangWatchdog` (``hang_timeout``)
+is armed around the blocking device reads. Each of those handlers catches
+``faults.InjectedFault``, the fault harness's own error, and nothing else:
+a kernel that fails to build or launch, or any other device error,
+propagates to the caller. ``faults.InjectedCrash`` (simulated process
+death) is a ``BaseException`` and passes every handler.
+
+Not in this port yet: the SLO engine and pipelined ingest (staging block
+N+1 while block N's descent is in flight): the descent here reads a flag
+back every sweep, so the card would sit idle while the host staged, and
+every block is repaired before the next one is taken; ``sync()`` is a
+device synchronize at a block boundary.
 """
 from __future__ import annotations
 
@@ -41,20 +55,24 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import synchronize
 from repro_torch.kernels import ops
 from repro_torch.obs import Histogram, metrics
 from repro_torch.obs import trace as obs
 
+from . import faults
 from .kcore_inc import IncrementalCore
+from .recovery import KIND_INGEST, KIND_RETRACT
 from .store import EmbeddingStore
 from .stream import DynamicGraph
 
 __all__ = ["EmbeddingService", "ServiceStats"]
 
 # exact-percentile retention: latency percentiles describe the most recent
-# FLUSH_WINDOW flushes (steady state, bounded memory); the histograms'
-# bucket counts still cover the whole lifetime
+# FLUSH_WINDOW flushes / RETRAIN_WINDOW retrains (steady state, bounded
+# memory); the histograms' bucket counts still cover the whole lifetime
 FLUSH_WINDOW = 4096
+RETRAIN_WINDOW = 64
 
 
 @dataclasses.dataclass
@@ -68,12 +86,20 @@ class ServiceStats:
     edges_removed: int = 0
     ingest_blocks: int = 0
     compactions: int = 0
+    retrains: int = 0
+    last_swap_version: int = -1  # -1 = no retrain swap has happened yet
+    degraded_queries: int = 0  # answered from stale rows (flush fallback)
+    retrain_failures: int = 0  # retrains rolled back transactionally
+    hangs: int = 0  # HangWatchdog firings around blocking device reads
     # bounded fixed-bucket histograms (obs.metrics.Histogram): percentiles
-    # are exact over the retained window (the FLUSH_WINDOW most recent
-    # samples), lifetime bucket counts feed the metrics exporters
+    # are exact over the retained window (FLUSH_WINDOW / RETRAIN_WINDOW most
+    # recent samples), lifetime bucket counts feed the metrics exporters
     topk_queries: int = 0  # nodes served through top_k_neighbors
     flush_seconds: Histogram = dataclasses.field(
         default_factory=lambda: Histogram(window=FLUSH_WINDOW)
+    )
+    retrain_seconds: Histogram = dataclasses.field(
+        default_factory=lambda: Histogram(window=RETRAIN_WINDOW)
     )
     topk_seconds: Histogram = dataclasses.field(
         default_factory=lambda: Histogram(window=FLUSH_WINDOW)
@@ -95,6 +121,9 @@ class EmbeddingService:
         compact_every: int = 1024,
         k0: Optional[int] = None,
         retrain_threshold: float = 0.1,
+        hang_timeout: Optional[float] = None,
+        flush_retries: int = 1,
+        retry_backoff: float = 0.05,
     ):
         if store.device != graph.device:
             raise ValueError(
@@ -109,10 +138,47 @@ class EmbeddingService:
         self.k0 = k0
         self.retrain_threshold = float(retrain_threshold)
         self.stats = ServiceStats()
+        # retraining loop: a Retrainer (serve.retrain) attached via
+        # set_retrainer; auto mode re-checks drift after every block
+        self.retrainer = None
+        self.auto_retrain = False
+        self.retrain_budget = 0  # max retrains per service life (0 = no cap)
         self._pending: List[np.ndarray] = []
         self._n_pending = 0
+        # fault tolerance: optional recovery manager (WAL + snapshots),
+        # bounded flush retries with a stale-row degraded fallback, a
+        # transactional retrain (store rolled back on an injected fault),
+        # and an optional hang watchdog around blocking device reads
+        self._recovery = None
+        self.flush_retries = max(int(flush_retries), 0)
+        self.retry_backoff = float(retry_backoff)
+        self.degraded = False
+        self._watchdog = None
+        if hang_timeout is not None and hang_timeout > 0:
+            from repro_torch.distributed.watchdog import HangWatchdog
+
+            self._watchdog = HangWatchdog(float(hang_timeout), self._on_hang)
 
     # ------------------------------------------------------------ ingestion
+
+    def attach_recovery(self, manager) -> None:
+        """Attach a :class:`~repro_torch.serve.recovery.RecoveryManager`:
+        every block is WAL-logged before mutation, snapshots run on its
+        cadence."""
+        self._recovery = manager
+
+    def _on_hang(self) -> None:
+        """HangWatchdog callback: count the hang, enter degraded mode."""
+        self.stats.hangs += 1
+        self.degraded = True
+        metrics().counter("serve_hangs_total").inc()
+        metrics().gauge("serve_degraded").set(1)
+
+    def pet_watchdog(self) -> None:
+        """Reset the hang timer from inside a long multi-stage section
+        (the retrainer pets between stages)."""
+        if self._watchdog is not None and self._watchdog.armed:
+            self._watchdog.pet()
 
     @staticmethod
     def _validate_block(edges) -> np.ndarray:
@@ -152,14 +218,24 @@ class EmbeddingService:
             self.stats.compactions += 1
             metrics().counter("serve_compactions_total").inc()
 
+    def sync(self) -> None:
+        """Block boundary: wait for the device's queued work. Ingest is
+        serial here, so every block's repair has already landed."""
+        synchronize(self.device)
+
     def ingest_block(self, edges: np.ndarray) -> np.ndarray:
         """Stream an edge block: one block insert + one block core repair.
 
         Returns the (m', 2) edges accepted (self-loops, duplicates, and
-        edges already present are dropped by the graph).
+        edges already present are dropped by the graph). With a recovery
+        manager attached the block is logged durably first; with auto
+        retraining on, drift is re-checked after the repair.
         """
         edges = self._validate_block(edges)
         with obs.span("serve.ingest", block=len(edges)) as sp:
+            if self._recovery is not None:  # durable *before* any mutation
+                self._recovery.log_block(KIND_INGEST, edges)
+            faults.check("ingest_apply")
             accepted = self.graph.add_edges(edges)
             if len(accepted):
                 self.cores.on_edge_block(accepted)
@@ -168,6 +244,10 @@ class EmbeddingService:
             self.stats.ingest_blocks += 1
             metrics().counter("serve_edges_ingested_total").inc(len(accepted))
             self._maybe_compact()
+            if self.auto_retrain:
+                self.maybe_retrain()
+        if self._recovery is not None:
+            self._recovery.after_block()
         return accepted
 
     def retract_block(self, edges: np.ndarray) -> int:
@@ -175,9 +255,13 @@ class EmbeddingService:
 
         Unknown edges are skipped; returns the number actually removed.
         Demotions feed the same drift/staleness signals as promotions.
+        Logged and followed by the auto-retrain check like ``ingest_block``.
         """
         edges = self._validate_block(edges)
         with obs.span("serve.retract", block=len(edges)) as sp:
+            if self._recovery is not None:  # durable *before* any mutation
+                self._recovery.log_block(KIND_RETRACT, edges)
+            faults.check("ingest_apply")
             removed = self.graph.remove_edges(edges)
             if len(removed):
                 self.cores.on_remove(removed)
@@ -185,7 +269,30 @@ class EmbeddingService:
             self.stats.edges_removed += len(removed)
             metrics().counter("serve_edges_removed_total").inc(len(removed))
             self._maybe_compact()
+            if self.auto_retrain:
+                self.maybe_retrain()
+        if self._recovery is not None:
+            self._recovery.after_block()
         return len(removed)
+
+    def ingest(self, u: int, v: int) -> bool:
+        """Stream one edge (single-edge convenience over ``ingest_block``)."""
+        return bool(len(self.ingest_block(np.array([[u, v]], np.int64))))
+
+    def retract(self, u: int, v: int) -> bool:
+        """Retract one edge (single-edge convenience over ``retract_block``)."""
+        return bool(self.retract_block(np.array([[u, v]], np.int64)))
+
+    def ingest_edges(self, edges: np.ndarray, block_size: int = 256) -> int:
+        """Stream an edge array in ``block_size`` chunks; returns #accepted."""
+        edges = np.asarray(edges)
+        block_size = max(int(block_size), 1)
+        n = sum(
+            len(self.ingest_block(edges[s : s + block_size]))
+            for s in range(0, len(edges), block_size)
+        )
+        self.sync()
+        return n
 
     def stream_with_churn(
         self,
@@ -217,9 +324,14 @@ class EmbeddingService:
                 gone = set(pick.tolist())
                 n_out += self.retract_block(np.array([live[i] for i in pick]))
                 live = [e for i, e in enumerate(live) if i not in gone]
+        self.sync()
         return n_in, n_out
 
     # ------------------------------------------------------------- queries
+
+    def submit(self, node: int) -> int:
+        """Queue an embedding query; returns its index in the next flush."""
+        return int(self.submit_many(np.asarray([node], np.int64))[0])
 
     def submit_many(self, nodes: Sequence[int]) -> np.ndarray:
         """Queue a whole batch of queries in one vectorized append.
@@ -288,7 +400,11 @@ class EmbeddingService:
 
         The host reserves write-back slots, the device runs the fused flush
         (``_fused_flush``), and the host commits the metadata of the rows
-        written back after the one readback.
+        written back after the one readback. An injected dispatch fault is
+        retried ``flush_retries`` times with backoff; then the batch is
+        answered from the rows both store tiers already hold (``peek_many``:
+        no promotion, no dispatch), cold starts unresolved, and the service
+        is flagged degraded until a flush succeeds again.
         """
         t0 = time.perf_counter()
         with obs.span("serve.flush", batch=self.batch) as sp:
@@ -300,70 +416,109 @@ class EmbeddingService:
             st.ensure_nodes(sentinel)
             real = (nodes >= 0) & (nodes < sentinel)
             nodes_c = np.where(real, nodes, sentinel)
-            # spill-tier rows must answer queries directly (capacity < working
-            # set must never thrash real embeddings into cold-start means):
-            # restore what fits, overlay the rest
-            st.promote(nodes_c)
-            slots = st.slots_of(nodes_c)
-            resident = slots < st.capacity
-            bounced = {}  # row -> spilled vec served host-side
-            if st.spilled:
-                for i in np.where(real & ~resident)[0]:
-                    hit = st.peek_spill(int(nodes_c[i]))
-                    if hit is not None:
-                        bounced[int(i)] = hit
-            st.note_fused_gather(slots, resident, len(bounced))
-            found = resident.copy()
-            if bounced:
-                found[list(bounced)] = True
-            cold = real & ~found
-            # cold-start means must see every *embedded* neighbour, including
-            # rows currently spilled to host
-            if cold.any() and st.spilled:
-                nbrs = np.concatenate(
-                    [self.graph.neighbours(int(v)) for v in nodes_c[cold]]
-                )
-                st.promote(nbrs)
-            # dedup within the batch: duplicate cold ids share one reserved
-            # slot (and later count as one cold start)
-            uniq_cold, first_pos = np.unique(nodes_c[cold], return_index=True)
+            degraded_batch = False
             wb_slots_u = None
-            if len(uniq_cold):
-                wb_slots_u = st.reserve_slots(len(uniq_cold))
-            wb_slots = None
-            if wb_slots_u is not None:
-                wb_slots = np.full(len(nodes), st.capacity, np.int32)
-                slot_of_cold = dict(
-                    zip(uniq_cold.tolist(), wb_slots_u.tolist())
-                )
-                for i in np.where(cold)[0]:
-                    wb_slots[i] = slot_of_cold[int(nodes_c[i])]
+            for attempt in range(self.flush_retries + 1):
+                try:
+                    # spill-tier rows must answer queries directly (capacity
+                    # < working set must never thrash real embeddings into
+                    # cold-start means): restore what fits, overlay the rest
+                    st.promote(nodes_c)
+                    slots = st.slots_of(nodes_c)
+                    resident = slots < st.capacity
+                    bounced = {}  # row -> spilled vec served host-side
+                    if st.spilled:
+                        for i in np.where(real & ~resident)[0]:
+                            hit = st.peek_spill(int(nodes_c[i]))
+                            if hit is not None:
+                                bounced[int(i)] = hit
+                    st.note_fused_gather(slots, resident, len(bounced))
+                    found = resident.copy()
+                    if bounced:
+                        found[list(bounced)] = True
+                    cold = real & ~found
+                    # cold-start means must see every *embedded* neighbour,
+                    # including rows currently spilled to host
+                    if cold.any() and st.spilled:
+                        nbrs = np.concatenate(
+                            [self.graph.neighbours(int(v))
+                             for v in nodes_c[cold]]
+                        )
+                        st.promote(nbrs)
+                    # dedup within the batch: duplicate cold ids share one
+                    # reserved slot (and later count as one cold start)
+                    uniq_cold, first_pos = np.unique(nodes_c[cold],
+                                                     return_index=True)
+                    if len(uniq_cold):
+                        wb_slots_u = st.reserve_slots(len(uniq_cold))
+                    wb_slots = None
+                    if wb_slots_u is not None:
+                        wb_slots = np.full(len(nodes), st.capacity, np.int32)
+                        slot_of_cold = dict(
+                            zip(uniq_cold.tolist(), wb_slots_u.tolist())
+                        )
+                        for i in np.where(cold)[0]:
+                            wb_slots[i] = slot_of_cold[int(nodes_c[i])]
 
-            out, resolved = self._fused_flush(nodes_c, found, wb_slots)
-            out = out.cpu().numpy()  # the one blocking device sync
-            resolved = resolved.cpu().numpy()
-            # commit the written rows: tag versions/cores, return unresolved
-            # slots to the pool
-            cold_rows = np.where(cold)[0][first_pos]
-            if wb_slots_u is not None:
-                ok = resolved[cold_rows]
-                st.adopt_fused(
-                    uniq_cold[ok], wb_slots_u[ok],
-                    self._wb_cores(uniq_cold[ok]),
-                )
-                if (~ok).any():
-                    st.release_slots(wb_slots_u[~ok])
-            elif len(uniq_cold):
-                # free list could not cover the batch: evicting write-back
-                # through put_many (host readback path)
-                ok = resolved[cold_rows]
-                if ok.any():
-                    st.put_many(
-                        uniq_cold[ok], out[cold_rows[ok]],
-                        self._wb_cores(uniq_cold[ok]),
-                    )
-            for i, vec in bounced.items():  # spill-tier overlay
-                out[i] = vec
+                    faults.check("flush_dispatch")
+                    out, resolved = self._fused_flush(nodes_c, found,
+                                                      wb_slots)
+                    wd = self._watchdog
+                    if wd is not None:
+                        wd.arm()
+                    try:
+                        out = out.cpu().numpy()  # the blocking device sync
+                    finally:
+                        if wd is not None:
+                            wd.disarm()
+                    resolved = resolved.cpu().numpy()
+                    # commit the written rows: tag versions/cores, return
+                    # unresolved slots to the pool
+                    cold_rows = np.where(cold)[0][first_pos]
+                    if wb_slots_u is not None:
+                        ok = resolved[cold_rows]
+                        st.adopt_fused(
+                            uniq_cold[ok], wb_slots_u[ok],
+                            self._wb_cores(uniq_cold[ok]),
+                        )
+                        if (~ok).any():
+                            st.release_slots(wb_slots_u[~ok])
+                    elif len(uniq_cold):
+                        # free list could not cover the batch: evicting
+                        # write-back through put_many (host readback path)
+                        ok = resolved[cold_rows]
+                        if ok.any():
+                            st.put_many(
+                                uniq_cold[ok], out[cold_rows[ok]],
+                                self._wb_cores(uniq_cold[ok]),
+                            )
+                    for i, vec in bounced.items():  # spill-tier overlay
+                        out[i] = vec
+                    if self.degraded:  # a healthy flush clears degraded mode
+                        self.degraded = False
+                        metrics().gauge("serve_degraded").set(0)
+                    break
+                except faults.InjectedFault:
+                    metrics().counter("serve_flush_failures_total").inc()
+                    if wb_slots_u is not None:  # undo the reservation exactly
+                        st.release_slots(wb_slots_u)
+                        wb_slots_u = None
+                    if attempt < self.flush_retries:
+                        time.sleep(self.retry_backoff * (2 ** attempt))
+                        continue
+                    # degraded serving: answer from whatever rows both store
+                    # tiers already hold, cold starts stay unresolved
+                    vecs, found, _, _ = st.peek_many(nodes_c)
+                    cold = real & ~found
+                    uniq_cold, first_pos = np.unique(nodes_c[cold],
+                                                     return_index=True)
+                    cold_rows = np.where(cold)[0][first_pos]
+                    out = vecs
+                    resolved = np.zeros(len(nodes), bool)
+                    degraded_batch = True
+                    if not self.degraded:
+                        self.degraded = True
+                        metrics().gauge("serve_degraded").set(1)
 
             n_real = int(real.sum())
             n_hits = int((real & found).sum())
@@ -375,6 +530,9 @@ class EmbeddingService:
             self.stats.cold_starts += n_cold
             self.stats.unresolved += n_unresolved
             reg = metrics()
+            if degraded_batch:
+                self.stats.degraded_queries += n_real
+                reg.counter("serve_degraded_queries_total").inc(n_real)
             reg.counter("serve_queries_total").inc(n_real)
             reg.counter("serve_store_hits_total").inc(n_hits)
             reg.counter("serve_cold_starts_total").inc(n_cold)
@@ -497,6 +655,73 @@ class EmbeddingService:
     def should_retrain(self) -> bool:
         return self.retrain_pressure() >= self.retrain_threshold
 
+    def set_retrainer(self, retrainer, *, auto: bool = False,
+                      budget: int = 0) -> None:
+        """Attach a :class:`~repro_torch.serve.retrain.Retrainer` to close
+        the loop.
+
+        ``auto=True`` re-checks drift after every ingested/retracted block
+        and refreshes in place; ``budget`` caps how many refreshes this
+        service will run (0 = uncapped).
+        """
+        self.retrainer = retrainer
+        self.auto_retrain = bool(auto)
+        self.retrain_budget = int(budget)
+
+    def maybe_retrain(self, force: bool = False, between=None):
+        """Run one drift-triggered retrain + hot-swap cycle when due.
+
+        Returns the :class:`~repro_torch.serve.retrain.RetrainReport` (or
+        None if no retrainer is attached, pressure is below threshold and
+        ``force`` is unset, the budget is spent, the planner found nothing
+        to refresh, or an injected fault rolled the retrain back).
+        ``between`` is forwarded to the rollout so query flushes can
+        interleave with the swap's chunked scatters.
+        """
+        if self.retrainer is None:
+            return None
+        if self.retrain_budget and self.stats.retrains >= self.retrain_budget:
+            return None
+        if not force and not self.should_retrain():
+            return None
+        t0 = time.perf_counter()
+        # transactional: capture the store (host copy) before any stage
+        # runs, restore it wholesale on an injected fault — a retrain that
+        # dies mid-VersionRollout must not leave mixed-version rows. The
+        # core baseline needs no rollback: mark_refresh only runs after a
+        # successful swap. Any other error (a kernel that fails to build or
+        # launch) propagates, and InjectedCrash (simulated process death)
+        # is a BaseException and passes through too.
+        pre = self.store.state_dict()
+        wd = self._watchdog
+        if wd is not None:
+            wd.arm()
+        try:
+            with obs.span("serve.retrain") as sp:
+                report = self.retrainer.run(between=between)
+                if report is not None:
+                    sp.set(version=report.version, rows=report.rows_swapped)
+        except faults.InjectedFault:
+            self.stats.retrain_failures += 1
+            metrics().counter("serve_retrain_failures_total").inc()
+            self.store.load_state_dict(pre)
+            return None
+        finally:
+            if wd is not None:
+                wd.disarm()
+        if report is None:
+            return None
+        self.stats.retrains += 1
+        self.stats.last_swap_version = report.version
+        self.stats.retrain_seconds.observe(time.perf_counter() - t0)
+        metrics().counter("serve_retrains_total").inc()
+        return report
+
+    def mark_refreshed(self) -> None:
+        """Call after reloading the store from an offline retrain."""
+        self.cores.mark_refresh()
+        self.store.bump_version()
+
     # ------------------------------------------------------------- reports
 
     def latency_percentiles(self) -> Tuple[float, float]:
@@ -524,13 +749,15 @@ class EmbeddingService:
     def publish_metrics(self, registry=None) -> None:
         """Register this service's live stats into a metrics registry.
 
-        The flush/top-k histograms are adopted by reference (the exporter
-        reads the very objects the flush observes into), counters/gauges
-        are set to the current totals.
+        The flush/retrain/top-k histograms are adopted by reference (the
+        exporter reads the very objects the service observes into),
+        counters/gauges are set to the current totals.
         """
         reg = metrics() if registry is None else registry
         st = self.stats
         reg.register("serve_flush_seconds", st.flush_seconds, replace=True)
+        reg.register("serve_retrain_seconds", st.retrain_seconds,
+                     replace=True)
         reg.register("serve_topk_seconds", st.topk_seconds, replace=True)
         for name, value in (
             ("serve_queries", st.queries),
@@ -542,7 +769,11 @@ class EmbeddingService:
             ("serve_edges_ingested", st.edges_ingested),
             ("serve_edges_removed", st.edges_removed),
             ("serve_compactions", st.compactions),
+            ("serve_retrains", st.retrains),
             ("serve_topk_queries", st.topk_queries),
+            ("serve_degraded_queries", st.degraded_queries),
+            ("serve_retrain_failures", st.retrain_failures),
+            ("serve_hangs", st.hangs),
             ("serve_pending_queries", self.pending),
             ("store_resident_rows", self.store.resident),
             ("store_spilled_rows", self.store.spilled),
@@ -552,6 +783,7 @@ class EmbeddingService:
             ("graph_overflow_arcs", self.graph.overflow_arcs),
         ):
             reg.gauge(name).set(value)
+        reg.gauge("serve_degraded").set(int(self.degraded))
         reg.gauge("serve_retrain_pressure").set(self.retrain_pressure())
         reg.gauge("store_staleness").set(
             self.store.staleness(self.cores.core)

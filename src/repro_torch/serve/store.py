@@ -29,6 +29,8 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs
 
+from . import faults
+
 __all__ = ["EmbeddingStore"]
 
 
@@ -116,6 +118,7 @@ class EmbeddingStore:
         return self._clock
 
     def _evict_lru(self, staged) -> int:
+        faults.check("spill_io")
         used = np.where(self._node_at >= 0, self._last_used, np.iinfo(np.int64).max)
         slot = int(np.argmin(used))
         node = int(self._node_at[slot])
@@ -293,6 +296,7 @@ class EmbeddingStore:
         hits = [int(n) for n in nodes_u if int(n) in self._spill]
         if not hits:
             return 0
+        faults.check("spill_io")
         # one batched put, preserving each row's original version/core
         rows = [self._spill[n] for n in hits]
         with obs.span("store.promote", rows=len(hits)):
@@ -304,6 +308,41 @@ class EmbeddingStore:
             )
         metrics().counter("store_promotions_total").inc(len(hits))
         return len(hits)
+
+    def peek_many(
+        self, nodes: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Side-effect-free batched lookup across both tiers.
+
+        Returns ``(vecs (B, dim) float32, found (B,) bool, versions (B,)
+        int64, cores (B,) int32)`` on the host. Unlike :meth:`gather`,
+        nothing is promoted, no LRU clock ticks, and no traffic counters
+        move — the retraining subsystem reads previous vectors (warm start,
+        Procrustes anchors) and the degraded flush answers from stale rows
+        through this without disturbing serving state.
+        """
+        nodes = np.asarray(nodes, np.int64)
+        vecs = np.zeros((len(nodes), self.dim), np.float32)
+        vers = np.zeros(len(nodes), np.int64)
+        cores = np.zeros(len(nodes), np.int32)
+        in_map = (nodes >= 0) & (nodes <= self.node_cap)
+        slots = np.full(len(nodes), self.capacity, np.int32)
+        slots[in_map] = self._slot_of[nodes[in_map]]
+        found = slots < self.capacity
+        if found.any():
+            # one device gather and one host copy for the batch
+            rows = torch.tensor(slots[found], dtype=torch.long,
+                                device=self.device)
+            vecs[found] = self._table[rows].cpu().numpy()
+            vers[found] = self._version_at[slots[found]]
+            cores[found] = self._core_at[slots[found]]
+        if self._spill and not found.all():
+            for i in np.where(~found)[0]:
+                hit = self._spill.get(int(nodes[i]))
+                if hit is not None:
+                    vecs[i], vers[i], cores[i] = hit[0], hit[1], hit[2]
+                    found[i] = True
+        return vecs, found, vers, cores
 
     def gather(
         self, nodes: np.ndarray
@@ -354,6 +393,10 @@ class EmbeddingStore:
 
     # ------------------------------------------------------------ staleness
 
+    def bump_version(self) -> int:
+        self.version += 1
+        return self.version
+
     def staleness(self, core_now: np.ndarray) -> float:
         """Fraction of resident rows whose core number drifted since write."""
         core_now = np.asarray(core_now)
@@ -364,6 +407,12 @@ class EmbeddingStore:
         in_range = nodes < len(core_now)
         now = np.where(in_range, core_now[np.minimum(nodes, len(core_now) - 1)], 0)
         return float(np.mean(now != self._core_at[live]))
+
+    def version_counts(self) -> Dict[int, int]:
+        """Resident rows per store version (spilled rows not counted)."""
+        live = self._node_at >= 0
+        vers, counts = np.unique(self._version_at[live], return_counts=True)
+        return {int(v): int(c) for v, c in zip(vers, counts)}
 
     # ------------------------------------------------------------- snapshots
 

@@ -7,6 +7,13 @@ DeepWalk setup). The row gathers are torch indexing outside the kernel, as
 in the JAX package; the gradient of ``emb_out``, which is gathered twice
 (contexts and negatives), is the sum of both scatter-adds that autograd of
 the indexing gives.
+
+Every step gives the same bits from the same state, which crash recovery
+needs (a replayed retrain must rebuild the table it built before). On CUDA
+the indexing's backward sorts the ids and sums each id's rows in order. On
+the CPU it adds with atomics across threads, in an order that changes from
+run to run, so there the rows are summed by ``_SortedRows`` instead: the
+ids sorted stably, one segment sum per id.
 """
 from __future__ import annotations
 
@@ -35,12 +42,43 @@ def init_params(n_nodes: int, dim: int, gen: torch.Generator,
     return {"emb_in": emb_in.to(dtype), "emb_out": emb_out.to(dtype)}
 
 
+class _SortedRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's gradient rows in the
+    order of a stable sort of the ids: the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(flat[order],
+                                                return_counts=True)
+        g = grad.reshape(flat.numel(), -1)[order]
+        out = grad.new_zeros((ctx.rows, g.shape[1]))
+        out[uniq] = torch.segment_reduce(g, "sum", lengths=counts)
+        return out, None
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with a backward that gives the same bits every run:
+    CUDA's own (sorted) on the card, ``_SortedRows`` on the CPU."""
+    if table.is_cuda:
+        return table[ids]
+    return _SortedRows.apply(table, ids)
+
+
 def batch_loss(params: Params, centers, contexts, negatives,
                impl: str = "auto") -> torch.Tensor:
     """Mean SGNS loss over a batch of (center, context, K negatives) ids."""
-    c = params["emb_in"][centers]  # (B, D)
-    x = params["emb_out"][contexts]  # (B, D)
-    n = params["emb_out"][negatives]  # (B, K, D)
+    c = _rows(params["emb_in"], centers)  # (B, D)
+    x = _rows(params["emb_out"], contexts)  # (B, D)
+    n = _rows(params["emb_out"], negatives)  # (B, K, D)
     return ops.sgns_loss(c, x, n, impl=impl).mean()
 
 

@@ -669,3 +669,136 @@ def test_hub_ingest_on_the_card_matches_the_oracle(cuda):
                                       core_numbers_host(dyn.snapshot()))
     assert hindex.hub_launches > before and inc.repeels == 0
     assert inc.phase_impl["descend"] == "fused[cuda]"
+
+
+# -------------------------------------------- retraining and crash safety --
+
+
+def _resilience_service(dev, *, capacity=200):
+    """A small service with the drift-triggered retrainer attached (auto,
+    budget 2), on ``dev``: the crash sweep's configuration."""
+    from repro_torch.graph import generators
+    from repro_torch.launch.serve_embed import build_service
+    from repro_torch.serve import RetrainConfig, Retrainer
+    from repro_torch.skipgram.trainer import SGNSConfig
+
+    g = generators.barabasi_albert_varying(300, 4.0, seed=3)
+    svc, stream, _, _ = build_service(
+        g, seed=3, batch=16, dim=16, stream_frac=0.3, compact_every=256,
+        capacity=capacity, device=dev)
+
+    def attach(s):
+        cfg = RetrainConfig(
+            n_walks=6, walk_length=12, min_sgns_steps=60,
+            sgns=SGNSConfig(dim=16, epochs=0.1, seed=3),
+            prop_iters=6, swap_chunk=64, seed=3)
+        s.retrain_threshold = 0.02
+        s.set_retrainer(Retrainer(s, cfg), auto=True, budget=2)
+    attach(svc)
+    return svc, stream, attach
+
+
+def _resilience_ops(stream, block=24, churn=0.25, seed=21):
+    rng = np.random.default_rng(seed)
+    live, ops = [], []
+    for s in range(0, len(stream), block):
+        blk = np.asarray(stream[s:s + block], np.int64)
+        ops.append(("ingest", blk))
+        live.extend(map(tuple, blk))
+        pick = rng.choice(len(live), size=min(int(round(churn * len(blk))),
+                                              len(live)), replace=False)
+        ops.append(("retract", np.asarray([live[i] for i in pick], np.int64)))
+        gone = set(pick.tolist())
+        live = [e for i, e in enumerate(live) if i not in gone]
+    return ops
+
+
+def _run(svc, ops, start=0):
+    for kind, blk in ops[start:]:
+        (svc.ingest_block if kind == "ingest" else svc.retract_block)(blk)
+    svc.sync()
+
+
+@pytest.mark.cuda
+def test_retrain_on_the_card_matches_the_cpu_counts_and_repeats(cuda):
+    """The same stream on the card and on the CPU fires the same auto
+    retrains with the same walk, step, warm-row, anchor and swap counts
+    (the walks differ: CUDA and CPU generators draw differently), the SGNS
+    kernels run every retrain step on the card, and a second retrain from
+    the same state gives the same table bits (sha256)."""
+    import hashlib
+
+    from repro_torch.serve import Retrainer
+
+    reports, svcs = {}, {}
+    for dev in ("cuda", "cpu"):
+        svc, stream, _ = _resilience_service(dev)
+        rlog = []
+        run = svc.retrainer.run
+        svc.retrainer.run = lambda between=None, run=run, rlog=rlog: (
+            rlog.append(run(between)) or rlog[-1])
+        f0, b0 = sgns.fwd_launches, sgns.bwd_launches
+        _run(svc, _resilience_ops(stream))
+        if dev == "cuda":
+            steps = sum(r.sgns_steps for r in rlog)
+            assert sgns.fwd_launches - f0 == sgns.bwd_launches - b0 == steps
+        reports[dev], svcs[dev] = rlog, svc
+    assert len(reports["cuda"]) == len(reports["cpu"]) == 2
+    for a, b in zip(reports["cuda"], reports["cpu"]):
+        for k in ("k0", "core_size", "drifted", "n_walks", "sgns_steps",
+                  "warm_rows", "anchors", "aligned", "rows_swapped",
+                  "version"):
+            assert getattr(a, k) == getattr(b, k), k
+    np.testing.assert_array_equal(svcs["cuda"].cores.core,
+                                  svcs["cpu"].cores.core)
+
+    svc = svcs["cuda"]
+    pre, base = svc.store.state_dict(), svc.cores.baseline.copy()
+    digests = []
+    for _ in range(2):
+        svc.store.load_state_dict(pre)
+        svc.cores._baseline[: len(base)] = base
+        assert Retrainer(svc, svc.retrainer.cfg).run() is not None
+        digests.append(hashlib.sha256(
+            svc.store.table().cpu().numpy().tobytes()).hexdigest())
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.cuda
+def test_crash_and_recover_on_the_card_is_bit_identical(cuda, tmp_path):
+    """A crash in the second retrain's training, recovered on the card from
+    the snapshot plus the WAL tail (the retrain re-fired in the replay),
+    then the rest of the stream: the state equals an uninterrupted twin's
+    on the card bit for bit, and the cores the peeling oracle's."""
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.serve import RecoveryManager, faults
+    from repro_torch.serve.recovery import capture_state
+
+    twin, stream, _ = _resilience_service("cuda")
+    ops = _resilience_ops(stream)
+    _run(twin, ops)
+    truth, truth_man = capture_state(twin, 0)
+    assert twin.stats.retrains == 2
+
+    svc, _, attach = _resilience_service("cuda")
+    mgr = RecoveryManager(svc, str(tmp_path), snapshot_every=4, fsync=False)
+    faults.install(faults.FaultPlan.parse("retrain_train:2:crash"))
+    try:
+        with pytest.raises(faults.InjectedCrash):
+            _run(svc, ops)
+    finally:
+        faults.install(None)
+    mgr.wait()
+    mgr.wal.close()
+    before = hindex.launches
+    svc, mgr, report = RecoveryManager.recover(
+        str(tmp_path), device="cuda", snapshot_every=4, fsync=False,
+        configure=attach)
+    assert report["replayed_records"] >= 1 and hindex.launches > before
+    _run(svc, ops, start=report["wal_seq"])
+    got, man = capture_state(svc, 0)
+    assert [k for k in truth if not np.array_equal(truth[k], got[k])] == []
+    assert man["stats"] == truth_man["stats"]
+    oracle = core_numbers_host(svc.graph.snapshot())
+    np.testing.assert_array_equal(svc.cores.core[: len(oracle)], oracle)
+    mgr.close()

@@ -227,7 +227,10 @@ def test_store_eviction_spill_and_state_match_jax():
         jst.staleness(np.zeros(30, np.int32)))
 
 
-def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys):
+def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
+    """The plain run; ``--retrain`` (drift-triggered retrains, cores still
+    exact); ``--wal-dir`` with an injected crash (a recovery report, 0
+    mismatches); and the two flags still refused."""
     n = serve_embed.main(["--device", "cpu", "--dataset", "tiny",
                           "--requests", "32", "--block-size", "16",
                           "--churn", "0.1", "--topk", "4", "--verify",
@@ -235,9 +238,24 @@ def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys):
     assert n > 0
     out = capsys.readouterr().out
     assert "core mismatches vs oracle: 0" in out and "top-4" in out
-    for flags in (["--retrain"], ["--wal-dir", "x"],
-                  ["--fault-plan", "repair:1"], ["--jax-profile", "x"],
-                  ["--shards", "2"]):
+    stream = ["--device", "cpu", "--dataset", "tiny", "--requests", "32",
+              "--block-size", "8", "--stream-frac", "0.5", "--churn", "0.25",
+              "--batch", "16", "--dim", "16", "--verify"]
+    assert serve_embed.main([*stream, "--retrain", "--retrain-threshold",
+                             "0.05", "--retrain-budget", "2"]) > 0
+    out = capsys.readouterr().out
+    assert "core mismatches vs oracle: 0" in out
+    retrains = int(out.split("retraining loop: ")[1].split()[0])
+    assert 0 < retrains <= 2
+    wal = str(tmp_path / "wal")
+    assert serve_embed.main([*stream, "--wal-dir", wal, "--snapshot-every",
+                             "4", "--fault-plan", "ingest_apply:6:crash"]) > 0
+    out = capsys.readouterr().out
+    assert "CRASH injected" in out and "recovered: snapshot@wal_seq 4 + 2 " \
+        "replayed records" in out
+    assert "core mismatches vs oracle: 0" in out
+    assert "recovered after injected crash" in out
+    for flags in (["--jax-profile", "x"], ["--shards", "2"]):
         with pytest.raises(SystemExit):
             serve_embed.main(["--device", "cpu", "--dataset", "tiny", *flags])
         assert "not implemented in the PyTorch port" in capsys.readouterr().err
