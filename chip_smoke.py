@@ -106,7 +106,23 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    through six layers) and at a gemma2-2b shape (softcap 50, window 4096),
    a large ragged bf16 shape and the same with an int8 cache, with the
    library time (one SDPA call, softcap 0 and no int8 only), the bound from
-   the visible rows and the number of splits of S the launch used.
+   the visible rows and the number of splits of S the launch used;
+12. LM training, the sixth path, "train" (the LM serving phases' params
+   and caches freed first): ``repro_torch.launch.train`` at qwen3-4b's full
+   width and depth (bf16, AdamW, 20 steps of 4 x 1024 tokens; counts set
+   to 0 before and read after: the path runs none of the kernels). Held: 20
+   finite losses, the first within 1.5 nats of ln V, the last five's mean
+   below the first five's, peak memory below the card's. Printed: step ms,
+   tokens/s, model FLOP/s and its share of the bf16 dense peak, peak GB,
+   device-busy ms per step (``torch.profiler`` over 3 steps). Then one
+   AdamW step at qwen3-4b's widths and 2 layers, fp32, on the card and on
+   the CPU from the same params (loss and grad_norm within 1e-5, the
+   moments within 1e-4 x their leaf's max, the params within 1e-3 x the
+   rate where sqrt(v_hat) > 100 eps and 2 x the rate everywhere), and the
+   launcher at the reduced preset on the card:
+   resumed from a checkpoint against an uninterrupted run (steps 8-11
+   within 1e-6; the restore allocates at most one leaf on the card),
+   ``--compress-grads`` (falling) and ``--accum 2`` (finite).
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
@@ -118,8 +134,8 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the resilience, the offline and the LM path, each path's
-count beside it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
+serving, the hub, the resilience, the offline, the LM and the train path,
+each path's count beside it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -172,6 +188,23 @@ LM_LAYERS = (0, 7, 14, 21, 28, 35)  # 6 x 35.6 MB of K/V > twice the L2
 # ~1,000-4,000 unit values), so a fixed 3e-2 would pass a wrong kernel
 TOL_DECODE = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
 TOL_SDPA = 3e-2  # SDPA against the plain version: it rounds P to bf16
+TRAIN_FLAGS = ["--arch", "qwen3-4b", "--preset", "full", "--steps", "20",
+               "--batch", "4", "--seq", "1024", "--device", "cuda"]
+TRAIN_PROFILE = (17, 20)  # the steps run under torch.profiler
+PEAK_BF16 = 989e12  # H100 SXM bf16 dense tensor-core peak, FLOP/s
+# one fp32 AdamW step at qwen3-4b's widths, card vs CPU: loss and grad_norm
+# relative; mu and nu x their leaf's max |value|; the params x the rate
+# where sqrt(v_hat) > 100 eps (elsewhere Adam turns a near-zero gradient's
+# rounding into a step of up to the rate: 2 x the rate there). The first
+# update is about the rate itself (3e-5), so a param check against the
+# leaf's own magnitude would pass a skipped or negated update
+TOL_TRAIN_METRIC = 1e-5
+TOL_TRAIN_MOMENT = 1e-4
+TOL_TRAIN_PARAM = (1e-3, 2.0)
+# the share of each leaf that the 1e-3 bound must cover: the embedding's
+# rows of tokens absent from the batch (tied, so their gradient is a
+# softmax tail of ~1/V) mostly fall below 1e-6 (73% covered on the H100)
+TRAIN_MASK_SHARE = 0.5
 # flash-decode at made-up shapes, bf16: (label, B, H, Hkv, Dh, S, softcap,
 # window, int8 cache); the last is the one before it with an int8 cache
 DECODE_SHAPES = [
@@ -1650,6 +1683,35 @@ def lm_reference_phase(torch, np):
         f"abs diff {err:.2e}")
 
 
+GEMM_WORDS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
+
+
+def train_class(name: str) -> str:
+    """A training step's kernel by what it does: bf16 or fp32 products
+    (cuBLAS / CUTLASS names carry the type: "f32", "sgemm"), copies and
+    casts, reductions, the rest."""
+    low = name.lower()
+    if any(w in low for w in GEMM_WORDS):
+        return "gemm fp32" if ("f32" in low or "sgemm" in low) else "gemm bf16"
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copies/casts"
+    if "reduce" in low:
+        return "reductions"
+    return "elementwise/other"
+
+
+def device_time(prof) -> dict:
+    """{kernel name: (launches, device us)} from a ``torch.profiler``
+    window."""
+    dev = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        n, us = dev.get(e.name, (0, 0.0))
+        dev[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return dev
+
+
 def lm_profile(torch, cfg, params, snap, steps=20):
     """Device time by kernel class over ``steps`` decode steps from the live
     cache (after as many unprofiled ones), launches per step and the busy
@@ -1676,18 +1738,12 @@ def lm_profile(torch, cfg, params, snap, steps=20):
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev, classes = {}, {}
-    for e in prof.events():
-        if e.device_type.name != "CUDA":
-            continue
-        n, us = dev.get(e.name, (0, 0.0))
-        dev[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    dev, classes = device_time(prof), {}
     for name, (n, us) in dev.items():
         low = name.lower()
         if "flash_decode" in low:
             cls = "flash_decode"
-        elif any(w in low for w in ("gemm", "gemv", "cutlass", "xmma",
-                                    "cublas", "splitk", "nvjet")):
+        elif any(w in low for w in GEMM_WORDS):
             cls = "gemm/gemv"
         elif "memcpy" in low or "memset" in low:
             cls = "copies"
@@ -1715,6 +1771,274 @@ def lm_profile(torch, cfg, params, snap, steps=20):
         log("lm profile: the profiler saw no device time (not measured)")
     log("lm profile: " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------- LM training ----
+
+
+def train_phase(torch, np, counters):
+    """LM training at qwen3-4b's full width and depth on the card, through
+    ``repro_torch.launch.train.main`` (``TRAIN_FLAGS``: bf16 params, AdamW
+    with fp32 moments, 20 steps of 4 x 1024 tokens, the weights from a
+    seeded generator on the card; no checkpoint: one at this width writes
+    48 GB). A wrapper bound into the launcher's ``make_train_step``
+    synchronises around every step and runs steps ``TRAIN_PROFILE`` under
+    ``torch.profiler``. Held: 20 finite losses, the first within 1.5 nats
+    of ln V, the mean of the last five below the mean of the first five
+    (the JAX package's own check), peak memory below the card's, and no
+    kernel of the port launched (training runs none). Printed: step ms
+    (median of the unprofiled steps after the first two), tokens/s, model
+    FLOP/s (6 N per token plus PaLM's attention term 12 L H Dh S, against
+    the bf16 dense peak), peak GB, device-busy ms per step. Returns the
+    launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config("qwen3-4b")
+    make = lm_train.make_train_step
+    times, seen = [], {}
+
+    def timed(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(params, state, batch):
+            i = len(times)
+            if i == 0:
+                seen["n_params"] = sum(t.numel() for t in leaves(params))
+                seen["dtype"] = str(params["embed"]["embedding"].dtype)
+            if i == TRAIN_PROFILE[0]:
+                seen["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+                seen["prof"].__enter__()
+                seen["t_prof"] = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == TRAIN_PROFILE[1] - 1:
+                seen["prof"].__exit__(None, None, None)
+                seen["wall"] = time.perf_counter() - seen["t_prof"]
+            return out
+
+        return run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    lm_train.make_train_step = timed
+    try:
+        losses = lm_train.main(TRAIN_FLAGS)
+    finally:
+        lm_train.make_train_step = make
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    n_steps, B, S = (int(TRAIN_FLAGS[TRAIN_FLAGS.index(f) + 1])
+                     for f in ("--steps", "--batch", "--seq"))
+    expect(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+           f"train: losses {losses}")
+    expect(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5,
+           f"train: first loss {losses[0]} is not near ln V = "
+           f"{math.log(cfg.vocab_size):.2f}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    expect(last < first, f"train: losses do not fall ({first} -> {last})")
+    expect(peak < total, f"train: peak {peak} B over the card's {total}")
+    for name, n in counts.items():
+        expect(n == 0, f"{name} launched {n} times on the training path")
+    step_s = float(np.median(times[2:TRAIN_PROFILE[0]]))
+    tokens = B * S
+    flops = tokens * (6 * seen["n_params"] + 12 * cfg.n_layers * cfg.n_heads
+                      * cfg.head_dim * S)
+    dev = device_time(seen["prof"])
+    n_prof = TRAIN_PROFILE[1] - TRAIN_PROFILE[0]
+    busy_ms = sum(us for _, us in dev.values()) / 1e3 / n_prof
+    classes = {}
+    for name, (n, us) in dev.items():
+        cn, cus = classes.get(train_class(name), (0, 0.0))
+        classes[train_class(name)] = (cn + n, cus + us)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+    rec = {
+        "arch": cfg.name, "params": seen["n_params"], "dtype": seen["dtype"],
+        "steps": n_steps, "batch": B, "seq": S,
+        "losses_first_last": [losses[0], losses[-1]],
+        "mean_first5_last5": [float(first), float(last)],
+        "step_ms_each": [t * 1e3 for t in times],
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "model_tflop_per_step": flops / 1e12,
+        "model_tflop_per_s": flops / step_s / 1e12,
+        "bf16_peak_share": flops / step_s / PEAK_BF16,
+        "peak_allocated_gb": peak / 1e9, "card_gb": total / 1e9,
+        "profile_steps": list(range(*TRAIN_PROFILE)),
+        "profiled_ms_per_step": seen["wall"] * 1e3 / n_prof,
+        "device_busy_ms_per_step": busy_ms if dev else None,
+        "device_busy_share": busy_ms * n_prof / (seen["wall"] * 1e3)
+        if dev else None,
+        "busy_of_unprofiled_step": busy_ms / (step_s * 1e3) if dev else None,
+        "launches_per_step": sum(n for n, _ in dev.values()) / n_prof,
+        "by_class_ms_per_step": {c: us / 1e3 / n_prof
+                                 for c, (_, us) in classes.items()},
+        "launches_by_class_per_step": {c: n / n_prof
+                                       for c, (n, _) in classes.items()},
+        "top_kernels": [{"name": k[:90], "calls": n,
+                         "ms_per_step": us / 1e3 / n_prof}
+                        for k, (n, us) in top],
+    }
+    if not dev:
+        log("train profile: the profiler saw no device time (not measured)")
+    log("train phase: " + json.dumps(rec))
+    return counts
+
+
+def train_reference_phase(torch, np, dev="cuda"):
+    """qwen3-4b's widths at 2 layers, fp32 (TF32 off), one AdamW step of
+    ``make_train_step`` on the card and on the CPU from the same params (one
+    generator, copied to both) on the same batch of 1 x 256 tokens. Held
+    (``TOL_TRAIN_*``): loss and grad_norm within 1e-5 relative; mu and nu
+    within 1e-4 x their leaf's max |value|; every parameter within 1e-3 x
+    the rate where sqrt(v_hat) > 100 eps (at least half of each leaf) and
+    2 x the rate everywhere, and within 1e-3 x its leaf's max |value|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import optim
+    from repro_torch.train.tree import leaf_paths, leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLMData(cfg.vocab_size, 1, 256, seed=0).batch_at(0)
+    sched = optim.warmup_cosine(3e-4, 10, 20)
+    lr, b2, eps = sched(0), 0.999, 1e-8  # adamw's defaults
+    out = {}
+    for where in (dev, "cpu"):  # the CPU's step updates ``params`` itself
+        p = _tree_to(params, where)
+        opt = optim.make_optimizer(cfg.optimizer, sched)
+        step = make_train_step(cfg, opt)
+        tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        p, state, m = step(p, opt.init(p), tb)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        out[where] = (p, state, loss, norm, time.perf_counter() - t0)
+    (pg, sg, lg, ng, tg), (pc, sc, lc, nc, tc) = out[dev], out["cpu"]
+    mom = (0.0, "")
+    for (name, a), (_, b) in zip(leaf_paths(sg), leaf_paths(sc)):
+        if isinstance(a, int):
+            expect(a == b, f"train: {name} is {a} on the card, {b} on the CPU")
+            continue
+        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        mom = max(mom, (err, name))
+    ok_err, all_err, share = (0.0, ""), (0.0, ""), (1.0, "")
+    rel = (0.0, "")  # the bound against each leaf's own magnitude too
+    for (name, a), (_, b), v in zip(leaf_paths(pg), leaf_paths(pc),
+                                    leaves(sc[0].nu)):
+        d = (a.cpu() - b).abs()
+        rel = max(rel, (float(d.max()) / float(b.abs().max()), name))
+        ok = torch.sqrt(v / (1 - b2)) > 100 * eps  # v_hat after one step
+        share = min(share, (float(ok.float().mean()), name))
+        ok_err = max(ok_err, (float(d[ok].max()) / lr, name))
+        all_err = max(all_err, (float(d.max()) / lr, name))
+    log(f"train reference: qwen3-4b widths, 2 layers, fp32, 1 x 256 tokens, "
+        f"one AdamW step at rate {lr:.6g}: loss {lg!r} (card) / {lc!r} "
+        f"(CPU), rel {abs(lg - lc) / abs(lc):.3g}; grad_norm {ng!r} / {nc!r}, "
+        f"rel {abs(ng - nc) / abs(nc):.3g}; moments within {mom[0]:.3g} x "
+        f"max|value| ({mom[1]}); params within {ok_err[0]:.3g} x the rate "
+        f"where sqrt(v_hat) > 100 eps ({ok_err[1]}; that mask covers at "
+        f"least {share[0]:.4f} of a leaf, {share[1]}), {all_err[0]:.3g} x "
+        f"everywhere ({all_err[1]}), {rel[0]:.3g} x max|value| ({rel[1]}); "
+        f"{tg:.2f} s on the card (first call), "
+        f"{tc:.2f} s on the CPU")
+    expect(abs(lg - lc) <= TOL_TRAIN_METRIC * abs(lc), "train: loss differs")
+    expect(abs(ng - nc) <= TOL_TRAIN_METRIC * abs(nc),
+           "train: grad_norm differs")
+    expect(mom[0] <= TOL_TRAIN_MOMENT, f"train: moment {mom[1]} differs by "
+           f"{mom[0]} x its max |value|")
+    expect(share[0] > TRAIN_MASK_SHARE, f"train: sqrt(v_hat) > 100 eps on "
+           f"only {share[0]} of {share[1]}")
+    expect(ok_err[0] <= TOL_TRAIN_PARAM[0] and all_err[0] <= TOL_TRAIN_PARAM[1],
+           f"train: params differ by {ok_err} / {all_err} x the rate")
+    expect(rel[0] <= 1e-3, f"train: {rel[1]} differs by {rel[0]} x its max "
+           "|value|")
+
+
+def train_reduced_phase(torch, np, dev="cuda"):
+    """The launcher at the reduced preset on the card: 8 steps with a
+    checkpoint every 4, resumed to 12, against an uninterrupted 12-step run
+    (the losses of steps 8-11 within 1e-6 relative; whether their bits
+    repeat is printed; ``metrics.jsonl`` holds steps 0-11; the resume's
+    restore, into the tensors just built, grows the card's allocation by at
+    most one leaf, and by how much is printed); 6 steps with
+    ``--compress-grads`` (the last loss below the first); 4 with
+    ``--accum 2`` (finite losses)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train.tree import leaves
+
+    base = ["--arch", "qwen3-4b", "--preset", "reduced", "--batch", "2",
+            "--seq", "32", "--device", dev]
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_", dir=build_dir)
+    restore, seen = CheckpointManager.restore, {}
+
+    def measured(self, step, target):  # the launcher's resume
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = restore(self, step, target)
+        torch.cuda.synchronize()
+        sizes = [t.numel() * t.element_size() for t in leaves(target)
+                 if isinstance(t, torch.Tensor)]
+        seen.update(grew=torch.cuda.max_memory_allocated() - before,
+                    tree=sum(sizes), leaf=max(sizes))
+        return out
+
+    try:
+        first = lm_train.main(base + ["--steps", "8", "--ckpt-dir", ckpt,
+                                      "--ckpt-every", "4"])
+        CheckpointManager.restore = measured
+        try:
+            resumed = lm_train.main(base + ["--steps", "12", "--ckpt-dir",
+                                            ckpt, "--ckpt-every", "4"])
+        finally:
+            CheckpointManager.restore = restore
+        with open(Path(ckpt) / "metrics.jsonl") as f:
+            logged = [json.loads(line)["step"] for line in f]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    expect(seen.get("grew", 1 << 62) <= seen.get("leaf", 0),
+           f"train resume: the restore grew the card's memory by {seen}")
+    whole = lm_train.main(base + ["--steps", "12"])
+    expect(len(first) == 8 and len(resumed) == 4 and len(whole) == 12,
+           f"train resume: {len(first)} + {len(resumed)} losses, "
+           f"uninterrupted {len(whole)}")
+    expect(logged == list(range(12)), f"train resume: metrics steps {logged}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[8:]))
+    expect(rel <= 1e-6, f"train resume: steps 8-11 differ by {rel} relative")
+    comp = lm_train.main(base + ["--steps", "6", "--compress-grads"])
+    expect(comp[-1] < comp[0], f"train --compress-grads: {comp}")
+    acc = lm_train.main(["--arch", "qwen3-4b", "--preset", "reduced",
+                         "--batch", "4", "--seq", "32", "--accum", "2",
+                         "--steps", "4", "--device", dev])
+    expect(len(acc) == 4 and all(math.isfinite(x) for x in acc),
+           f"train --accum 2: {acc}")
+    log(f"train reduced: resumed steps 8-11 {resumed} against uninterrupted "
+        f"{whole[8:]} (max rel diff {rel:.3g}; bits repeat: "
+        f"{first + resumed == whole}); the resume's restore grew the card's "
+        f"allocation by {seen['grew']} B (params + optimizer state "
+        f"{seen['tree']} B, largest leaf {seen['leaf']} B); "
+        f"--compress-grads {comp[0]:.4f} -> "
+        f"{comp[-1]:.4f}; --accum 2 {acc}")
 
 
 def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
@@ -1926,16 +2250,21 @@ def main() -> int:
     lm_reference_phase(torch, np)
     serve_rec["decode_attention"], large_rec["decode_attention"] = \
         decode_shapes(torch, F, ops, ref, live)
+    del live
+    train_counts = train_phase(torch, np, counters)
+    train_reference_phase(torch, np)
+    train_reduced_phase(torch, np)
 
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, offline_counts,
-             lm_counts)
+             lm_counts, train_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
-                   "offline": offline_counts[name], "lm": lm_counts[name]}
+                   "offline": offline_counts[name], "lm": lm_counts[name],
+                   "train": train_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {
             "name": name, "route": "cuda", "source": src_path,

@@ -85,8 +85,7 @@ def fit_logreg(X: torch.Tensor, y: torch.Tensor, iters: int = 400,
             loss = torch.mean(torch.logaddexp(logits, zero) - y * logits) \
                 + 1e-4 * torch.sum(leaves["w"] ** 2)
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        upd, state = opt.update(dict(zip(leaves, grads)), state, params)
-        params = optim.apply_updates(params, upd)
+        state = opt.step(dict(zip(leaves, grads)), state, params)
     return params["w"], params["b"]
 
 

@@ -163,9 +163,9 @@ def layer_window(cfg: ModelConfig, layer_local: bool) -> int:
 
 def apply_attention(params, x, cfg: ModelConfig, *, layer_local: bool = False,
                     return_kv: bool = False):
-    """Causal self-attention sublayer, prefill, through
-    ``attention_chunked``. return_kv=True also returns the post-rope
-    (k, v): the serving cache entries of this layer."""
+    """Causal self-attention sublayer over a whole sequence (training,
+    prefill), through ``attention_chunked``. return_kv=True also returns
+    the post-rope (k, v): the serving cache entries of this layer."""
     B, S, _ = x.shape
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])

@@ -1,19 +1,85 @@
-"""Serve step factories: the prefill and decode functions the launcher calls.
+"""Train and serve step factories: the functions the launchers call.
 
-The torch counterpart of ``make_prefill_step`` / ``make_decode_step`` in
-``repro.models.steps``. The JAX launcher jits them; here they run eagerly.
-The decode step updates the cache in place (``forward_decode``), where the
-JAX launcher donates it. The training step (``make_train_step``,
-``loss_fn``) waits for LM training (``ROADMAP.md``).
+The torch counterpart of ``repro.models.steps``. The JAX launchers jit
+them; here they run eagerly. ``make_train_step``: loss, gradients through
+``torch.autograd`` and the optimizer's update, with optional microbatch
+accumulation; it updates the params and the optimizer state in place
+(``GradientTransform.step``), where the JAX launcher donates both. The
+decode step updates the cache in place (``forward_decode``), where the JAX
+launcher donates it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.train import optim as optim_lib
+from repro_torch.train.tree import leaves, tree_map, unflatten
 
 from .config import ModelConfig
-from .transformer import forward_decode, forward_prefill, logits_from_hidden
+from .transformer import (forward_decode, forward_full, forward_prefill,
+                          lm_loss, logits_from_hidden)
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["loss_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig):
+    """Scalar training loss for one (micro)batch of ``tokens``, ``targets``
+    (B, S) and optional ``mask`` (B, S) fp32 -> (loss, metrics); positions
+    are 0..S-1. The dense family has no auxiliary losses."""
+    hidden, _ = forward_full(params, cfg, tokens=batch["tokens"])
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["targets"].shape, device=hidden.device)
+    loss = lm_loss(params, hidden, batch["targets"], mask, cfg)
+    return loss, {"xent": loss, "loss": loss}
+
+
+def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,
+                    accum_steps: int = 1,
+                    grad_transform: Optional[Callable] = None) -> Callable:
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics); ``params`` (the same tree) and ``opt_state`` are updated in
+    place. With ``accum_steps`` > 1 the batch splits into that many
+    microbatches along its first axis; their gradients add up in fp32 and
+    are divided by ``accum_steps``, and the metrics are the last
+    microbatch's. ``grad_transform`` (e.g. int8 compression) runs on the
+    gradients before the optimizer; ``grad_norm`` is the norm of what the
+    optimizer receives."""
+
+    def single_grads(params, batch):
+        ws = [p.detach().requires_grad_() for p in leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(unflatten(params, ws), batch, cfg)
+            grads = torch.autograd.grad(loss, ws)
+        return (unflatten(params, list(grads)),
+                {k: v.detach() for k, v in metrics.items()})
+
+    def step(params, opt_state, batch):
+        if accum_steps == 1:
+            grads, metrics = single_grads(params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for k in range(accum_steps):
+                micro = {key: x.reshape(accum_steps, x.shape[0] // accum_steps,
+                                        *x.shape[1:])[k]
+                         for key, x in batch.items()}
+                g, metrics = single_grads(params, micro)
+                for acc, gi in zip(leaves(grads), leaves(g)):
+                    acc.add_(gi)
+                del g
+            for acc in leaves(grads):
+                acc.div_(accum_steps)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        metrics["grad_norm"] = optim_lib.global_norm(grads)
+        opt_state = optimizer.step(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig,

@@ -7,20 +7,28 @@ across as a copy (``from_jax_params``):
   layers       block params stacked on a leading n_layers axis
   final_norm   {"scale": (d,)}
 
-Forward modes: ``forward_prefill`` runs the whole prompt and builds the
+Forward modes: ``forward_full`` runs a whole sequence for training (each
+layer under ``torch.utils.checkpoint`` as ``cfg.remat`` says), and
+``lm_loss`` takes the cross-entropy in chunks of ``cfg.loss_chunk``
+positions, each chunk recomputed in backward, so the (B, S, V) fp32 logits
+never live at once; ``forward_prefill`` runs the whole prompt and builds the
 serving cache; ``forward_decode`` runs one token against it, **updating the
 cache in place** (the JAX launcher donates the cache to the same effect: at
 qwen3-4b's width the cache of 8 slots of 1088 positions is 1.28 GB). Layers
-run as a Python loop, where the JAX package scans. The MoE, SSM, hybrid and
-encoder-decoder families raise ``NotImplementedError`` until they are ported
-(``ROADMAP.md``), as do ``forward_full`` and ``lm_loss`` (training).
+run as a Python loop over per-layer views of the stacked params
+(``_unstack``), where the JAX package scans; their gradients land in the
+stacked tensors. The MoE, SSM, hybrid and encoder-decoder families raise
+``NotImplementedError`` until they are ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 
@@ -30,9 +38,9 @@ from .blocks import apply_transformer_block, init_transformer_block
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_embedding, init_norm
 
-__all__ = ["init_model", "from_jax_params", "embed_tokens",
-           "logits_from_hidden", "init_cache", "forward_prefill",
-           "forward_decode"]
+__all__ = ["init_model", "from_jax_params", "from_jax_opt_state",
+           "embed_tokens", "logits_from_hidden", "forward_full", "lm_loss",
+           "init_cache", "forward_prefill", "forward_decode"]
 
 
 def _dense_only(cfg: ModelConfig) -> None:
@@ -96,6 +104,32 @@ def from_jax_params(params, cfg: ModelConfig, *, device="cuda"):
     return out
 
 
+def from_jax_opt_state(state, like, *, device="cuda"):
+    """A JAX optimizer state (``repro.train.optim``, numpy leaves) as the
+    port's, on ``device``. ``like`` is the port's state of the same
+    optimizer (``opt.init(params)``): the two trees flatten in the same
+    order (``train.tree``), so each JAX leaf takes the place of the port's,
+    a count as an int, an array as a tensor of the same shape."""
+    from repro_torch.train.tree import leaves, unflatten
+
+    device = resolve_device(device)
+    theirs, mine = leaves(state), leaves(like)
+    if len(theirs) != len(mine):
+        raise ValueError(f"JAX state has {len(theirs)} leaves, the port's "
+                         f"{len(mine)}: not the same optimizer")
+    out = []
+    for x, ref in zip(theirs, mine):
+        if isinstance(ref, int):
+            out.append(int(np.asarray(x)))
+            continue
+        t = _tensor(x, device)
+        if t.shape != ref.shape:
+            raise ValueError(f"JAX leaf {tuple(t.shape)} against the port's "
+                             f"{tuple(ref.shape)}")
+        out.append(t)
+    return unflatten(like, out)
+
+
 # ------------------------------------------------------------------ embed --
 
 
@@ -119,6 +153,74 @@ def logits_from_hidden(params, hidden, cfg: ModelConfig):
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+# ------------------------------------------------------------------ remat --
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The JAX package's ``dots_with_no_batch_dims_saveable``: keep the
+    projections' outputs (2-D products); recompute the rest, the attention
+    einsums (batched products) included."""
+    if op in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``cfg.remat``: "full" recomputes the whole layer in backward,
+    "dots" saves the matrix products and recomputes the rest, "none" keeps
+    every activation."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+# ----------------------------------------------------------- full forward --
+
+
+def forward_full(params, cfg: ModelConfig, *, tokens):
+    """Full-sequence forward of tokens (B, S) -> (hidden (B, S, d), aux);
+    aux is {} (MoE losses come with that family)."""
+    _dense_only(cfg)
+    h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
+    for i, layer in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        block = functools.partial(
+            apply_transformer_block, cfg=cfg,
+            layer_local=cfg.layer_is_local(i))
+        h = _maybe_remat(block, cfg)(layer, h)
+    return h, {}
+
+
+def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
+    """Masked mean softmax cross-entropy over chunks of ``cfg.loss_chunk``
+    positions (halved until it divides S), each chunk's logits recomputed
+    in backward."""
+    B, S, _ = hidden.shape
+    C = min(cfg.loss_chunk, S)
+    while S % C:
+        C //= 2
+
+    def chunk_nll(h_c, t_c, m_c):
+        logits = logits_from_hidden(params, h_c, cfg)  # (B, C, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, t_c.long()[..., None])[..., 0]
+        return ((lse - gold) * m_c).sum()
+
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for c0 in range(0, S, C):
+        part = slice(c0, c0 + C)
+        tot = tot + checkpoint(chunk_nll, hidden[:, part], targets[:, part],
+                               mask[:, part], use_reentrant=False)
+        cnt = cnt + mask[:, part].sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ------------------------------------------------------------------ cache --

@@ -61,7 +61,8 @@ def loss_and_grads(params: Params, centers, contexts, negatives,
 def train_sgns(corpus: WalkCorpus, cfg: SGNSConfig, *,
                params: Optional[Params] = None,
                steps: Optional[int] = None) -> SGNSResult:
-    """Train on ``corpus`` on its device; ``params`` warm-starts."""
+    """Train on ``corpus`` on its device; ``params`` warm-starts and is
+    updated in place."""
     dev = corpus.walks.device
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     if params is None:
@@ -79,8 +80,7 @@ def train_sgns(corpus: WalkCorpus, cfg: SGNSConfig, *,
         ids = sample_batch(corpus, gen, batch=cfg.batch, window=cfg.window,
                            n_neg=cfg.n_neg)
         loss, grads = loss_and_grads(params, *ids, impl=cfg.impl)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = optim.apply_updates(params, updates)
+        opt_state = opt.step(grads, opt_state, params)
     loss = float(loss)
     synchronize(dev)
     dt = time.perf_counter() - t0

@@ -1,38 +1,172 @@
-"""Adam, as the JAX package's ``repro.train.optim`` computes it.
+"""Optimizers, as the JAX package's ``repro.train.optim`` computes them.
 
-Only what SGNS training and the link-prediction fit need: ``scale_by_adam``,
-``adam`` and ``apply_updates`` over dicts of tensors. The moments are fp32
-whatever the parameter dtype, and updates are cast back to it. Every
-parameter moves every step, those without gradient too (their moments
-decay), as in ``optim.py:120-138``: no lazy or sparse row updates.
+Transforms compose with ``chain``; every optimizer is a ``GradientTransform``
+over trees of tensors (nested dicts, tuples, NamedTuples; ``train.tree``).
+Moments are fp32 whatever the parameter dtype, updates are cast back to it,
+and a schedule's rate ``lr(count)`` is read before the count advances. The
+state trees are the JAX package's: ``adamw`` holds ``(AdamState(count, mu,
+nu), (), count)``, ``adafactor`` ``AdafactorState(count, vr, vc)``, ``sgd``
+``count`` or ``(count, velocity)``; counts are Python ints.
+
+Each transform has two forms over the same per-leaf arithmetic:
+  * ``step(grads, state, params) -> state``, which every caller in the
+    port uses (LM training, SGNS training, the link-prediction fit): it
+    adds each leaf's update to its parameter in place (``apply_updates``'
+    arithmetic: an in-place add in the parameter's dtype) and advances the
+    moments in place, one leaf at a time. At qwen3-4b's full width the
+    bf16 params and grads and the fp32 moments hold 48 GB; trees of new
+    moments and updates would add as much again. Here the largest transient
+    is a few fp32 copies of one leaf (the embedding: 389 M x 4 B);
+  * ``update(grads, state, params) -> (updates, state)``, the JAX
+    package's functional form, which copies the state first and leaves the
+    one passed in as it was: the reference the parity tests hold ``step``
+    and the JAX package against.
+Both are built from ``begin(state, grads) -> (ctx, state)``, once a step
+(counts, rates, the global norm), and ``leaf(ctx, i, u, p) -> u``, once a
+leaf; ``chain`` composes those. A transform that reads the whole gradient
+(``clip_by_global_norm``) must therefore come first in a chain.
+
+``adam`` is the Adam of SGNS training and the link-prediction fit: state
+``AdamState`` alone and a constant rate (the JAX package's schedule and
+decay stages are identities there). ``make_optimizer("adam")`` returns the
+JAX package's ``adam``, which is ``adamw`` without decay. Every parameter
+moves every step, those without gradient too (their moments decay), as in
+the JAX package: no lazy or sparse row updates.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Any, Callable, NamedTuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["AdamState", "GradientTransform", "scale_by_adam", "adam",
-           "apply_updates"]
+from .tree import leaves, leaves_up_to, tree_map, unflatten
 
-Params = Dict[str, torch.Tensor]
+__all__ = [
+    "GradientTransform", "AdamState", "AdafactorState", "apply_updates",
+    "global_norm", "chain", "scale", "scale_by_schedule",
+    "clip_by_global_norm", "add_decayed_weights", "scale_by_adam", "sgd",
+    "adam", "adamw", "adafactor", "make_optimizer", "warmup_cosine",
+    "constant_schedule",
+]
+
+Schedule = Callable[[int], float]
+F32 = np.float32
 
 
 class GradientTransform(NamedTuple):
-    init: Callable[[Params], object]
-    update: Callable  # (grads, state, params) -> (updates, state)
+    init: Callable[[Any], Any]
+    update: Callable  # (grads, state, params=None) -> (updates, state)
+    step: Callable  # (grads, state, params) -> state; params in place
+    begin: Callable  # (state, grads tree or None) -> (ctx, state)
+    leaf: Callable  # (ctx, i, update leaf, param leaf or None) -> update
 
 
 class AdamState(NamedTuple):
     count: int
-    mu: Params
-    nu: Params
+    mu: Any
+    nu: Any
 
 
-def apply_updates(params: Params, updates: Params) -> Params:
-    return {k: (p + updates[k].to(p.dtype)).to(p.dtype)
-            for k, p in params.items()}
+class AdafactorState(NamedTuple):
+    count: int
+    vr: Any  # row second moments (the full moment where not factored)
+    vc: Any  # column second moments (() where not factored)
+
+
+def _clone(state):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, state)
+
+
+def _transform(init, begin, leaf) -> GradientTransform:
+    def update(grads, state, params=None):
+        gs = leaves(grads)
+        ps = leaves(params) if params is not None else [None] * len(gs)
+        ctx, state = begin(_clone(state), grads)
+        return unflatten(grads, [leaf(ctx, i, g, p) for i, (g, p) in
+                                 enumerate(zip(gs, ps))]), state
+
+    @torch.no_grad()
+    def step(grads, state, params):
+        ctx, state = begin(state, grads)
+        for i, (g, p) in enumerate(zip(leaves(grads), leaves(params))):
+            p.add_(leaf(ctx, i, g, p).to(p.dtype))
+        return state
+
+    return GradientTransform(init, update, step, begin, leaf)
+
+
+def _zeros32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _rate(lr: Union[float, Schedule]) -> Schedule:
+    return lr if callable(lr) else constant_schedule(lr)
+
+
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p + u.to(p.dtype)).to(p.dtype), params,
+                    updates)
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+
+
+def chain(*transforms: GradientTransform) -> GradientTransform:
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def begin(state, grads):
+        ctxs, new = [], []
+        for k, (t, s) in enumerate(zip(transforms, state)):
+            c, s = t.begin(s, grads if k == 0 else None)
+            ctxs.append(c)
+            new.append(s)
+        return ctxs, tuple(new)
+
+    def leaf(ctxs, i, u, p):
+        for t, c in zip(transforms, ctxs):
+            u = t.leaf(c, i, u, p)
+        return u
+
+    return _transform(init, begin, leaf)
+
+
+def _stateless(leaf) -> GradientTransform:
+    return _transform(lambda p: (), lambda s, g: (None, s), leaf)
+
+
+def scale(factor: float) -> GradientTransform:
+    return _stateless(lambda ctx, i, u, p: u * factor)
+
+
+def scale_by_schedule(schedule: Schedule) -> GradientTransform:
+    def begin(count, grads):
+        return float(schedule(count)), count + 1
+
+    return _transform(lambda p: 0, begin, lambda s, i, u, p: u * s)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransform:
+    def begin(state, grads):
+        if grads is None:
+            raise ValueError("clip_by_global_norm reads the whole gradient: "
+                             "put it first in a chain")
+        norm = global_norm(grads)
+        return torch.clamp(max_norm / (norm + 1e-9), max=1.0), state
+
+    return _transform(lambda p: (), begin, lambda f, i, u, p: u * f)
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransform:
+    def leaf(ctx, i, u, p):
+        if weight_decay == 0.0 or p is None:
+            return u
+        return u + weight_decay * p.to(u.dtype)
+
+    return _stateless(leaf)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
@@ -40,34 +174,152 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     """Bias-corrected ``m_hat / (sqrt(v_hat) + eps)``."""
 
     def init(params):
-        zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for k, p in params.items()}
-        return AdamState(0, zeros, {k: z.clone() for k, z in zeros.items()})
+        return AdamState(0, tree_map(_zeros32, params),
+                         tree_map(_zeros32, params))
 
-    def update(grads, state, params=None):
+    def begin(state, grads):
         count = state.count + 1
-        g32 = {k: g.float() for k, g in grads.items()}
-        mu = {k: b1 * state.mu[k] + (1 - b1) * g for k, g in g32.items()}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * g * g for k, g in g32.items()}
         # the bias corrections in float32, as the JAX package computes them:
         # 1 - b2 is a small difference, so its rounding shows in every update
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        updates = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
-                   for k in mu}
-        return updates, AdamState(count, mu, nu)
+        c1 = float(F32(1) - F32(b1) ** F32(count))
+        c2 = float(F32(1) - F32(b2) ** F32(count))
+        ctx = (c1, c2, leaves(state.mu), leaves(state.nu))
+        return ctx, AdamState(count, state.mu, state.nu)
 
-    return GradientTransform(init, update)
+    def leaf(ctx, i, u, p):
+        c1, c2, mu, nu = ctx
+        g = u.float()
+        m = mu[i].mul_(b1).add_((1 - b1) * g)  # b1 * m + (1 - b1) * g
+        v = nu[i].mul_(b2).add_((1 - b2) * g * g)
+        return (m / c1).div_(torch.sqrt(v / c2).add_(eps))
+
+    return _transform(init, begin, leaf)
+
+
+def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> GradientTransform:
+    def init(params):
+        if momentum == 0.0:
+            return 0
+        return (0, tree_map(_zeros32, params))
+
+    def begin(state, grads):
+        count, vel = (state, None) if momentum == 0.0 else state
+        rate = float(lr(count)) if callable(lr) else lr
+        new = count + 1 if momentum == 0.0 else (count + 1, vel)
+        return (rate, None if vel is None else leaves(vel)), new
+
+    def leaf(ctx, i, u, p):
+        rate, vel = ctx
+        g = u.float()
+        if vel is not None:
+            g = vel[i].mul_(momentum).add_(g)
+        return -rate * g
+
+    return _transform(init, begin, leaf)
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> GradientTransform:
-    """``scale_by_adam`` followed by a step of ``-lr`` (a constant rate: the
-    JAX package's schedule and decay stages are identities here)."""
+    """``scale_by_adam`` followed by a step of ``-lr``, with the state
+    ``AdamState`` alone (SGNS training and the link-prediction fit)."""
     inner = scale_by_adam(b1, b2, eps)
+    return _transform(inner.init, inner.begin,
+                      lambda ctx, i, u, p: inner.leaf(ctx, i, u, p) * -lr)
 
-    def update(grads, state, params=None):
-        updates, state = inner.update(grads, state, params)
-        return {k: u * -lr for k, u in updates.items()}, state
 
-    return GradientTransform(inner.init, update)
+def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 0.0) -> GradientTransform:
+    sched = _rate(lr)
+    return chain(
+        scale_by_adam(b1, b2, eps),
+        add_decayed_weights(weight_decay),
+        scale_by_schedule(lambda c: -sched(c)),
+    )
+
+
+def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
+              eps: float = 1e-30, clip_threshold: float = 1.0,
+              min_dim_size_to_factor: int = 128,
+              weight_decay: float = 0.0) -> GradientTransform:
+    """Factored second moments (Shazeer & Stern 2018): a matrix whose two
+    trailing dims are both >= ``min_dim_size_to_factor`` keeps a row and a
+    column moment instead of a full one."""
+    sched = _rate(lr)
+
+    def factored(p):
+        return (p.ndim >= 2 and p.shape[-1] >= min_dim_size_to_factor
+                and p.shape[-2] >= min_dim_size_to_factor)
+
+    def init(params):
+        def vr(p):
+            return torch.zeros(p.shape[:-1] if factored(p) else p.shape,
+                               dtype=torch.float32, device=p.device)
+
+        def vc(p):
+            if not factored(p):
+                return ()
+            return torch.zeros(p.shape[:-2] + p.shape[-1:],
+                               dtype=torch.float32, device=p.device)
+
+        return AdafactorState(0, tree_map(vr, params), tree_map(vc, params))
+
+    def begin(state, grads):
+        count = state.count + 1
+        beta = F32(1) - F32(count) ** F32(-decay)
+        ctx = (float(beta), float(F32(1) - beta), float(sched(state.count)),
+               leaves_up_to(grads, state.vr), leaves_up_to(grads, state.vc))
+        return ctx, AdafactorState(count, state.vr, state.vc)
+
+    def leaf(ctx, i, u, p):
+        beta, one_minus, rate, vr, vc = ctx
+        g = u.float()
+        g2 = g * g + eps
+        if factored(g):
+            r_mom = vr[i].mul_(beta).add_(one_minus * g2.mean(-1))
+            c_mom = vc[i].mul_(beta).add_(one_minus * g2.mean(-2))
+            r = r_mom / r_mom.mean(-1, keepdim=True).clamp_min(1e-30)
+            u = g / (torch.sqrt(r)[..., None] * torch.sqrt(c_mom)[..., None, :])
+        else:
+            u = g / torch.sqrt(vr[i].mul_(beta).add_(one_minus * g2))
+        rms = torch.sqrt(u.square().mean() + 1e-30)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        if weight_decay and p is not None:
+            u = u + weight_decay * p.float()
+        return -rate * u
+
+    return _transform(init, begin, leaf)
+
+
+def make_optimizer(name: str, lr, weight_decay: float = 0.0) -> GradientTransform:
+    if name == "adamw":
+        return adamw(lr, weight_decay=weight_decay)
+    if name == "adam":  # the JAX package's adam: adamw without decay
+        return adamw(lr)
+    if name == "adafactor":
+        return adafactor(lr, weight_decay=weight_decay)
+    if name == "sgd":
+        return sgd(lr, momentum=0.9)
+    raise ValueError(name)
+
+
+def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
+                  end_lr_ratio: float = 0.1) -> Schedule:
+    """Linear warmup to ``peak_lr``, then a cosine decay to ``end_lr_ratio``
+    of it, in float32 with the JAX package's order of operations."""
+
+    def sched(count: int) -> float:
+        c = F32(count)
+        if c < warmup_steps:
+            return float(F32(peak_lr) * (c + F32(1)) / F32(max(warmup_steps, 1)))
+        t = np.clip((c - F32(warmup_steps))
+                    / F32(max(total_steps - warmup_steps, 1)), F32(0), F32(1))
+        cos = F32(end_lr_ratio * peak_lr) + F32(
+            (1 - end_lr_ratio) * peak_lr * 0.5) * (F32(1) + np.cos(F32(np.pi) * t))
+        return float(cos)
+
+    return sched
+
+
+def constant_schedule(lr: float) -> Schedule:
+    """``lr`` rounded to float32, as JAX holds a constant rate."""
+    return lambda c: float(F32(lr))

@@ -18,7 +18,10 @@ with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
 ones (one bf16 rounding of the same fp32 result; int8 caches as their
 queries), the LM decode step on the card against the CPU
 1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
-and 1e-2 (logits).
+and 1e-2 (logits); one LM train step on the card against the CPU: loss and
+grad_norm 1e-5, the moments 1e-4 x their largest magnitude, the params
+1e-3 x the rate where Adam does not amplify a gradient's rounding;
+checkpointed card tensors bit for bit, restored in place.
 """
 import numpy as np
 import pytest
@@ -802,3 +805,107 @@ def test_crash_and_recover_on_the_card_is_bit_identical(cuda, tmp_path):
     oracle = core_numbers_host(svc.graph.snapshot())
     np.testing.assert_array_equal(svc.cores.core[: len(oracle)], oracle)
     mgr.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_the_card_matches_the_cpu(cuda, accum):
+    """One AdamW step of ``make_train_step`` (reduced qwen3-4b, G = 4, fp32,
+    4 x 64 tokens) on the card and on the CPU from the same params: loss
+    and grad_norm 1e-5, moments 1e-4 x their leaf's largest magnitude, the
+    parameters 1e-3 x the rate where sqrt(v_hat) > 100 eps (Adam turns a
+    near-zero gradient's rounding into a step of up to the rate, held to
+    2 x the rate everywhere)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import optim, tree
+
+    cfg = get_config("qwen3-4b").reduced(n_heads=8, n_kv_heads=2)
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLMData(cfg.vocab_size, 4, 64, seed=1).batch_at(0)
+    out = {}
+    for dev in (cuda, "cpu"):  # the CPU's step updates ``params`` itself
+        p = _tree_to(params, dev)
+        opt = optim.adamw(optim.warmup_cosine(3e-3, 2, 20))
+        p, state, m = make_train_step(cfg, opt, accum_steps=accum)(
+            p, opt.init(p), {k: torch.from_numpy(v).to(dev)
+                             for k, v in batch.items()})
+        out[str(dev)] = (tree.tree_map(lambda t: t.cpu(), p),
+                         tree.tree_map(lambda t: t.cpu()
+                                       if isinstance(t, torch.Tensor) else t,
+                                       state),
+                         {k: float(v) for k, v in m.items()})
+    (pg, sg, mg), (pc, sc, mc) = out[str(cuda)], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert mg[key] == pytest.approx(mc[key], rel=1e-5)
+    for a, b in zip(tree.leaves(sg), tree.leaves(sc)):
+        if isinstance(a, int):
+            assert a == b
+        else:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    lr = optim.warmup_cosine(3e-3, 2, 20)(0)
+    for a, b, v in zip(tree.leaves(pg), tree.leaves(pc),
+                       tree.leaves(sc[0].nu)):
+        d = (a - b).abs()
+        ok = torch.sqrt(v / (1 - 0.999)) > 100 * 1e-8
+        assert float(ok.float().mean()) > 0.98
+        assert float(d[ok].max()) <= 1e-3 * lr and float(d.max()) <= 2 * lr
+
+
+@pytest.mark.cuda
+def test_checkpoint_bf16_round_trip_on_card_tensors(cuda, tmp_path):
+    """Card tensors (bf16, fp32) and a count saved asynchronously come back
+    on the card bit for bit, as they were when ``save`` returned: the leaves
+    are copied to the host before it returns, so an in-place update right
+    after it does not reach the files."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    x = torch.randn(64, 33, device=cuda).bfloat16()
+    y = torch.randn(5, device=cuda)
+    want = (x.clone(), y.clone())
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"w": x, "f": y, "n": 5}, blocking=False)
+    x.add_(1.0)
+    y.mul_(2.0)
+    mgr.wait()
+    got = mgr.restore(3, {"w": torch.empty_like(x), "f": torch.empty_like(y),
+                          "n": 0})
+    assert got["n"] == 5
+    assert got["w"].device == x.device and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got["f"], want[1])
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_card_tensors_in_place(cuda, tmp_path):
+    """A restore into card tensors fills them in place: the same storage
+    comes back, and the card's allocator grows by at most one leaf while it
+    reads (64 MiB bf16 and fp32 leaves), never by a second copy of the
+    tree."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    tree = {"a": torch.randn(4096, 8192, device=cuda, generator=gen)
+            .bfloat16(),
+            "b": torch.randn(2048, 8192, device=cuda, generator=gen),
+            "n": 9}
+    want = {k: tree[k].clone() for k in ("a", "b")}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, tree)
+    for k in ("a", "b"):
+        tree[k].zero_()
+    ptrs = {k: tree[k].data_ptr() for k in ("a", "b")}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = mgr.restore(2, tree)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert got["n"] == 9
+    for k in ("a", "b"):
+        assert got[k] is tree[k] and got[k].data_ptr() == ptrs[k]
+    assert torch.equal(got["a"].view(torch.int16), want["a"].view(torch.int16))
+    assert torch.equal(got["b"], want["b"])
+    assert grew <= 64 * 2**20, grew
