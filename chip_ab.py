@@ -2,7 +2,7 @@
 """Time the port's ELL mean, flash-decode, top-k, h-index and SGNS kernels of
 one source tree on one GPU.
 
-    python3 chip_ab.py --src SRC_DIR [--tag NAME] [--offline]
+    python3 chip_ab.py --src SRC_DIR [--tag NAME] [--offline | --decode]
 
 ``SRC_DIR`` is the ``src`` directory of a checkout (this one, or an older
 commit unpacked with ``git archive``); its ``repro_torch`` kernels are built
@@ -27,7 +27,13 @@ on the first set of each shape, so that two trees' bits can be compared.
 ``--offline`` times the offline pipeline instead: the smoke's quick github
 table (DeepWalk, CoreWalk and the k-core row, ``launch.tables.run_model``
 on the card), each row's SGNS steps per second of embedding time beside a
-hash of its embeddings. Inputs come from fixed seeds, so two trees see the same data. Each
+hash of its embeddings. ``--decode`` runs only the flash-decode timings
+and a sha256 of its outputs at every head dim it may take (the built
+widths 32, 64, 128, 256 and 80, 96, 112; "refused" where a tree's wrapper
+raises) for each cache kind (fp32, bf16, int8 with fp32 and with bf16
+queries), G = 4 and 1, a split and an unsplit S, with and without softcap
+and window: two trees that agree there give the same bits. Inputs come
+from fixed seeds, so two trees see the same data. Each
 time is the device time per call with the host's launch time left out
 (``chip_smoke.time_ms``: the calls queued behind a spin kernel, CUDA
 events around them) beside the CUDA-event time of a loop of calls
@@ -148,10 +154,109 @@ def offline_rows(np, out):
         }
 
 
+def flash_decode_timings(torch, flash_decode, quantize_kv_rows, out,
+                         timed):
+    """The flash-decode timings into ``out``."""
+    dev = "cuda"
+
+    def dec(label, sets, softcap=0.0, window=0, iters=20):
+        lo = (sets[0][3] - window).clamp_min(0) if window > 0 else \
+            torch.zeros_like(sets[0][3])
+
+        def kern(q, k, v, lens, *sc):  # every set has the same lengths
+            kw = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+            flash_decode.decode_attention_cuda(q, k, v, lens, lo,
+                                               softcap=softcap, **kw)
+        out["flash_decode"][label] = timed(kern, iters, sets)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lens = torch.tensor([1088] * 4 + [1026] * 4, dtype=torch.int32,
+                        device=dev)
+    sets = []
+    for _ in range(6):  # 6 x 35.6 MB of K/V: more than twice the L2
+        q = torch.randn((8, 32, 128), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((8, 1088, 8, 128), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        sets.append((q, k, v, lens))
+    dec("serve B=8 S=1088", sets)
+    del sets
+    for label, b, h, hkv, dh, s, softcap, window in (
+            ("gemma2-2b B=8 S=8192 Dh=256", 8, 8, 4, 256, 8192, 50.0, 4096),
+            ("large B=32 S=8192", 32, 32, 8, 128, 8192, 0.0, 0)):
+        q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[-1] = s + 7
+        # two caches, so that no call finds the previous one's rows in L2
+        sets = [(q, k, v, lens), (q, torch.roll(k, 1, 0),
+                                  torch.roll(v, 1, 0), lens)]
+        dec(label, sets, softcap, window, 10)
+    int8 = []
+    for q, k, v, lens in sets:
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        int8.append((q, kq, vq, lens, ks, vs))
+    del sets, k, v
+    dec("large int8 B=32 S=8192", int8, iters=10)
+
+
+DECODE_BITS_DH = (32, 64, 80, 96, 112, 128, 256)
+
+
+def decode_bits(torch, ops):
+    """{Dh: {cache kind: sha256 of the outputs, or "refused"}}."""
+    import hashlib
+
+    dev = "cuda"
+    out = {}
+    for dh in DECODE_BITS_DH:
+        out[dh] = {}
+        for kind in ("float32", "bfloat16", "int8", "int8-bf16"):
+            gen = torch.Generator(device=dev).manual_seed(dh)
+            h = hashlib.sha256()
+            try:
+                for b, s, g in ((3, 1000, 4), (2, 4096, 1)):
+                    q = torch.randn((b, 2 * g, dh), generator=gen,
+                                    device=dev)
+                    k, v = (torch.randn((b, s, 2, dh), generator=gen,
+                                        device=dev) for _ in range(2))
+                    lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                    lens[-1] = s + 5
+                    kw = {}
+                    if kind.startswith("int8"):  # symmetric rows, as the
+                        # port quantises them
+                        for name, t in (("k", k), ("v", v)):
+                            sc = t.abs().amax(-1) / 127.0 + 1e-12
+                            kw[name + "_scale"] = sc
+                            t.copy_(torch.round(t / sc[..., None]))
+                        k, v = k.to(torch.int8), v.to(torch.int8)
+                    elif kind == "bfloat16":
+                        k, v = k.bfloat16(), v.bfloat16()
+                    if kind in ("bfloat16", "int8-bf16"):
+                        q = q.bfloat16()
+                    for softcap, window in ((0.0, 0), (50.0, 0), (0.0, 16),
+                                            (30.0, 40)):
+                        o = ops.decode_attention(q, k, v, lens, impl="cuda",
+                                                 softcap=softcap,
+                                                 window=window, **kw)
+                        h.update(o.float().cpu().numpy().tobytes())
+                out[dh][kind] = h.hexdigest()[:16]
+            except ValueError as e:  # an older tree's wrapper
+                if "head_dim" not in str(e):
+                    raise
+                out[dh][kind] = "refused"
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--tag", default="", help="a label for the output")
+    ap.add_argument("--decode", action="store_true",
+                    help="flash-decode only: its timings and output bits")
     ap.add_argument("--offline", action="store_true",
                     help="time the offline table's SGNS rows only")
     args = ap.parse_args()
@@ -192,6 +297,14 @@ def main() -> int:
         return {"ms": sm.time_rotating(torch, fn, sets, iters),
                 "loop_ms": sm.time_rotating(torch, fn, sets, iters,
                                             sm.loop_ms)}
+
+    if args.decode:
+        out["flash_decode_bits"] = decode_bits(torch, ops)
+        flash_decode_timings(torch, flash_decode, quantize_kv_rows, out,
+                             timed)
+        print(out["card"])
+        print(json.dumps(out))
+        return 0
 
     def ell(label, idx, valid, emb, iters=50):
         out["ell_mean"][label] = timed(
@@ -241,47 +354,7 @@ def main() -> int:
     out["ell_mean"]["propagation sweep, 12 shells"] = timed(sweep, 20)
     del shells, xt
 
-    def dec(label, sets, softcap=0.0, window=0, iters=20):
-        lo = (sets[0][3] - window).clamp_min(0) if window > 0 else \
-            torch.zeros_like(sets[0][3])
-
-        def kern(q, k, v, lens, *sc):  # every set has the same lengths
-            kw = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
-            flash_decode.decode_attention_cuda(q, k, v, lens, lo,
-                                               softcap=softcap, **kw)
-        out["flash_decode"][label] = timed(kern, iters, sets)
-
-    gen = torch.Generator(device=dev).manual_seed(13)
-    lens = torch.tensor([1088] * 4 + [1026] * 4, dtype=torch.int32,
-                        device=dev)
-    sets = []
-    for _ in range(6):  # 6 x 35.6 MB of K/V: more than twice the L2
-        q = torch.randn((8, 32, 128), generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn((8, 1088, 8, 128), generator=gen, device=dev)
-                .bfloat16() for _ in range(2))
-        sets.append((q, k, v, lens))
-    dec("serve B=8 S=1088", sets)
-    del sets
-    for label, b, h, hkv, dh, s, softcap, window in (
-            ("gemma2-2b B=8 S=8192 Dh=256", 8, 8, 4, 256, 8192, 50.0, 4096),
-            ("large B=32 S=8192", 32, 32, 8, 128, 8192, 0.0, 0)):
-        q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev)
-                .bfloat16() for _ in range(2))
-        lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        lens[-1] = s + 7
-        # two caches, so that no call finds the previous one's rows in L2
-        sets = [(q, k, v, lens), (q, torch.roll(k, 1, 0),
-                                  torch.roll(v, 1, 0), lens)]
-        dec(label, sets, softcap, window, 10)
-    int8 = []
-    for q, k, v, lens in sets:
-        kq, ks = quantize_kv_rows(k)
-        vq, vs = quantize_kv_rows(v)
-        int8.append((q, kq, vq, lens, ks, vs))
-    del sets, k, v
-    dec("large int8 B=32 S=8192", int8, iters=10)
+    flash_decode_timings(torch, flash_decode, quantize_kv_rows, out, timed)
     print(out["card"])
     print(json.dumps(out))
     return 0

@@ -80,34 +80,47 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    steps on the CoreWalk corpus at the table's settings, device time by
    kernel and the device's busy share of the window (reported, not held to
    a limit);
-8. LM serving: ``repro_torch.launch.serve`` at qwen3-4b's full width (36
-   layers, d_model 2560, 32/8 heads, vocabulary 151,936, bf16; weights from
-   its ``init_model`` with a seeded generator on the card), 12 requests in 8
-   slots, prompts of 1024, 64 new tokens each: 128 decode steps, four rows
-   swapped in at step 64 while the other four run past their cache's end.
-   Held: 1,024 tokens decoded, exactly 36 x 128 flash-decode launches, no
-   NaN or inf in any logits, every token in [0, vocab), the swapped rows'
-   cache holding their prefill. Printed: prefill and swap times, decode
-   tokens/s and ms per step, peak memory;
-9. decode parity at full width: one step from the live cache (ragged
-   lengths, four rows past the end) with the kernel and with the plain
-   version bound into ``models.attention`` for that call: caches equal bit
-   for bit but for the rows written in layers 1 and up, which with the
-   logits agree within 5e-2 x their largest magnitude; the greedy tokens'
+8. LM serving, four paths (``LM_PATHS``), each at its config's full width
+   and depth, bf16, weights from its ``init_model`` with a seeded generator
+   on the card, through ``repro_torch.launch.serve``: "lm" qwen3-4b (dense,
+   36 layers, 32/8 heads), "moe" moonshot-v1-16b-a3b (48 layers, 16 heads
+   of 128, 64 experts top-6 of 1408, vocabulary 163,840: 27.7 B params,
+   55.5 GB), "ssm" mamba2-2.7b (64 mamba2 blocks) and "hybrid" zamba2-7b
+   (81 mamba2 blocks, 13 calls of the shared attention block, 32 heads of
+   112). Each: 12 requests in 8 slots, prompts of 1024, 64 new tokens: 128
+   decode steps, four rows swapped in at step 64 while the other four run
+   past their cache's end. Held: 1,024 tokens decoded, exactly one
+   flash-decode launch per attention layer (or shared-block call) per step
+   (36, 48, 0, 13 x 128), no NaN or inf in any logits, every token in [0,
+   vocab), the swapped rows' cache holding their prefill (the KV prompt
+   positions; the conv state shifted by the one step before the
+   snapshot), peak memory below the card's. Printed: prefill and swap
+   times, decode tokens/s and ms per step, peak memory;
+9. decode parity at full width (each path with attention): one step from
+   the live cache (ragged lengths, four rows past the end) with the kernel
+   and with the plain version bound into ``models.attention`` for that
+   call (an MoE's plain step routed as the kernel's: ``Router``): caches
+   equal bit for bit but where the first attention output reaches (the
+   K/V rows written in layers 1 and up, the hybrid's later mamba states),
+   which with the logits agree within 5e-2 x their largest magnitude; the
+   routing flips of an unforced plain step and the greedy tokens'
    agreement over 8 teacher-forced steps (reported); ``torch.profiler``
-   over 20 decode steps (device time by kernel class, launches per step, busy
-   share; reported);
-10. a small LM reference: reduced qwen3-4b (fp32, G = 4) served on the card
-   and on the CPU with the same weights and schedule: token streams equal,
-   logits within 1e-4;
+   over 20 decode steps (device time by kernel class, launches per step,
+   busy share; reported);
+10. small LM references: each path's model at the reduced preset (fp32;
+   qwen3-4b with G = 4) served on the card and on the CPU with the same
+   weights and schedule: token streams equal, logits within 1e-4; the
+   MoE's smallest router margin (reported);
 11. flash-decode against its plain version (``TOL_DECODE``: 2e-5 with fp32
    queries; rtol 1e-2 + atol 1e-3 with bf16 queries, bf16 or int8 cache)
-   at the live serving inputs (layers 0 and 35 of one step, timed rotating
-   through six layers) and at a gemma2-2b shape (softcap 50, window 4096),
-   a large ragged bf16 shape and the same with an int8 cache, with the
-   library time (one SDPA call, softcap 0 and no int8 only), the bound from
-   the visible rows and the number of splits of S the launch used;
-12. LM training, the sixth path, "train" (the LM serving phases' params
+   at each path's live inputs (two attention calls of one step, timed
+   rotating through the K/V of several: qwen3-4b's, moonshot's G = 1 and
+   zamba2's Dh = 112, window 4096) and at a gemma2-2b shape (softcap 50,
+   window 4096), a large ragged bf16 shape, the same with an int8 cache,
+   and a large one at zamba2's heads (Dh = 112, G = 1), with the library
+   time (one SDPA call, softcap 0 and no int8 only), the bound from the
+   visible rows and the number of splits of S the launch used;
+12. LM training, the "train" path (the LM serving phases' params
    and caches freed first): ``repro_torch.launch.train`` at qwen3-4b's full
    width and depth (bf16, AdamW, 20 steps of 4 x 1024 tokens; counts set
    to 0 before and read after: the path runs none of the kernels). Held: 20
@@ -134,12 +147,14 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the resilience, the offline, the LM and the train path,
-each path's count beside it; the h-index's hub kernel also as a record of its own, ``h_index_hub``);
+serving, the hub, the resilience, the offline, the four LM serving and the
+train path, each path's count beside it; the h-index's hub kernel also as
+a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -172,15 +187,40 @@ F1_BAND = 3.0
 # LM serving at qwen3-4b's full width: 12 requests in 8 slots, 64 new tokens
 # each, so 64 steps, a swap of four rows, and 64 more steps while the other
 # four rows run past their cache's end (1088 positions)
-LM_FLAGS = ["--arch", "qwen3-4b", "--preset", "full", "--slots", "8",
-            "--requests", "12", "--prompt-len", "1024", "--max-new", "64",
-            "--seed", "0", "--device", "cuda"]
-LM_SHAPE = (36, 2560, 32, 8, 128, 9728, 151936, "bfloat16")  # qwen3-4b
+def lm_flags(arch):
+    return ["--arch", arch, "--preset", "full", "--slots", "8", "--requests",
+            "12", "--prompt-len", "1024", "--max-new", "64", "--seed", "0",
+            "--device", "cuda"]
+
+
+# The LM serving paths, each at its config's full width and depth on the
+# card: path -> (arch, the config fields that must hold (full width), its
+# flash-decode launches a decode step, the layers (or shared-block calls)
+# whose kernel inputs the parity phase keeps for timing: enough K/V to
+# stream more than twice the L2)
+LM_PATHS = {
+    "lm": ("qwen3-4b", dict(n_layers=36, d_model=2560, n_heads=32,
+                            n_kv_heads=8, head_dim=128, d_ff=9728,
+                            vocab_size=151936, param_dtype="bfloat16"),
+           36, (0, 7, 14, 21, 28, 35)),  # 6 x 35.6 MB
+    "moe": ("moonshot-v1-16b-a3b",
+            dict(n_layers=48, d_model=2048, n_heads=16, n_kv_heads=16,
+                 head_dim=128, vocab_size=163840, param_dtype="bfloat16",
+                 moe=(64, 6, 1408)), 48, (0, 9, 19, 28, 38, 47)),  # 6 x 71
+    "ssm": ("mamba2-2.7b", dict(n_layers=64, d_model=2560, vocab_size=50304,
+                                param_dtype="bfloat16",
+                                ssm=(128, 4, 2, 64, 8, 256)), 0, ()),
+    "hybrid": ("zamba2-7b", dict(n_layers=81, d_model=3584, n_heads=32,
+                                 n_kv_heads=32, head_dim=112, d_ff=14336,
+                                 vocab_size=32000, param_dtype="bfloat16",
+                                 shared_every=6, sliding_window=4096,
+                                 ssm=(64, 4, 2, 64, 8, 256)),
+               13, (0, 6, 12)),  # 3 x 125 MB
+}
 LM_DECODED = 8 * 128
-LM_LAUNCHES = 36 * 128  # one flash-decode launch per layer per step
+LM_STEPS = 128
 SNAP_STEP = 64  # the step after the swap: the cache the parity phases take
 LM_LOGIT_TOL = 5e-2  # x max|logit|: bf16 rounding of the attention output
-LM_LAYERS = (0, 7, 14, 21, 28, 35)  # 6 x 35.6 MB of K/V > twice the L2
 # flash-decode against its plain version, (rtol, atol) by the queries' type.
 # Both accumulate in fp32 and round once to q's type, so in bf16 they differ
 # by at most one ulp (< 2**-7 x |out|, < 7.8e-4 below 0.1), well under 1e-2
@@ -211,6 +251,8 @@ DECODE_SHAPES = [
     ("gemma2-2b shape", 8, 8, 4, 256, 8192, 50.0, 4096, False),
     ("large", 32, 32, 8, 128, 8192, 0.0, 0, False),
     ("large int8", 32, 32, 8, 128, 8192, 0.0, 0, True),
+    # zamba2-7b's heads (MHA, Dh = 112 on the 128-wide build)
+    ("large Dh=112", 32, 32, 32, 112, 8192, 0.0, 0, False),
 ]
 
 SOURCES = {
@@ -1490,25 +1532,39 @@ def _clone(cache):
     return {k: v.clone() for k, v in cache.items()}
 
 
-def lm_serve_phase(torch, np, counters):
-    """The LM serving path at qwen3-4b's full width on the card, through
-    ``repro_torch.launch.serve`` (its flag parsing, its ``init_model`` from
-    a seeded generator on the card, its continuous-batching loop). Returns
-    (cfg, params, launch counts, the cache and next tokens right after the
-    first swap)."""
+def _full_width(cfg, want) -> bool:
+    got = {k: getattr(cfg, k) for k in want if k not in ("moe", "ssm")}
+    if "moe" in want:
+        got["moe"] = (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert)
+    if "ssm" in want:
+        s = cfg.ssm
+        got["ssm"] = (s.d_state, s.d_conv, s.expand, s.head_dim, s.n_groups,
+                      s.chunk)
+    return got == want
+
+
+def lm_serve_phase(torch, np, counters, path):
+    """An LM serving path (``LM_PATHS``) at its config's full width and
+    depth on the card, through ``repro_torch.launch.serve`` (its flag
+    parsing, its ``init_model`` from a seeded generator on the card, its
+    continuous-batching loop): 12 requests in 8 slots, prompts of 1024, 64
+    new tokens each. Returns (cfg, params, launch counts, the cache and
+    next tokens right after the first swap)."""
     from repro_torch.launch import serve as lm
     from repro_torch.models.steps import make_prefill_step
 
-    args, cfg, params, requests = lm.setup(LM_FLAGS)
+    arch, want, per_step, _ = LM_PATHS[path]
+    t0 = time.perf_counter()
+    args, cfg, params, requests = lm.setup(lm_flags(arch))
     torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    expect((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.param_dtype)
-           == LM_SHAPE, f"not qwen3-4b at full width: {cfg}")
-    log(f"lm: {cfg.name} full width, {n_params / 1e9:.3f} B parameters "
-        f"({n_bytes / 1e9:.2f} GB), {args.slots} slots, {args.requests} requests, prompt "
-        f"{args.prompt_len}, max_new {args.max_new}")
+    expect(_full_width(cfg, want), f"not {arch} at full width: {cfg}")
+    log(f"{path}: {cfg.name} full width, {n_params / 1e9:.3f} B parameters "
+        f"({n_bytes / 1e9:.2f} GB, init {t_init:.1f} s), {args.slots} "
+        f"slots, {args.requests} requests, prompt {args.prompt_len}, "
+        f"max_new {args.max_new}")
     state = {"bad": torch.zeros((), dtype=torch.bool, device=args.device)}
 
     def on_step(step, cache, logits):  # its time is not in decode_seconds
@@ -1524,38 +1580,55 @@ def lm_serve_phase(torch, np, counters):
     counts = counters.read()
     peak = torch.cuda.max_memory_allocated()
     steps = res.step_tokens.shape[0]
-    log(f"lm serve: {res.served} requests, {res.n_decoded} tokens in {steps} "
-        f"decode steps; launches {counts}")
-    expect(res.n_decoded == LM_DECODED, f"n_decoded {res.n_decoded} != "
-           f"{LM_DECODED}")
-    want = cfg.n_layers * steps
-    expect(counts["decode_attention"] == want == LM_LAUNCHES,
+    log(f"{path} serve: {res.served} requests, {res.n_decoded} tokens in "
+        f"{steps} decode steps; launches {counts}")
+    expect(res.n_decoded == LM_DECODED and steps == LM_STEPS,
+           f"n_decoded {res.n_decoded} != {LM_DECODED}")
+    expect(counts["decode_attention"] == per_step * steps,
            f"flash_decode launches {counts['decode_attention']} != "
-           f"{cfg.n_layers} x {steps} = {LM_LAUNCHES}")
+           f"{per_step} x {steps}")
     for name, n in counts.items():
         expect(name == "decode_attention" or n == 0,
-               f"{name} launched {n} times on the LM path")
+               f"{name} launched {n} times on the {path} path")
     expect(not bool(state["bad"]), "NaN or inf in the decode logits")
     expect(0 <= int(res.step_tokens.min())
            and int(res.step_tokens.max()) < cfg.vocab_size,
            "a token outside [0, vocab)")
+    expect(peak < torch.cuda.get_device_properties(0).total_memory,
+           f"peak {peak} above the card's memory")
     # all rows start together, so rows 0-3 finish first and take requests
-    # 8-11 in order: their cache rows hold those prompts' B = 1 prefill
-    # (recomputed here), which no later decode write reaches
+    # 8-11 in order: their rows hold those prompts' B = 1 prefill
+    # (recomputed here): the KV cache's prompt positions, which no later
+    # decode write reaches; the conv state, shifted by the one step before
+    # the snapshot (its first d_conv - 2 positions are the prefill's last)
     expect(res.served == args.requests, f"served {res.served}")
     prefill = make_prefill_step(cfg, max_len=args.prompt_len + args.max_new)
+    axes = lm.cache_batch_axes(cfg)
+    snap = state["snap"][0]
     for b in range(args.requests - args.slots):
         _, row = prefill(params, {"tokens": torch.from_numpy(
             requests[args.slots + b][None]).to(args.device)})
-        expect(all(torch.equal(res.cache[key][:, b, :args.prompt_len],
-                               row[key][:, 0, :args.prompt_len])
-                   for key in ("k", "v")), f"row {b}'s cache lost its prefill")
+        for key, ax in axes.items():
+            if key in ("k", "v"):
+                got = res.cache[key].select(ax, b).narrow(
+                    ax, 0, args.prompt_len)
+                ref_ = row[key].select(ax, 0).narrow(ax, 0, args.prompt_len)
+            elif key.endswith("conv"):
+                n = row[key].shape[ax + 1] - 1  # d_conv - 2
+                got = snap[key].select(ax, b).narrow(ax, 0, n)
+                ref_ = row[key].select(ax, 0).narrow(ax, 1, n)
+            else:
+                continue
+            expect(torch.equal(got, ref_),
+                   f"row {b}'s {key} cache lost its prefill")
         del row
     lens = res.cache["len"].tolist()
     s_max = args.prompt_len + args.max_new
     expect(max(lens) > s_max, f"no row ran past the cache's end: {lens}")
     swap_s = sum(res.swap_seconds)
     rec = {
+        "arch": cfg.name, "params_b": n_params / 1e9,
+        "param_gb": n_bytes / 1e9, "init_s": t_init,
         "n_decoded": res.n_decoded, "decode_steps": steps,
         "prefill_ms": res.prefill_seconds * 1e3,
         "prefill_tokens": args.slots * args.prompt_len,
@@ -1567,21 +1640,29 @@ def lm_serve_phase(torch, np, counters):
         "peak_memory_gb": peak / 1e9, "final_lengths": lens,
         "flash_decode_launches": counts["decode_attention"],
     }
-    log("lm serve phase: " + json.dumps(rec))
+    log(f"{path} serve phase: " + json.dumps(rec))
     return cfg, params, counts, state["snap"]
 
 
-def lm_decode_parity(torch, cfg, params, snap):
+def lm_decode_parity(torch, cfg, params, snap, keep_layers):
     """One decode step from the live cache ``snap`` (ragged lengths, four
     rows past the cache's end), with the kernel and with the plain version
     bound into ``models.attention`` for that call only. The caches are
-    equal bit for bit except in the rows this step writes in layers 1 and
-    up: those hold k, v projected from a hidden state that already carries
-    the layers below's attention output, which the two versions round
-    differently in bf16; they, and the logits, must agree within 5e-2 x
-    their largest magnitude. Then the greedy tokens' agreement over 8
-    teacher-forced steps (reported). Returns the kernel's inputs at layers
-    ``LM_LAYERS`` of the first step."""
+    equal bit for bit except where the two steps' attention outputs reach:
+    the K/V rows this step writes in layers (shared-block calls) 1 and up,
+    which hold k, v projected from a hidden state that already carries the
+    attention below, rounded differently in bf16, and the mamba states
+    after the first attention (hybrid: groups 1 and up and the tail). Those
+    and the logits must agree within 5e-2 x their largest magnitude. An MoE
+    model's plain step takes the kernel step's expert selection (``Router``
+    "replay"): a token whose k-th and (k+1)-th router probabilities nearly
+    tie may pick another expert when the attention below it rounds
+    differently, and that moves it by far more than the rounding; the
+    selections of an unforced plain step are counted against the kernel's
+    (reported, with the largest gap at which one flipped). Then the greedy
+    tokens' agreement over 8 teacher-forced steps (reported). Returns the
+    kernel's inputs at the attention calls ``keep_layers`` of the first
+    step."""
     import functools
 
     from repro_torch.kernels import ops
@@ -1595,7 +1676,7 @@ def lm_decode_parity(torch, cfg, params, snap):
     seen = {"layer": 0, "inputs": {}}
 
     def record(q, k, v, lens, **kw):
-        if seen["layer"] in LM_LAYERS:
+        if seen["layer"] in keep_layers:
             seen["inputs"][seen["layer"]] = (q.clone(), k.clone(), v.clone(),
                                              lens.clone(), kw)
         seen["layer"] += 1
@@ -1608,9 +1689,22 @@ def lm_decode_parity(torch, cfg, params, snap):
         finally:
             lm_attn.decode_attention = kernel
 
+    moe = cfg.moe is not None
+    null = contextlib.nullcontext
+    routes = Router("record")
     ca, cb = _clone(cache0), _clone(cache0)
-    la, ca = step(ca, tok, record)
-    lb, cb = step(cb, tok, plain)
+    with routes if moe else null():
+        la, ca = step(ca, tok, record)
+    routes.mode = "replay"
+    with routes if moe else null():
+        lb, cb = step(cb, tok, plain)
+    if moe:
+        routes.mode = "compare"
+        with routes:
+            step(_clone(cache0), tok, plain)
+        log(f"{cfg.name}: an unforced plain step routes {routes.flips} of "
+            f"{tok.shape[0] * cfg.n_layers} token-layers otherwise than the "
+            f"kernel step, at router gaps up to {routes.flip_gap:.3g}")
     torch.cuda.synchronize()
     s_len = cache0["k"].shape[2]
     lens = cache0["len"].long()
@@ -1620,26 +1714,41 @@ def lm_decode_parity(torch, cfg, params, snap):
                       device=lens.device)
     kept[rows, at] = False
     expect(torch.equal(ca["len"], cb["len"]), "lengths differ")
-    row_err = row_max = 0.0
-    for key in ("k", "v"):
-        expect(torch.equal(ca[key][:, kept], cb[key][:, kept])
-               and torch.equal(ca[key][0], cb[key][0]),
-               f"cache {key}: the kernel's and the plain step's differ "
-               "outside the rows written in layers 1 and up")
-        new_a, new_b = ca[key][1:, rows, at].float(), cb[key][1:, rows,
-                                                               at].float()
-        row_err = max(row_err, float((new_a - new_b).abs().max()))
-        row_max = max(row_max, float(new_b.abs().max()))
-    expect(row_err <= LM_LOGIT_TOL * row_max,
-           f"new cache rows differ by {row_err}")
+    diffs = {}
+    for key in cache0:
+        if key == "len":
+            continue
+        if key in ("k", "v"):
+            expect(torch.equal(ca[key][:, kept], cb[key][:, kept])
+                   and torch.equal(ca[key][0], cb[key][0]),
+                   f"cache {key}: the kernel's and the plain step's differ "
+                   "outside the rows written after the first attention")
+            new_a = ca[key][1:, rows, at].float()
+            new_b = cb[key][1:, rows, at].float()
+        else:  # mamba states: (groups, ...) or the tail's, all after
+            if key in ("conv", "ssd"):
+                expect(torch.equal(ca[key][0], cb[key][0]),
+                       f"cache {key}: the first group's state differs")
+                new_a, new_b = ca[key][1:].float(), cb[key][1:].float()
+            else:
+                new_a, new_b = ca[key].float(), cb[key].float()
+        err = float((new_a - new_b).abs().max())
+        big = float(new_b.abs().max())
+        diffs[key] = (err, big)
+        expect(err <= LM_LOGIT_TOL * big,
+               f"cache {key}: the kernel's and the plain step's differ by "
+               f"{err} against max {big}")
     err = float((la - lb).abs().max())
     scale = float(lb.abs().max())
-    log(f"lm decode parity (full width, lengths {cache0['len'].tolist()}): "
-        f"caches equal bit for bit but for the {len(rows)} rows written in "
-        f"layers 1-{cfg.n_layers - 1} (max abs diff {row_err:.4g} against "
-        f"max {row_max:.4g}); logits max abs err {err:.4g} against "
-        f"max|logit| {scale:.4g} (limit {LM_LOGIT_TOL} x)")
+    where = ", ".join(f"{k} {e:.4g} of {m:.4g}" for k, (e, m) in
+                      diffs.items())
+    log(f"{cfg.name} decode parity (full width, lengths "
+        f"{cache0['len'].tolist()}): caches equal bit for bit but where the "
+        f"first attention output reaches, there max abs diff {where}; "
+        f"logits max abs err {err:.4g} against max|logit| {scale:.4g} "
+        f"(limit {LM_LOGIT_TOL} x)")
     expect(err <= LM_LOGIT_TOL * scale, f"logits differ by {err}")
+    del ca, cb
     ca, cb = _clone(cache0), _clone(cache0)
     agree = 0
     for _ in range(8):
@@ -1649,38 +1758,105 @@ def lm_decode_parity(torch, cfg, params, snap):
         agree += int((ta == tb).sum())
         tok = ta[:, None].to(torch.int32)
     share = agree / (8 * tok.shape[0])
-    log(f"lm greedy agreement kernel vs plain over 8 teacher-forced steps: "
-        f"{share:.4f}")
+    log(f"{cfg.name} greedy agreement kernel vs plain over 8 teacher-forced "
+        f"steps: {share:.4f}")
     return seen["inputs"]
 
 
-def lm_reference_phase(torch, np):
-    """Reduced qwen3-4b (fp32, n_heads=8, n_kv_heads=2) served on the card
-    and on the CPU with the same weights and schedule: token streams equal,
-    logits within 1e-4."""
+class Router:
+    """While bound (``with``), wraps ``models.moe._top_k_gates`` (every MoE
+    layer's expert selection) in one of four modes: "margin" keeps the
+    smallest gap between the k-th and (k+1)-th largest router probability
+    of any token; "record" keeps each call's selection; "replay" routes each
+    call as the recorded one did (the gates renormalised over the recorded
+    experts); "compare" counts the tokens whose selection differs from the
+    recorded one, with the largest such gap among them. A routing flip at
+    a near-tie can then be told from a fault."""
+
+    def __init__(self, mode="margin"):
+        from repro_torch.models import moe
+
+        self.moe, self.mode = moe, mode
+        self.smallest, self.calls, self.i = math.inf, [], 0
+        self.flips, self.flip_gap = 0, 0.0
+
+    def __enter__(self):
+        self.orig, self.i = self.moe._top_k_gates, 0
+        self.moe._top_k_gates = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k_gates = self.orig
+
+    def __call__(self, probs, k):
+        gates = self.orig(probs, k)
+        top = probs.topk(k + 1, dim=-1).values
+        gap = top[..., k - 1] - top[..., k]
+        if self.mode == "margin":
+            self.smallest = min(self.smallest, float(gap.min()))
+        elif self.mode == "record":
+            self.calls.append(gates > 0)
+        else:
+            sel = self.calls[self.i]
+            self.i += 1
+            if self.mode == "replay":
+                gates = _gates_over(sel, probs)
+            else:
+                flipped = ((gates > 0) != sel).any(-1)
+                self.flips += int(flipped.sum())
+                if bool(flipped.any()):
+                    self.flip_gap = max(self.flip_gap,
+                                        float(gap[flipped].max()))
+        return gates
+
+
+def _gates_over(sel, probs):
+    """Gates over the experts ``sel`` picks, normalised as the model's."""
+    gates = probs * sel
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+LM_REFERENCES = {  # path -> (arch, reduced() overrides)
+    "lm": ("qwen3-4b", dict(n_heads=8, n_kv_heads=2)),  # G = 4
+    "moe": ("moonshot-v1-16b-a3b", {}),
+    "ssm": ("mamba2-2.7b", {}),
+    "hybrid": ("zamba2-7b", {}),
+}
+
+
+def lm_reference_phase(torch, np, path):
+    """The path's model at the reduced preset (fp32) served on the card and
+    on the CPU with the same weights and schedule (2 slots, 5 requests of
+    8 tokens, 4 new each): token streams equal, logits within 1e-4; for
+    the MoE, the smallest router margin of the CPU run (reported)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as lm
     from repro_torch.models.transformer import init_model
 
-    cfg = get_config("qwen3-4b").reduced(n_heads=8, n_kv_heads=2)
+    arch, over = LM_REFERENCES[path]
+    cfg = get_config(arch).reduced(**over)
     params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     requests = lm.make_requests(cfg.vocab_size, 5, 8, 0)
     out = {}
+    margins = Router("margin")
     for dev in ("cuda", "cpu"):
         logs = []
-        res = lm.serve(cfg, _tree_to(params, dev), requests, slots=2,
-                       max_new=4, device=dev,
-                       on_step=lambda s, c, lg: logs.append(lg.cpu()))
+        with margins if dev == "cpu" else contextlib.nullcontext():
+            res = lm.serve(cfg, _tree_to(params, dev), requests, slots=2,
+                           max_new=4, device=dev,
+                           on_step=lambda s, c, lg: logs.append(lg.cpu()))
         out[dev] = (res, torch.stack(logs))
     (rg, lg), (rc, lc) = out["cuda"], out["cpu"]
     err = float((lg - lc).abs().max())
     expect(rg.n_decoded == rc.n_decoded == 24, "n_decoded differs")
     expect(np.array_equal(rg.step_tokens, rc.step_tokens)
-           and rg.streams == rc.streams, "token streams differ")
-    expect(err <= 1e-4, f"logits differ from the CPU's by {err}")
-    log(f"lm reference: reduced qwen3-4b (G=4) served on cuda == cpu: "
-        f"{rg.step_tokens.shape[0]} steps, token streams equal, logits max "
-        f"abs diff {err:.2e}")
+           and rg.streams == rc.streams, f"{arch}: token streams differ")
+    expect(err <= 1e-4, f"{arch}: logits differ from the CPU's by {err}")
+    margin = (f"; smallest router margin (k-th - (k+1)-th prob) "
+              f"{margins.smallest:.3g}" if cfg.moe is not None else "")
+    log(f"lm reference: reduced {arch} ({cfg.family}) served on cuda == "
+        f"cpu: {rg.step_tokens.shape[0]} steps, token streams equal, logits "
+        f"max abs diff {err:.2e}{margin}")
 
 
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
@@ -2127,24 +2303,32 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
     return rec
 
 
-def decode_shapes(torch, F, ops, ref, live, dev="cuda"):
-    """flash_decode at the live serving inputs (layers ``LM_LAYERS`` of one
-    step: parity at the first and last, timing rotated through all) and at
-    three made-up shapes: gemma2-2b's (softcap 50, window 4096), a large
-    ragged bf16 one and the same with an int8 cache, each timed rotating
-    through two caches (the second the first rolled by one batch row)."""
-    from repro_torch.models.attention import quantize_kv_rows
-
+def live_decode(torch, F, ops, ref, live, label):
+    """flash_decode at an LM path's live inputs (``live``: the kernel's
+    inputs at some attention calls of one decode step): parity at the
+    first and last, timing rotated through all."""
     recs = []
     layers = sorted(live)
     for lay in (layers[0], layers[-1]):
         kw = live[lay][4]
-        expect(kw["softcap"] == 0.0 and not kw["window"]
-               and kw["k_scale"] is None, f"layer {lay}: {kw}")
+        expect(kw["k_scale"] is None, f"{label} layer {lay}: {kw}")
         recs.append(check_decode(
             torch, F, ops, ref, [live[lay][:4]] + [live[x][:4] for x in layers
                                                   if x != lay],
-            f"serve layer {lay}"))
+            f"{label} layer {lay}", softcap=kw["softcap"],
+            window=kw["window"]))
+    return recs
+
+
+def decode_shapes(torch, F, ops, ref, dev="cuda"):
+    """flash_decode at made-up shapes (``DECODE_SHAPES``): gemma2-2b's
+    (softcap 50, window 4096), a large ragged bf16 one, the same with an
+    int8 cache, and a large one at zamba2's heads (Dh = 112), each timed
+    rotating through two caches (the second the first rolled by one batch
+    row)."""
+    from repro_torch.models.attention import quantize_kv_rows
+
+    recs = []
     gen = torch.Generator(device=dev).manual_seed(13)
     for label, b, h, hkv, dh, s, softcap, window, int8 in DECODE_SHAPES:
         if not int8:
@@ -2168,7 +2352,7 @@ def decode_shapes(torch, F, ops, ref, live, dev="cuda"):
         recs.append(check_decode(torch, F, ops, ref, sets, label,
                                  softcap=softcap, window=window, iters=10))
         del sets
-    return recs[0], recs[1:]
+    return recs
 
 
 # -------------------------------------------------------------- main ----
@@ -2243,14 +2427,24 @@ def main() -> int:
         serve_rec[name] = train[name]
         large_rec[name] = [large[name], many[name], retrain[name]]
     step_profile(torch, split)
-    cfg, params, lm_counts, snap = lm_serve_phase(torch, np, counters)
-    live = lm_decode_parity(torch, cfg, params, snap)
-    lm_profile(torch, cfg, params, snap)
-    del params, snap
-    lm_reference_phase(torch, np)
-    serve_rec["decode_attention"], large_rec["decode_attention"] = \
-        decode_shapes(torch, F, ops, ref, live)
+    lm_counts, live = {}, {}
+    for path in LM_PATHS:  # each path's params and caches freed after it
+        cfg, params, lm_counts[path], snap = lm_serve_phase(
+            torch, np, counters, path)
+        if LM_PATHS[path][2]:  # a path with attention
+            live[path] = lm_decode_parity(torch, cfg, params, snap,
+                                          LM_PATHS[path][3])
+        lm_profile(torch, cfg, params, snap)
+        del params, snap
+        torch.cuda.empty_cache()
+        lm_reference_phase(torch, np, path)
+    decode_live = {path: live_decode(torch, F, ops, ref, live[path], path)
+                   for path in live}
     del live
+    serve_rec["decode_attention"] = decode_live["lm"][0]
+    large_rec["decode_attention"] = decode_live["lm"][1:] + [
+        r for path in ("moe", "hybrid") for r in decode_live[path]] + \
+        decode_shapes(torch, F, ops, ref)
     train_counts = train_phase(torch, np, counters)
     train_reference_phase(torch, np)
     train_reduced_phase(torch, np)
@@ -2259,11 +2453,12 @@ def main() -> int:
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, offline_counts,
-             lm_counts, train_counts)
+             *lm_counts.values(), train_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
-                   "offline": offline_counts[name], "lm": lm_counts[name],
+                   "offline": offline_counts[name],
+                   **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {

@@ -61,6 +61,16 @@
 //   shuffle rounds per query row, not 5; the warp's online softmax over its
 //   8 positions takes 3 rounds per row per tile; then each lane accumulates
 //   P.V for Dh / 32 columns over the warp's 8 rows.
+// * Head dims. Any Dh that is a multiple of 8 from 32 to 256 runs on the
+//   instantiation of the next width built (32, 64, 128, 256: 112 runs on
+//   128), with the real Dh passed in (PAD): it sets the strides of q, the
+//   cache and out, and the scale 1/sqrt(Dh). A row's columns at Dh and
+//   above are zero-filled in shared memory as the tile lands (no copy reads
+//   them; a multiple of 8 keeps every copy chunk wholly in or out), q's are
+//   zero in the fragments, so they add nothing to the dot products; their
+//   outputs are never stored. A built width runs without PAD: Dh is the
+//   constant, the guards fold away, and the code is the one before padding
+//   existed.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -232,18 +242,20 @@ struct Cfg {
 };
 
 // TQ: type of q and out; TKV: type of the cache; QUANT: int8 cache with
-// fp32 scales. Grid: (nsplit * B * Hkv, ceil(G / kGT)); with nsplit > 1 the
-// nsplit blocks of one (b, c) are one cluster.
-template <typename TQ, typename TKV, int DH, bool QUANT>
+// fp32 scales; DH: the built width; PAD: the real head dim is dh_arg (< DH,
+// a multiple of 8), else DH. Grid: (nsplit * B * Hkv, ceil(G / kGT)); with
+// nsplit > 1 the nsplit blocks of one (b, c) are one cluster.
+template <typename TQ, typename TKV, int DH, bool QUANT, bool PAD>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
                        const TKV* __restrict__ v, const float* __restrict__ ks,
                        const float* __restrict__ vs,
                        const int* __restrict__ lens,
                        const int* __restrict__ los, TQ* __restrict__ out,
-                       int S, int H, int Hkv, int nsplit, float scale,
-                       float softcap) {
+                       int S, int H, int Hkv, int dh_arg, int nsplit,
+                       float scale, float softcap) {
   using C = Cfg<TQ, TKV, DH, QUANT>;
+  const int dh = PAD ? dh_arg : DH;
   constexpr int DPL = C::kDPL;
   constexpr int kGT = C::kGT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -282,22 +294,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < DH / 16; ++j) qa[j][0] = qa[j][1] = 0u;
     if (gq < gn) {
       const unsigned* qw =
-          reinterpret_cast<const unsigned*>(q + (head0 + gq) * DH);
+          reinterpret_cast<const unsigned*>(q + (head0 + gq) * dh);
 #pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        qa[j][0] = qw[8 * j + tq];
-        qa[j][1] = qw[8 * j + 4 + tq];
+      for (int j = 0; j < DH / 16; ++j) {  // columns 16j + 2tq, 16j + 8 + 2tq
+        if (16 * j + 8 <= dh) qa[j][0] = qw[8 * j + tq];
+        if (16 * j + 16 <= dh) qa[j][1] = qw[8 * j + 4 + tq];
       }
     }
   } else {
     for (int i = threadIdx.x; i < kGT * DH; i += kThreads) {
       const int g = i / DH;
-      sq[i] = g < gn ? to_f32(q[(head0 + g) * DH + i % DH]) : 0.f;
+      const int col = i % DH;
+      sq[i] = g < gn && col < dh ? to_f32(q[(head0 + g) * dh + col]) : 0.f;
     }
   }
 
-  const int64_t step = (int64_t)Hkv * DH;  // elements between positions
-  const int64_t base = ((int64_t)b * S * Hkv + c) * DH;
+  const int64_t step = (int64_t)Hkv * dh;  // elements between positions
+  const int64_t base = ((int64_t)b * S * Hkv + c) * dh;
   const int64_t sbase = (int64_t)b * S * Hkv + c;
 
   auto load_tile = [&](int t, int st) {
@@ -307,9 +320,13 @@ __global__ void __launch_bounds__(kThreads)
       const int which = i / (kTile * C::kNC);  // 0: K, 1: V
       const int r = (i / C::kNC) % kTile;
       const int ch = i % C::kNC;
-      const bool ok = s0 + r < s_hi;
+      // a position past the run, or a chunk past the real head dim: zeros
+      // (at a built width the chunk test folds to true)
+      const bool in_row = ch * C::kCH < dh;
+      const bool ok = s0 + r < s_hi && in_row;
       const TKV* src = (which ? v : k) + base +
-                       (int64_t)(ok ? s0 + r : s_lo) * step + ch * C::kCH;
+                       (int64_t)(ok ? s0 + r : s_lo) * step +
+                       (in_row ? ch * C::kCH : 0);
       cp_async<C::kCB>(dst + (which * kTile + r) * C::kRS + ch * C::kCB, src,
                        ok);
     }
@@ -555,6 +572,10 @@ __global__ void __launch_bounds__(kThreads)
   float* wm = wacc + kWarps * kGT * DH;          // [kWarps][kGT]
   float* wl = wm + kWarps * kGT;
   float* pacc = wl + kWarps * kGT;  // the block's partial [kGT][DH]
+  // element e of the block's [kGT][DH] outputs in out (e % DH < dh)
+  auto out_at = [&](int e) -> int64_t {
+    return PAD ? (head0 + e / DH) * dh + e % DH : head0 * DH + e;
+  };
   float* pm = pacc + kGT * DH;      // [kGT]
   float* pl = pm + kGT;
   if constexpr (C::kMma) {
@@ -599,7 +620,7 @@ __global__ void __launch_bounds__(kThreads)
       a = fmaf(wacc[(w * kGT + g) * DH + e % DH], f, a);
     }
     if (nsplit == 1) {
-      put(out + head0 * DH + e, a / fmaxf(tot, 1e-30f));
+      if (e % DH < dh) put(out + out_at(e), a / fmaxf(tot, 1e-30f));
     } else {
       pacc[e] = a;
       if (e % DH == 0) {
@@ -631,7 +652,7 @@ __global__ void __launch_bounds__(kThreads)
       tot = fmaf(cluster.map_shared_rank(pl, j)[g], f, tot);
       a = fmaf(cluster.map_shared_rank(pacc, j)[e], f, a);
     }
-    put(out + head0 * DH + e, a / fmaxf(tot, 1e-30f));
+    if (e % DH < dh) put(out + out_at(e), a / fmaxf(tot, 1e-30f));
   }
   cluster.sync();  // no block leaves while another still reads its memory
 }
@@ -645,18 +666,18 @@ struct Args {
   const int* lens;
   const int* los;
   void* out;
-  int B, S, H, Hkv;
+  int B, S, H, Hkv, dh;
   float scale, softcap;
 };
 
 // Resident blocks of one instantiation on `device` (occupancy x SMs), with
 // its dynamic shared memory allowed; computed once per device.
-template <typename TQ, typename TKV, int DH, bool QUANT>
+template <typename TQ, typename TKV, int DH, bool QUANT, bool PAD>
 cudaError_t resident_blocks(int device, int* out) {
   static int cache[kMaxDevices];  // 0: not yet known
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cache[device] == 0) {
-    auto kern = flash_decode_split<TQ, TKV, DH, QUANT>;
+    auto kern = flash_decode_split<TQ, TKV, DH, QUANT, PAD>;
     constexpr int smem = Cfg<TQ, TKV, DH, QUANT>::kSmem;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -688,10 +709,11 @@ int splits_for(int resident, int gt, int B, int S, int H, int Hkv) {
   return want < 1 ? 1 : static_cast<int>(want);
 }
 
-template <typename TQ, typename TKV, int DH, bool QUANT>
+template <typename TQ, typename TKV, int DH, bool QUANT, bool PAD>
 int launch_dh(const Args& a, int device, cudaStream_t s, int* nsplit_out) {
   int resident = 0;
-  cudaError_t err = resident_blocks<TQ, TKV, DH, QUANT>(device, &resident);
+  cudaError_t err =
+      resident_blocks<TQ, TKV, DH, QUANT, PAD>(device, &resident);
   if (err != cudaSuccess) return (int)err;
   using C = Cfg<TQ, TKV, DH, QUANT>;
   const int nsplit = splits_for(resident, C::kGT, a.B, a.S, a.H, a.Hkv);
@@ -703,14 +725,14 @@ int launch_dh(const Args& a, int device, cudaStream_t s, int* nsplit_out) {
   const dim3 grid((unsigned)(nsplit * a.B * a.Hkv),
                   (unsigned)((G + C::kGT - 1) / C::kGT));
   constexpr int smem = C::kSmem;
-  auto kern = flash_decode_split<TQ, TKV, DH, QUANT>;
+  auto kern = flash_decode_split<TQ, TKV, DH, QUANT, PAD>;
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* k = static_cast<const TKV*>(a.k);
   const TKV* v = static_cast<const TKV*>(a.v);
   TQ* out = static_cast<TQ*>(a.out);
   if (nsplit == 1) {
     kern<<<grid, kThreads, smem, s>>>(q, k, v, a.ks, a.vs, a.lens, a.los, out,
-                                      a.S, a.H, a.Hkv, 1, a.scale,
+                                      a.S, a.H, a.Hkv, a.dh, 1, a.scale,
                                       a.softcap);
     return (int)cudaGetLastError();
   }
@@ -727,37 +749,43 @@ int launch_dh(const Args& a, int device, cudaStream_t s, int* nsplit_out) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, q, k, v, a.ks, a.vs, a.lens, a.los,
-                           out, a.S, a.H, a.Hkv, nsplit, a.scale, a.softcap);
+                           out, a.S, a.H, a.Hkv, a.dh, nsplit, a.scale,
+                           a.softcap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// Head dim dh runs on the next built width (32, 64, 128, 256), padded
+// unless it is that width.
 template <typename TQ, typename TKV, bool QUANT>
-int launch_typed(const Args& a, int dh, int device, cudaStream_t s,
-                 int* nsplit_out) {
-  switch (dh) {
-    case 32: return launch_dh<TQ, TKV, 32, QUANT>(a, device, s, nsplit_out);
-    case 64: return launch_dh<TQ, TKV, 64, QUANT>(a, device, s, nsplit_out);
-    case 128: return launch_dh<TQ, TKV, 128, QUANT>(a, device, s, nsplit_out);
-    case 256: return launch_dh<TQ, TKV, 256, QUANT>(a, device, s, nsplit_out);
-    default: return (int)cudaErrorInvalidValue;
+int launch_typed(const Args& a, int device, cudaStream_t s, int* n) {
+  const int dh = a.dh;
+  if (dh % 8 || dh < 32 || dh > 256) return (int)cudaErrorInvalidValue;
+  if (dh == 32) return launch_dh<TQ, TKV, 32, QUANT, false>(a, device, s, n);
+  if (dh < 64) return launch_dh<TQ, TKV, 64, QUANT, true>(a, device, s, n);
+  if (dh == 64) return launch_dh<TQ, TKV, 64, QUANT, false>(a, device, s, n);
+  if (dh < 128) return launch_dh<TQ, TKV, 128, QUANT, true>(a, device, s, n);
+  if (dh == 128) {
+    return launch_dh<TQ, TKV, 128, QUANT, false>(a, device, s, n);
   }
+  if (dh < 256) return launch_dh<TQ, TKV, 256, QUANT, true>(a, device, s, n);
+  return launch_dh<TQ, TKV, 256, QUANT, false>(a, device, s, n);
 }
 
-int dispatch(const Args& a, int Dh, int q_dtype, int kv_dtype, int device,
+int dispatch(const Args& a, int q_dtype, int kv_dtype, int device,
              cudaStream_t s, int* nsplit_out) {
   const bool quant = kv_dtype == 2;
   if (q_dtype == 0) {
-    return quant ? launch_typed<float, int8_t, true>(a, Dh, device, s,
+    return quant ? launch_typed<float, int8_t, true>(a, device, s,
                                                      nsplit_out)
-                 : launch_typed<float, float, false>(a, Dh, device, s,
+                 : launch_typed<float, float, false>(a, device, s,
                                                      nsplit_out);
   }
   if (q_dtype == 1) {
-    return quant ? launch_typed<__nv_bfloat16, int8_t, true>(a, Dh, device, s,
+    return quant ? launch_typed<__nv_bfloat16, int8_t, true>(a, device, s,
                                                              nsplit_out)
                  : launch_typed<__nv_bfloat16, __nv_bfloat16, false>(
-                       a, Dh, device, s, nsplit_out);
+                       a, device, s, nsplit_out);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -774,6 +802,7 @@ int check_args(int B, int S, int H, int Hkv, int q_dtype, int kv_dtype) {
 
 // q: (B, H, Dh); k, v: (B, S, Hkv, Dh); k_scale, v_scale: (B, S, Hkv) fp32
 // (int8 cache only, else null); lens, win_lo: (B,) int32; out: (B, H, Dh).
+// Dh: a multiple of 8 from 32 to 256.
 // q_dtype: 0 = float32, 1 = bfloat16 (q and out); kv_dtype: 0 / 1 the same
 // as q_dtype, or 2 = int8. Returns the cudaError_t of the launch.
 extern "C" int flash_decode_launch(const void* q, const void* k,
@@ -794,10 +823,10 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   const Args a{q, k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(lens), static_cast<const int*>(win_lo),
-               out, B, S, H, Hkv,
+               out, B, S, H, Hkv, Dh,
                static_cast<float>(1.0 / sqrt(static_cast<double>(Dh))),
                softcap};
-  return dispatch(a, Dh, q_dtype, kv_dtype, device,
+  return dispatch(a, q_dtype, kv_dtype, device,
                   static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -815,8 +844,8 @@ extern "C" int flash_decode_splits(int B, int S, int H, int Hkv, int Dh,
     return 0;
   }
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, B, S, H, Hkv, 1.f, 0.f};
-  return dispatch(a, Dh, q_dtype, kv_dtype, device, nullptr, nsplit);
+               nullptr, nullptr, B, S, H, Hkv, Dh, 1.f, 0.f};
+  return dispatch(a, q_dtype, kv_dtype, device, nullptr, nsplit);
 }
 
 extern "C" const char* kernel_error_string(int code) {

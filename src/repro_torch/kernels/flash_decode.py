@@ -4,7 +4,8 @@ The Hopper counterpart of the Pallas kernel in ``repro.kernels.flash_decode``
 (the LM serving hot spot): single-token attention of (B, H, Dh) queries over
 a padded (B, S, Hkv, Dh) KV cache, GQA (H = G * Hkv), an optional logit
 softcap, a per-row window lower bound passed as data, ragged per-row lengths
-(clamped to S), and an optional int8 cache with (B, S, Hkv) fp32 scales.
+(clamped to S), an optional int8 cache with (B, S, Hkv) fp32 scales, and
+any head dim Dh that is a multiple of 8 from 32 to 256 (``HEAD_DIMS``).
 fp32 accumulation, output in q's dtype. The cache is read in its own layout,
 with no copy: it must be contiguous, as a per-layer slice of a contiguous
 (L, B, S, Hkv, Dh) cache is. One launch splits each row's visible range
@@ -26,7 +27,10 @@ __all__ = ["decode_attention_cuda", "splits", "launches", "HEAD_DIMS"]
 
 launches = 0  # kernel launches since the last reset (a plain count)
 
-HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
+# The head dims the kernel takes: every multiple of 8 from 32 to 256. Each
+# runs on the next of the widths it is built for (32, 64, 128, 256: 112 on
+# 128), its columns above Dh zero in shared memory and never stored
+HEAD_DIMS = tuple(range(32, 257, 8))
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2
 
@@ -72,7 +76,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           v_scale=None) -> torch.Tensor:
     """q: (B, H, Dh) float32/bfloat16; k, v: (B, S, Hkv, Dh) in q's dtype,
     or int8 with k_scale, v_scale (B, S, Hkv) float32; cache_len, win_lo:
-    (B,) int32. All contiguous on one CUDA device; Dh in ``HEAD_DIMS``.
+    (B,) int32. All contiguous on one CUDA device; Dh in ``HEAD_DIMS`` (a
+    multiple of 8 from 32 to 256).
     Row b attends to positions ``win_lo[b] <= s < min(cache_len[b], S)``
     and must have at least one (a row with none gives 0). -> (B, H, Dh) in
     q's dtype."""
@@ -91,7 +96,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv == 0 or h % hkv:
         raise ValueError(f"H = {h} is not a multiple of Hkv = {hkv}")
     if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {dh} is not a multiple of 8 from 32 "
+                         "to 256")
     if cache_len.shape != (b,) or win_lo.shape != (b,):
         raise ValueError("cache_len and win_lo must be (B,)")
     quant = k.dtype == torch.int8

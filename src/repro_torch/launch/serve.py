@@ -2,6 +2,10 @@
 
 ``python -m repro_torch.launch.serve --arch qwen3-4b --preset reduced --device cpu``
 
+Any decoder-only text arch of the registry: dense, MoE (moonshot-v1-16b-a3b,
+grok-1-314b), SSM (mamba2-2.7b) and hybrid (zamba2-7b); encoder-decoder and
+vision archs are refused, as the JAX launcher refuses them.
+
 The torch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device`` (default ``cuda``; raises without CUDA). Slots are a fixed-size
 batch: one prefill fills them, then every decode step advances all slots by
@@ -43,10 +47,17 @@ __all__ = ["cache_batch_axes", "make_requests", "ServeResult", "serve",
 
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
-    """Which axis of each cache tensor is the batch axis."""
-    axes = {"len": 0, "k": 1, "v": 1}
-    if cfg.kv_quant:
-        axes.update(k_scale=1, v_scale=1)
+    """Which axis of each cache tensor is the batch axis (the JAX
+    launcher's table)."""
+    axes = {"len": 0}
+    if cfg.family in ("dense", "moe"):
+        axes.update(k=1, v=1)
+        if cfg.kv_quant:
+            axes.update(k_scale=1, v_scale=1)
+    if cfg.family == "ssm":
+        axes.update(conv=1, ssd=1)
+    if cfg.family == "hybrid":
+        axes.update(conv=2, ssd=2, k=1, v=1, tail_conv=1, tail_ssd=1)
     return axes
 
 
@@ -186,9 +197,6 @@ def setup(argv=None):
         cfg = cfg.reduced()
     if cfg.family == "encdec" or cfg.frontend == "vision":
         raise SystemExit("serve demo targets decoder-only text archs")
-    if cfg.family != "dense":
-        raise SystemExit(f"{cfg.name}: the {cfg.family} family is not "
-                         "ported yet (ROADMAP.md)")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model(cfg, gen, dev)

@@ -1,7 +1,8 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
-The torch counterpart of ``repro.launch.train``, on one device: the dense
-LM (``--arch``, ``--preset reduced|full``) from ``init_model`` with a
+The torch counterpart of ``repro.launch.train``, on one device: an LM of
+a ported family (``--arch``, ``--preset reduced|full``; the MoE family adds
+its aux losses, ``models.steps.loss_fn``) from ``init_model`` with a
 seeded generator, the optimizer of its config under a warmup-cosine
 schedule, the deterministic synthetic data pipeline with a prefetch thread,
 optional microbatch accumulation and int8 gradient compression with error

@@ -5,13 +5,15 @@ JAX package's mixed-precision contract: params may be bf16, all norm and
 rope math runs in fp32 and is cast back to the input's dtype. Weights keep
 JAX's ``(in, out)`` layout, so a JAX parameter tree carries across as a
 copy. Every ``init_*`` draws in fp32 from ``gen`` on ``device`` and casts
-to the config's ``param_dtype``; ``lead`` prefixes a stacking shape (the
-layer axis), as the JAX package's ``vmap`` over layer keys does.
+to the config's ``param_dtype`` (``normal``: a leaf above ``DRAW_BYTES`` in
+fp32 slice by slice); ``lead`` prefixes a stacking shape (the layer axis),
+as the JAX package's ``vmap`` over layer keys does.
 ``apply_mrope`` (qwen2-vl) waits for that family (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -19,14 +21,30 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 
-__all__ = ["init_norm", "apply_norm", "rope_frequencies", "apply_rope",
-           "init_mlp", "apply_mlp", "init_embedding", "normal"]
+__all__ = ["init_norm", "apply_norm", "rms_norm_groups", "rope_frequencies",
+           "apply_rope", "init_mlp", "apply_mlp", "init_embedding", "normal",
+           "DRAW_BYTES"]
+
+# The largest fp32 draw ``normal`` makes at once. Every leaf of qwen3-4b and
+# gemma2-2b at full width is below it (the largest, qwen3-4b's stacked MLP
+# weight, takes 3.58 GB), so they keep the bits of one draw; a stacked expert
+# weight of moonshot-v1-16b-a3b (48 x 64 x 2048 x 1408) would take 35.4 GB.
+DRAW_BYTES = 4 << 30
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype, device):
-    """``N(0, 1) * scale`` drawn in fp32, then cast to ``dtype``."""
-    x = torch.randn(tuple(shape), generator=gen, device=device)
-    return x.mul_(float(scale)).to(dtype)
+    """``N(0, 1) * scale`` drawn in fp32, then cast to ``dtype``. A leaf
+    whose fp32 draw would exceed ``DRAW_BYTES`` is drawn and cast slice by
+    slice along its leading axes (the same generator in order), so no more
+    than that is ever held in fp32."""
+    shape = tuple(shape)
+    if len(shape) < 2 or 4 * math.prod(shape) <= DRAW_BYTES:
+        x = torch.randn(shape, generator=gen, device=device)
+        return x.mul_(float(scale)).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = normal(gen, shape[1:], scale, dtype, device)
+    return out
 
 
 # ------------------------------------------------------------------ norms --
@@ -50,6 +68,15 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
         rms = torch.sqrt(xf.square().mean(-1, keepdim=True) + eps)
         out = xf / rms * params["scale"]
     return out.to(x.dtype)
+
+
+def rms_norm_groups(x, scale, n_groups: int, eps: float = 1e-6):
+    """Grouped RMSNorm (mamba2's gated output norm): each of ``n_groups``
+    equal slices of the last axis normalised on its own, then scaled."""
+    xf = x.float()
+    xg = xf.unflatten(-1, (n_groups, xf.shape[-1] // n_groups))
+    rms = torch.sqrt(xg.square().mean(-1, keepdim=True) + eps)
+    return ((xg / rms).flatten(-2) * scale).to(x.dtype)
 
 
 # ------------------------------------------------------------------- rope --

@@ -22,19 +22,30 @@ from .transformer import (forward_decode, forward_full, forward_prefill,
                           lm_loss, logits_from_hidden)
 
 __all__ = ["loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step"]
+           "make_decode_step", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
+
+
+MOE_LB_WEIGHT = 0.01  # the JAX package's weights of the MoE aux losses
+MOE_Z_WEIGHT = 1e-3
 
 
 def loss_fn(params, batch: Dict, cfg: ModelConfig):
     """Scalar training loss for one (micro)batch of ``tokens``, ``targets``
     (B, S) and optional ``mask`` (B, S) fp32 -> (loss, metrics); positions
-    are 0..S-1. The dense family has no auxiliary losses."""
-    hidden, _ = forward_full(params, cfg, tokens=batch["tokens"])
+    are 0..S-1. The MoE family adds ``MOE_LB_WEIGHT`` x its load-balance
+    loss and ``MOE_Z_WEIGHT`` x its router z-loss, and reports both."""
+    hidden, aux = forward_full(params, cfg, tokens=batch["tokens"])
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, device=hidden.device)
     loss = lm_loss(params, hidden, batch["targets"], mask, cfg)
-    return loss, {"xent": loss, "loss": loss}
+    metrics = {"xent": loss}
+    if aux:
+        loss = (loss + MOE_LB_WEIGHT * aux["load_balance_loss"]
+                + MOE_Z_WEIGHT * aux["router_z_loss"])
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,

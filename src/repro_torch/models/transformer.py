@@ -1,10 +1,16 @@
-"""Model assembly for the dense decoder-only family, and its serving cache.
+"""Model assembly for the dense, MoE, SSM and hybrid decoder-only families,
+and their serving cache.
 
-The torch counterpart of ``repro.models.transformer`` for the dense family.
-Params have the JAX package's structure, so a JAX parameter tree carries
-across as a copy (``from_jax_params``):
+The torch counterpart of ``repro.models.transformer``. Params have the JAX
+package's structure, so a JAX parameter tree carries across as a copy
+(``from_jax_params``):
   embed        {"embedding": (V, d)[, "unembed": (d, V)]}
-  layers       block params stacked on a leading n_layers axis
+  layers       block params stacked on a leading n_layers axis (dense and
+               MoE transformer blocks, or mamba blocks); hybrid: mamba
+               blocks stacked on (groups, per)
+  tail         (hybrid) the trailing mamba blocks, stacked
+  shared       (hybrid) zamba2's shared attention block
+  loras        (hybrid) its per-invocation LoRA, stacked on groups
   final_norm   {"scale": (d,)}
 
 Forward modes: ``forward_full`` runs a whole sequence for training (each
@@ -12,12 +18,13 @@ layer under ``torch.utils.checkpoint`` as ``cfg.remat`` says), and
 ``lm_loss`` takes the cross-entropy in chunks of ``cfg.loss_chunk``
 positions, each chunk recomputed in backward, so the (B, S, V) fp32 logits
 never live at once; ``forward_prefill`` runs the whole prompt and builds the
-serving cache; ``forward_decode`` runs one token against it, **updating the
-cache in place** (the JAX launcher donates the cache to the same effect: at
+serving cache (KV for attention, conv + SSD state for mamba blocks);
+``forward_decode`` runs one token against it, **updating the cache in
+place** (the JAX launcher donates the cache to the same effect: at
 qwen3-4b's width the cache of 8 slots of 1088 positions is 1.28 GB). Layers
 run as a Python loop over per-layer views of the stacked params
 (``_unstack``), where the JAX package scans; their gradients land in the
-stacked tensors. The MoE, SSM, hybrid and encoder-decoder families raise
+stacked tensors. The encoder-decoder family and the vision frontend raise
 ``NotImplementedError`` until they are ported (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -34,20 +41,39 @@ from repro_torch.device import resolve_device
 
 from .attention import (apply_attention_decode, layer_window,
                         quantize_kv_rows)
-from .blocks import apply_transformer_block, init_transformer_block
+from .blocks import (apply_ffn, apply_mamba_block, apply_shared_block,
+                     apply_transformer_block, init_mamba_block,
+                     init_shared_block, init_shared_lora,
+                     init_transformer_block, lora_attention_params)
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_embedding, init_norm
+from .mamba2 import init_mamba_cache, mamba_decode
 
 __all__ = ["init_model", "from_jax_params", "from_jax_opt_state",
-           "embed_tokens", "logits_from_hidden", "forward_full", "lm_loss",
-           "init_cache", "forward_prefill", "forward_decode"]
+           "hybrid_layout", "embed_tokens", "logits_from_hidden",
+           "forward_full", "lm_loss", "init_cache", "forward_prefill",
+           "forward_decode", "FAMILIES"]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families ported so far
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES or cfg.frontend == "vision" \
+            or cfg.mrope_sections is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            "port runs the dense family so far (ROADMAP.md)")
+            f"{cfg.name}: the {cfg.family} family"
+            f"{' with a vision frontend' if cfg.frontend == 'vision' else ''}"
+            " is not "
+            f"ported yet; the port runs {', '.join(FAMILIES)} (ROADMAP.md)")
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(groups, mamba blocks per group, trailing mamba blocks) of a
+    zamba2-style hybrid: each group's blocks are followed by one call of the
+    shared attention block."""
+    per = cfg.shared_every
+    groups = cfg.n_layers // per
+    return groups, per, cfg.n_layers - groups * per
 
 
 def _unstack(tree, n: int):
@@ -63,17 +89,31 @@ def _unstack(tree, n: int):
 
 def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
     """Parameters drawn as the JAX package's ``init_model`` draws them
-    (normal / sqrt(fan-in), the embedding normal * 0.02, norms 1), in fp32
-    from ``gen`` (which lives on ``device``), cast to ``cfg.param_dtype``;
-    the same tree of shapes and dtypes, not the same numbers."""
-    _dense_only(cfg)
+    (normal / sqrt(fan-in), the embedding normal * 0.02, norms 1, mamba's
+    and the LoRA's own), in fp32 from ``gen`` (which lives on ``device``),
+    cast to ``cfg.param_dtype``; the same tree of shapes and dtypes, not
+    the same numbers."""
+    _ported(cfg)
     device = resolve_device(device)
-    return {
-        "embed": init_embedding(gen, cfg, device=device),
-        "layers": init_transformer_block(gen, cfg, device=device,
-                                         lead=(cfg.n_layers,)),
-        "final_norm": init_norm(cfg, cfg.d_model, device=device),
-    }
+    params = {"embed": init_embedding(gen, cfg, device=device)}
+    if cfg.family in ("dense", "moe"):
+        params["layers"] = init_transformer_block(gen, cfg, device=device,
+                                                  lead=(cfg.n_layers,))
+    elif cfg.family == "ssm":
+        params["layers"] = init_mamba_block(gen, cfg, device=device,
+                                            lead=(cfg.n_layers,))
+    else:
+        groups, per, trailing = hybrid_layout(cfg)
+        params["layers"] = init_mamba_block(gen, cfg, device=device,
+                                            lead=(groups, per))
+        if trailing:
+            params["tail"] = init_mamba_block(gen, cfg, device=device,
+                                              lead=(trailing,))
+        params["shared"] = init_shared_block(gen, cfg, device=device)
+        params["loras"] = init_shared_lora(gen, cfg, device=device,
+                                           lead=(groups,))
+    params["final_norm"] = init_norm(cfg, cfg.d_model, device=device)
+    return params
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -84,12 +124,24 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def _stack_shapes(cfg: ModelConfig):
+    """{top-level key: its leading stacking shape} of the family's tree."""
+    if cfg.family != "hybrid":
+        return {"layers": (cfg.n_layers,)}
+    groups, per, trailing = hybrid_layout(cfg)
+    out = {"layers": (groups, per), "loras": (groups,)}
+    if trailing:
+        out["tail"] = (trailing,)
+    return out
+
+
 def from_jax_params(params, cfg: ModelConfig, *, device="cuda"):
     """The JAX package's ``init_model`` tree (numpy leaves: ``embed``,
-    ``layers`` stacked on a leading L axis, ``final_norm``) as the port's
+    ``layers`` stacked on a leading L axis, or (groups, per) with ``tail``,
+    ``shared`` and ``loras`` for the hybrid, ``final_norm``) as the port's
     parameters on ``device``: the same layout and values, so both packages
     compute the same function."""
-    _dense_only(cfg)
+    _ported(cfg)
     device = resolve_device(device)
 
     def conv(tree):
@@ -97,11 +149,22 @@ def from_jax_params(params, cfg: ModelConfig, *, device="cuda"):
             return {k: conv(v) for k, v in tree.items()}
         return _tensor(tree, device)
 
-    out = conv({k: params[k] for k in ("embed", "layers", "final_norm")})
-    n = out["layers"]["attn"]["wq"].shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"params have {n} layers, {cfg.name} {cfg.n_layers}")
+    keys = ["embed", "layers", "final_norm"]
+    if cfg.family == "hybrid":
+        keys += ["shared", "loras"] + (["tail"] if "tail" in params else [])
+    out = conv({k: params[k] for k in keys})
+    for key, lead in _stack_shapes(cfg).items():
+        got = tuple(_first_leaf(out[key]).shape[:len(lead)])
+        if got != lead:
+            raise ValueError(f"params[{key!r}] are stacked {got}, "
+                             f"{cfg.name} needs {lead}")
     return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def from_jax_opt_state(state, like, *, device="cuda"):
@@ -186,17 +249,55 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # ----------------------------------------------------------- full forward --
 
 
+def _ssm_stack(layers, h, cfg: ModelConfig):
+    n = layers["norm"]["scale"].shape[0]
+    block = _maybe_remat(functools.partial(apply_mamba_block, cfg=cfg), cfg)
+    for layer in _unstack(layers, n):
+        h = block(layer, h)
+    return h
+
+
+def _hybrid_stack(params, h, cfg: ModelConfig, emb0):
+    """Each group's mamba blocks, then the shared block with the group's
+    LoRA (one recomputed unit in backward, as the JAX package's scan body),
+    then the trailing blocks."""
+    groups, per, trailing = hybrid_layout(cfg)
+
+    def group(layers, lora, h):
+        for layer in _unstack(layers, per):
+            h = apply_mamba_block(layer, h, cfg)
+        return apply_shared_block(params["shared"], lora, h, emb0, cfg)
+
+    body = _maybe_remat(group, cfg)
+    for layers, lora in zip(_unstack(params["layers"], groups),
+                            _unstack(params["loras"], groups)):
+        h = body(layers, lora, h)
+    if trailing:
+        h = _ssm_stack(params["tail"], h, cfg)
+    return h
+
+
 def forward_full(params, cfg: ModelConfig, *, tokens):
     """Full-sequence forward of tokens (B, S) -> (hidden (B, S, d), aux);
-    aux is {} (MoE losses come with that family)."""
-    _dense_only(cfg)
+    aux is {} but for the MoE family: its load-balance and router z-losses
+    summed over the layers."""
+    _ported(cfg)
     h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
+    aux = {}
+    if cfg.family == "ssm":
+        return _ssm_stack(params["layers"], h, cfg), aux
+    if cfg.family == "hybrid":
+        return _hybrid_stack(params, h, cfg, emb0=h), aux
+    if cfg.moe is not None:
+        aux = {k: torch.zeros((), device=h.device)
+               for k in ("load_balance_loss", "router_z_loss")}
     for i, layer in enumerate(_unstack(params["layers"], cfg.n_layers)):
         block = functools.partial(
             apply_transformer_block, cfg=cfg,
             layer_local=cfg.layer_is_local(i))
-        h = _maybe_remat(block, cfg)(layer, h)
-    return h, {}
+        h, layer_aux = _maybe_remat(block, cfg)(layer, h)
+        aux = {k: aux[k] + v for k, v in layer_aux.items()}
+    return h, aux
 
 
 def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
@@ -228,18 +329,38 @@ def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Dict[str, Any]:
-    """Zeroed cache + length counter for decode: ``len`` (B,) int32; ``k``,
-    ``v`` (L, B, S, Hkv, Dh) in the compute dtype (int8 with cfg.kv_quant,
-    plus ``k_scale`` / ``v_scale`` (L, B, S, Hkv) float32)."""
-    _dense_only(cfg)
+    """Zeroed cache + length counter for decode: ``len`` (B,) int32, and
+    * dense, MoE: ``k``, ``v`` (L, B, S, Hkv, Dh) in the compute dtype (int8
+      with cfg.kv_quant, plus ``k_scale`` / ``v_scale`` (L, B, S, Hkv)
+      float32);
+    * SSM: ``conv`` (L, B, d_conv - 1, conv_dim) in the compute dtype and
+      ``ssd`` (L, B, h, n, p) float32;
+    * hybrid: ``conv``, ``ssd`` stacked on (groups, per), ``tail_conv``,
+      ``tail_ssd`` on the trailing blocks, and one ``k``, ``v`` (groups, B,
+      S, Hkv, Dh) per call of the shared block."""
+    _ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    kv_dt = torch.int8 if cfg.kv_quant else cfg.cdtype()
-    cache = {
-        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=kv_dt, device=device),
-        "v": torch.zeros(shape, dtype=kv_dt, device=device),
-    }
+    dt = cfg.cdtype()
+    cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        cache["conv"], cache["ssd"] = init_mamba_cache(
+            batch, cfg, dt, device=device, lead=(cfg.n_layers,))
+        return cache
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family == "hybrid":
+        groups, per, trailing = hybrid_layout(cfg)
+        cache["conv"], cache["ssd"] = init_mamba_cache(
+            batch, cfg, dt, device=device, lead=(groups, per))
+        if trailing:
+            cache["tail_conv"], cache["tail_ssd"] = init_mamba_cache(
+                batch, cfg, dt, device=device, lead=(trailing,))
+        cache["k"] = torch.zeros((groups, *kv), dtype=dt, device=device)
+        cache["v"] = torch.zeros((groups, *kv), dtype=dt, device=device)
+        return cache
+    shape = (cfg.n_layers, *kv)
+    kv_dt = torch.int8 if cfg.kv_quant else dt
+    cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
     if cfg.kv_quant:
         cache["k_scale"] = torch.zeros(shape[:-1], device=device)
         cache["v_scale"] = torch.zeros(shape[:-1], device=device)
@@ -263,17 +384,23 @@ def _pad_cache_seq(x, max_len: int, axis: int = -3):
 def forward_prefill(params, cfg: ModelConfig, *, tokens,
                     max_len: Optional[int] = None):
     """Full-sequence forward of tokens (B, S) that also builds the serving
-    cache. Returns (hidden (B, S, d), cache); max_len pads the cache for
+    cache. Returns (hidden (B, S, d), cache); max_len pads the KV cache for
     later decoding (len = S, the prompt length)."""
-    _dense_only(cfg)
+    _ported(cfg)
     h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
     B, S = h.shape[0], h.shape[1]
     max_len = max_len or S
     cache = init_cache(cfg, B, max_len, device=h.device)
     cache["len"].fill_(S)
+    if cfg.family == "ssm":
+        h = _prefill_mamba(params["layers"], h, cfg, cache["conv"],
+                           cache["ssd"])
+        return h, cache
+    if cfg.family == "hybrid":
+        return _prefill_hybrid(params, h, cfg, cache, max_len), cache
     layers = _unstack(params["layers"], cfg.n_layers)
     for i, layer in enumerate(layers):
-        h, (k, v) = apply_transformer_block(
+        h, _, (k, v) = apply_transformer_block(
             layer, h, cfg, layer_local=cfg.layer_is_local(i), return_kv=True)
         if cfg.kv_quant:
             k, k_sc = quantize_kv_rows(k)
@@ -285,6 +412,33 @@ def forward_prefill(params, cfg: ModelConfig, *, tokens,
     return h, cache
 
 
+def _prefill_mamba(layers, h, cfg: ModelConfig, conv, ssd):
+    """Mamba blocks stacked on conv's leading axis, each writing its final
+    (conv, ssd) state into that slot of ``conv`` and ``ssd``."""
+    for i, layer in enumerate(_unstack(layers, conv.shape[0])):
+        h, (conv[i], ssd[i]) = apply_mamba_block(layer, h, cfg,
+                                                 return_state=True)
+    return h
+
+
+def _prefill_hybrid(params, h, cfg: ModelConfig, cache, max_len: int):
+    groups, per, trailing = hybrid_layout(cfg)
+    emb0 = h
+    for gi, (layers, lora) in enumerate(zip(
+            _unstack(params["layers"], groups),
+            _unstack(params["loras"], groups))):
+        h = _prefill_mamba(layers, h, cfg, cache["conv"][gi],
+                           cache["ssd"][gi])
+        h, (k, v) = apply_shared_block(params["shared"], lora, h, emb0, cfg,
+                                       return_kv=True)
+        cache["k"][gi] = _pad_cache_seq(k, max_len)
+        cache["v"][gi] = _pad_cache_seq(v, max_len)
+    if trailing:
+        h = _prefill_mamba(params["tail"], h, cfg, cache["tail_conv"],
+                           cache["tail_ssd"])
+    return h
+
+
 # ----------------------------------------------------------------- decode --
 
 
@@ -292,8 +446,56 @@ def forward_decode(params, cache, tokens, cfg: ModelConfig):
     """One-token decode. tokens: (B, 1) -> (logits (B, 1, V) float32,
     cache). The cache's tensors are updated in place and its ``len``
     replaced by len + 1; the same dict is returned."""
-    _dense_only(cfg)
+    _ported(cfg)
     h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
+    length = cache["len"]
+    if cfg.family == "ssm":
+        h = _decode_mamba(params["layers"], h, cfg, cache["conv"],
+                          cache["ssd"])
+    elif cfg.family == "hybrid":
+        h = _decode_hybrid(params, h, cfg, cache)
+    else:
+        h = _decode_transformer(params, h, cfg, cache)
+    cache["len"] = length + 1
+    return logits_from_hidden(params, h, cfg), cache
+
+
+def _decode_mamba(layers, h, cfg: ModelConfig, conv, ssd):
+    """One token through mamba blocks stacked on conv's leading axis, each
+    block's (conv, ssd) slot updated in place."""
+    for i, layer in enumerate(_unstack(layers, conv.shape[0])):
+        x = apply_norm(layer["norm"], h, cfg)
+        y, (nconv, nssd) = mamba_decode(layer["mamba"], x, conv[i], ssd[i],
+                                        cfg)
+        conv[i].copy_(nconv)
+        ssd[i].copy_(nssd)
+        h = h + y
+    return h
+
+
+def _decode_hybrid(params, h, cfg: ModelConfig, cache):
+    groups, per, trailing = hybrid_layout(cfg)
+    shared, emb0 = params["shared"], h
+    for gi, (layers, lora) in enumerate(zip(
+            _unstack(params["layers"], groups),
+            _unstack(params["loras"], groups))):
+        h = _decode_mamba(layers, h, cfg, cache["conv"][gi],
+                          cache["ssd"][gi])
+        u = torch.cat([h, emb0], dim=-1) @ shared["in_proj"]
+        a = apply_attention_decode(
+            lora_attention_params(shared, lora, cfg),
+            apply_norm(shared["norm"], u, cfg), cache["k"][gi],
+            cache["v"][gi], cache["len"], cfg, window=cfg.sliding_window)
+        h = h + a
+        h = h + apply_mlp(shared["mlp"],
+                          apply_norm(shared["mlp_norm"], h, cfg), cfg)
+    if trailing:
+        h = _decode_mamba(params["tail"], h, cfg, cache["tail_conv"],
+                          cache["tail_ssd"])
+    return h
+
+
+def _decode_transformer(params, h, cfg: ModelConfig, cache):
     length = cache["len"]
     layers = _unstack(params["layers"], cfg.n_layers)
     for i, layer in enumerate(layers):
@@ -308,10 +510,8 @@ def forward_decode(params, cache, tokens, cfg: ModelConfig):
         if cfg.post_norm:
             a = apply_norm(layer["attn_post_norm"], a, cfg)
         h = h + a
-        m = apply_mlp(layer["mlp"], apply_norm(layer["mlp_norm"], h, cfg),
-                      cfg)
+        m, _ = apply_ffn(layer, apply_norm(layer["mlp_norm"], h, cfg), cfg)
         if cfg.post_norm:
             m = apply_norm(layer["mlp_post_norm"], m, cfg)
         h = h + m
-    cache["len"] = length + 1
-    return logits_from_hidden(params, h, cfg), cache
+    return h

@@ -18,7 +18,8 @@ with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
 ones (one bf16 rounding of the same fp32 result; int8 caches as their
 queries), the LM decode step on the card against the CPU
 1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
-and 1e-2 (logits); one LM train step on the card against the CPU: loss and
+and 1e-2 (logits); the reduced MoE, SSM and hybrid models served on the
+card against the CPU: token streams equal, logits 1e-4; one LM train step on the card against the CPU: loss and
 grad_norm 1e-5, the moments 1e-4 x their largest magnitude, the params
 1e-3 x the rate where Adam does not amplify a gradient's rounding;
 checkpointed card tensors bit for bit, restored in place.
@@ -452,14 +453,14 @@ def _decode_inputs(dev, b, h, hkv, dh, s, kind, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 80, 96, 112, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8",
                                   "int8-bf16"])
 def test_flash_decode_kernel_matches_plain(cuda, dh, g, kind):
-    """GQA groups, head dims, cache types; S not a multiple of 32 (48,
-    1000); B in {1, 3, 8}; softcap and window; ragged lengths with one above
-    S."""
+    """GQA groups, head dims (the built widths, and 80, 96, 112 on the next
+    one up), cache types; S not a multiple of 32 (48, 1000); B in {1, 3,
+    8}; softcap and window; ragged lengths with one above S."""
     # bf16 queries: both round an fp32 result once, so at most one ulp apart
     # (< 1e-2 x |out| + 1e-3); fp32 queries: 2e-5
     rtol, atol = (1e-2, 1e-3) if "bf16" in kind or kind == "bfloat16" \
@@ -488,6 +489,11 @@ SPLIT_CASES = [
      40, 0.0),
     ("a length above S", 3, 8, 2, 64, 2048, [2048, 2100, 999], 0, 0.0),
     ("gemma2-2b: Dh=256 G=2", 2, 8, 4, 256, 8192, [8192, 5000], 4096, 50.0),
+    # Dh = 112 on the 128-wide build: a column at Dh or above stored would
+    # land in the next head's row
+    ("zamba2-7b: Dh=112 G=1", 8, 32, 32, 112, 1088,
+     [1088, 1025, 1088, 1025, 1088, 1025, 1088, 1100], 4096, 0.0),
+    ("Dh=80 G=4, a window", 3, 16, 4, 80, 2048, [2048, 1500, 900], 300, 0.0),
 ]
 
 
@@ -581,9 +587,15 @@ def test_flash_decode_wrapper_refuses_what_it_cannot_take(cuda):
         fd(q, k.transpose(1, 2), v.transpose(1, 2), lens, lo)
     with pytest.raises(ValueError, match="k_scale"):
         fd(q, k.to(torch.int8), v.to(torch.int8), lens, lo)
-    with pytest.raises(ValueError, match="head_dim"):
-        fd(q[..., :48].contiguous(), k[..., :48].contiguous(),
-           v[..., :48].contiguous(), lens, lo)
+    # head dims: below 32, not a multiple of 8, above 256 (the plain
+    # version takes any); nothing is launched
+    before = flash_decode.launches
+    for dh in (24, 44, 100, 264):
+        qd, kd, vd, _, _ = _decode_inputs(cuda, 2, 8, 2, dh, 40, "float32",
+                                          1)
+        with pytest.raises(ValueError, match="head_dim"):
+            fd(qd, kd, vd, lens, lo)
+    assert flash_decode.launches == before
 
 
 def _tree_to(tree, dev):
@@ -637,6 +649,44 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda, arch, over, tol):
         else:
             torch.testing.assert_close(cg[key], cc[key], rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "grok-1-314b",
+                                  "mamba2-2.7b", "zamba2-7b"])
+def test_lm_families_served_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced MoE, SSM and hybrid models (fp32) served by
+    ``launch/serve`` on the card and on the CPU with the same weights and
+    schedule (2 slots, 5 requests of 12 tokens, 4 new each): the token
+    streams equal, every step's logits within 1e-4, and flash-decode
+    launched once per attention layer (MoE), per shared-block call (hybrid)
+    or never (SSM) in each of the 12 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch).reduced()
+    params = transformer.init_model(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    requests = serve.make_requests(cfg.vocab_size, 5, 12, 0)
+    per_step = cfg.n_layers if cfg.family == "moe" else 0
+    if cfg.family == "hybrid":
+        per_step = transformer.hybrid_layout(cfg)[0]
+    out = {}
+    for dev in ("cpu", cuda):
+        logs = []
+        before = flash_decode.launches
+        res = serve.serve(cfg, _tree_to(params, dev), requests, slots=2,
+                          max_new=4, device=dev,
+                          on_step=lambda s, c, lg: logs.append(lg.cpu()))
+        if dev != "cpu":
+            assert flash_decode.launches - before == per_step * 12
+        out[str(dev)] = (res, torch.stack(logs))
+    (rc, lc), (rg, lg) = out["cpu"], out[str(cuda)]
+    assert rg.n_decoded == rc.n_decoded == 24
+    assert np.array_equal(rg.step_tokens, rc.step_tokens)
+    assert rg.streams == rc.streams
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
