@@ -95,14 +95,32 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    vocab), the swapped rows' cache holding their prefill (the KV prompt
    positions; the conv state shifted by the one step before the
    snapshot), peak memory below the card's. Printed: prefill and swap
-   times, decode tokens/s and ms per step, peak memory;
+   times, decode tokens/s and ms per step, peak memory. Then the two paths
+   no launcher serves (``STEP_PATHS``: both launchers refuse these
+   families, as the JAX package's do), through ``models.steps``'
+   ``make_prefill_step`` and ``make_decode_step`` at full width and
+   depth, bf16, weights from ``init_model`` with a seeded generator on the
+   card, 8 rows and 64 greedy steps each: "encdec" seamless-m4t-large-v2
+   (24 encoder and 24 decoder layers, MHA of Dh = 64, vocabulary 256,208;
+   prompts of 1,024 tokens after 256 frames of seeded embeddings x 0.02)
+   and "vl" qwen2-vl-7b (28 layers, 28 heads on 4 KV heads: G = 7; rows of
+   2,048: 1,024 seeded patch embeddings x 0.02 of a 32 x 32 grid, then
+   1,024 text tokens, at M-RoPE positions t = 0, h = i // 32, w = i % 32,
+   then from 32 on all three streams). Held: 512 tokens decoded, exactly
+   48 (24 self + 24 cross) and 28 flash-decode launches a step (3,072 and
+   1,792), no NaN or inf, tokens in [0, V), every length prompt + 64, the
+   cross K/V untouched by decoding, peak memory below the card's.
+   Printed: prefill (the first call and a warm one), decode tokens/s and
+   ms a step, peak memory;
 9. decode parity at full width (each path with attention): one step from
-   the live cache (ragged lengths, four rows past the end) with the kernel
+   the live cache (ragged lengths, four rows past the end; the step paths'
+   after their step 32, every row at one length) with the kernel
    and with the plain version bound into ``models.attention`` for that
    call (an MoE's plain step routed as the kernel's: ``Router``): caches
    equal bit for bit but where the first attention output reaches (the
    K/V rows written in layers 1 and up, the hybrid's later mamba states),
    which with the logits agree within 5e-2 x their largest magnitude; the
+   cross K/V equal bit for bit; the
    routing flips of an unforced plain step and the greedy tokens'
    agreement over 8 teacher-forced steps (reported); ``torch.profiler``
    over 20 decode steps (device time by kernel class, launches per step,
@@ -110,12 +128,17 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 10. small LM references: each path's model at the reduced preset (fp32;
    qwen3-4b with G = 4) served on the card and on the CPU with the same
    weights and schedule: token streams equal, logits within 1e-4; the
-   MoE's smallest router margin (reported);
+   MoE's smallest router margin (reported); the step paths' reduced
+   models (qwen2-vl at G = 7, a 4 x 4 patch grid) through a prefill and 8
+   greedy steps on the card and on the CPU: tokens equal, logits within
+   1e-4, the kernel launched per layer (encdec: twice) a step;
 11. flash-decode against its plain version (``TOL_DECODE``: 2e-5 with fp32
    queries; rtol 1e-2 + atol 1e-3 with bf16 queries, bf16 or int8 cache)
    at each path's live inputs (two attention calls of one step, timed
-   rotating through the K/V of several: qwen3-4b's, moonshot's G = 1 and
-   zamba2's Dh = 112, window 4096) and at a gemma2-2b shape (softcap 50,
+   rotating through the K/V of several: qwen3-4b's, moonshot's G = 1,
+   zamba2's Dh = 112, window 4096, seamless's self-attention (G = 1, Dh =
+   64) and cross-attention (S = 256, every row full) and qwen2-vl's G = 7)
+   and at a gemma2-2b shape (softcap 50,
    window 4096), a large ragged bf16 shape, the same with an int8 cache,
    and a large one at zamba2's heads (Dh = 112, G = 1), with the library
    time (one SDPA call, softcap 0 and no int8 only), the bound from the
@@ -147,8 +170,8 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the resilience, the offline, the four LM serving and the
-train path, each path's count beside it; the h-index's hub kernel also as
+serving, the hub, the resilience, the offline, the four LM serving, the
+two step and the train path, each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -217,6 +240,38 @@ LM_PATHS = {
                                  ssm=(64, 4, 2, 64, 8, 256)),
                13, (0, 6, 12)),  # 3 x 125 MB
 }
+# The LM paths no launcher serves (both launchers refuse these families, as
+# the JAX package's do), driven through ``models.steps``'
+# make_prefill_step / make_decode_step at full width and depth, bf16: path
+# -> (arch, the config fields that must hold, flash-decode launches a decode
+# step, {label: the layers whose kernel inputs the parity phase keeps for
+# timing, by the calls of a step: "self" the self-attention's, "cross" the
+# cross-attention's over the encoder's output}): enough K/V to stream more
+# than twice the L2
+STEP_PATHS = {
+    "encdec": ("seamless-m4t-large-v2",
+               dict(n_layers=24, n_encoder_layers=24, d_model=1024,
+                    n_heads=16, n_kv_heads=16, head_dim=64, d_ff=8192,
+                    vocab_size=256208, param_dtype="bfloat16"), 48,
+               {"self": (0, 7, 15, 23),  # 4 x 35.6 MB
+                "cross": tuple(range(24))}),  # 24 x 8.4 MB
+    "vl": ("qwen2-vl-7b",
+           dict(n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4,
+                head_dim=128, d_ff=18944, vocab_size=152064,
+                param_dtype="bfloat16", mrope_sections=(16, 24, 24),
+                n_vision_patches=1024), 28,
+           {"self": (0, 5, 11, 16, 22, 27)}),  # 6 x 34.6 MB
+}
+STEP_ROWS = 8
+# prompt tokens: encdec's decoder prompts of 1,024 with 256 frames (S / 4,
+# the JAX package's rule), vl's 1,024 patches then 1,024 text tokens
+STEP_PROMPT = {"encdec": 1024, "vl": 2048}
+STEP_NEW = 64
+STEP_SNAP = 32  # the decode step after which the parity phases' cache is kept
+# the reduced references: (reduced() overrides, prompt tokens, frames or
+# the patch grid's side)
+STEP_REFERENCES = {"encdec": ({}, 16, 8),
+                   "vl": (dict(n_heads=14, n_kv_heads=2), 24, 4)}  # G = 7
 LM_DECODED = 8 * 128
 LM_STEPS = 128
 SNAP_STEP = 64  # the step after the swap: the cache the parity phases take
@@ -1718,6 +1773,11 @@ def lm_decode_parity(torch, cfg, params, snap, keep_layers):
     for key in cache0:
         if key == "len":
             continue
+        if key in ("cross_k", "cross_v"):  # decode never writes them
+            expect(torch.equal(ca[key], cache0[key])
+                   and torch.equal(cb[key], cache0[key]),
+                   f"cache {key}: a decode step changed it")
+            continue
         if key in ("k", "v"):
             expect(torch.equal(ca[key][:, kept], cb[key][:, kept])
                    and torch.equal(ca[key][0], cb[key][0]),
@@ -1857,6 +1917,201 @@ def lm_reference_phase(torch, np, path):
     log(f"lm reference: reduced {arch} ({cfg.family}) served on cuda == "
         f"cpu: {rg.step_tokens.shape[0]} steps, token streams equal, logits "
         f"max abs diff {err:.2e}{margin}")
+
+
+def mrope_positions(torch, rows, grid, text, dev):
+    """(3, rows, grid^2 + text) int32 M-RoPE positions: a grid x grid patch
+    grid (t = 0, h = i // grid, w = i % grid), then text from ``grid`` on
+    all three streams."""
+    i = torch.arange(grid * grid, device=dev)
+    patch = torch.stack([torch.zeros_like(i), i // grid, i % grid])
+    txt = (grid + torch.arange(text, device=dev)).expand(3, text)
+    pos = torch.cat([patch, txt], 1).to(torch.int32)
+    return pos[:, None].expand(3, rows, pos.shape[1]).contiguous()
+
+
+def step_batch(torch, cfg, rows, prompt, side, dev, seed=0):
+    """A seeded prefill batch: ``tokens`` (rows, prompt) in [2, V); encdec:
+    ``src_embeds`` (rows, side, d) normal x 0.02; vision: the first side^2
+    slots' ``vision_embeds`` normal x 0.02 and their M-RoPE ``positions``
+    (a side x side grid, then the text)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (rows, prompt),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    dt, d = cfg.cdtype(), cfg.d_model
+    if cfg.family == "encdec":
+        batch["src_embeds"] = (torch.randn((rows, side, d), generator=gen,
+                                           device=dev) * 0.02).to(dt)
+    else:
+        batch["vision_embeds"] = (torch.randn((rows, side * side, d),
+                                              generator=gen, device=dev)
+                                  * 0.02).to(dt)
+        batch["positions"] = mrope_positions(torch, rows, side,
+                                             prompt - side * side, dev)
+    return batch
+
+
+def step_side(cfg, path) -> int:
+    """encdec: the frames (S / 4, at least 8); vl: the patch grid's side."""
+    if path == "encdec":
+        return max(STEP_PROMPT[path] // 4, 8)
+    return math.isqrt(cfg.n_vision_patches)
+
+
+def step_phase(torch, np, counters, path):
+    """A ``STEP_PATHS`` path at its config's full width and depth on the
+    card: ``init_model`` from a seeded generator on the card, then
+    ``make_prefill_step`` on 8 rows and 64 greedy ``make_decode_step``
+    steps, the counts set to 0 just before the prefill and read after the
+    last step. Held: 512 tokens decoded, exactly the path's flash-decode
+    launches a step (encdec: a self- and a cross-attention call a layer),
+    no NaN or inf in any logits, tokens in [0, V), ``len`` = prompt + 64
+    at the end, the cross K/V untouched by decoding, peak memory below the
+    card's. Returns (cfg, params, launch counts, the cache and next tokens
+    after step 32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_model
+
+    arch, want, per_step, _ = STEP_PATHS[path]
+    cfg = get_config(arch)
+    expect(_full_width(cfg, want), f"not {arch} at full width: {cfg}")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompt, side = STEP_PROMPT[path], step_side(cfg, path)
+    batch = step_batch(torch, cfg, STEP_ROWS, prompt, side, "cuda")
+    log(f"{path}: {cfg.name} ({cfg.family}) full width, "
+        f"{n_params / 1e9:.3f} B parameters ({n_bytes / 1e9:.2f} GB, init "
+        f"{t_init:.1f} s), {STEP_ROWS} rows, prompt {prompt}"
+        + (f" after {side} frames" if path == "encdec" else
+           f" ({side} x {side} patches first)") + f", {STEP_NEW} new")
+    prefill = make_prefill_step(cfg, max_len=prompt + STEP_NEW)
+    decode = make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    bad = ~torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, t_decode = [], 0.0
+    for part in (range(STEP_SNAP), range(STEP_SNAP, STEP_NEW)):
+        t0 = time.perf_counter()
+        for _ in part:
+            logits, cache = decode(params, cache, tok)
+            bad |= ~torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_decode += time.perf_counter() - t0
+        if part.stop == STEP_SNAP:
+            snap = (_clone(cache), tok.clone())
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()  # again, warm: the first call loads kernels
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    toks = torch.cat(toks, 1)
+    n_decoded = toks.numel()
+    log(f"{path}: {n_decoded} tokens in {STEP_NEW} decode steps; launches "
+        f"{counts}")
+    expect(n_decoded == STEP_ROWS * STEP_NEW,
+           f"n_decoded {n_decoded} != {STEP_ROWS * STEP_NEW}")
+    expect(counts["decode_attention"] == per_step * STEP_NEW,
+           f"flash_decode launches {counts['decode_attention']} != "
+           f"{per_step} x {STEP_NEW}")
+    for name, n in counts.items():
+        expect(name == "decode_attention" or n == 0,
+               f"{name} launched {n} times on the {path} path")
+    expect(not bool(bad), "NaN or inf in the logits")
+    expect(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+           "a token outside [0, vocab)")
+    lens = cache["len"].tolist()
+    expect(lens == [prompt + STEP_NEW] * STEP_ROWS, f"lengths {lens}")
+    for key in ("cross_k", "cross_v"):
+        if key in cache:
+            expect(torch.equal(cache[key], snap[0][key]),
+                   f"decoding changed {key}")
+    expect(peak < torch.cuda.get_device_properties(0).total_memory,
+           f"peak {peak} above the card's memory")
+    rec = {
+        "arch": cfg.name, "params_b": n_params / 1e9,
+        "param_gb": n_bytes / 1e9, "init_s": t_init,
+        "n_decoded": n_decoded, "decode_steps": STEP_NEW,
+        "prefill_ms": t_prefill * 1e3, "prefill_warm_ms": t_warm * 1e3,
+        "prefill_tokens": STEP_ROWS * prompt,
+        "decode_s": t_decode, "decode_tokens_per_s": n_decoded / t_decode,
+        "ms_per_step": t_decode * 1e3 / STEP_NEW,
+        "peak_memory_gb": peak / 1e9, "final_lengths": lens,
+        "flash_decode_launches": counts["decode_attention"],
+    }
+    log(f"{path} step phase: " + json.dumps(rec))
+    return cfg, params, counts, snap
+
+
+def step_calls(path):
+    """{call index within a decode step: (label, layer)} of the kernel
+    inputs the path's parity phase keeps (encdec calls the kernel twice a
+    layer: self at 2 i, cross at 2 i + 1)."""
+    keep = STEP_PATHS[path][3]
+    if path != "encdec":
+        return {lay: (f"{path} self", lay) for lay in keep["self"]}
+    out = {2 * lay: (f"{path} self", lay) for lay in keep["self"]}
+    out.update({2 * lay + 1: (f"{path} cross", lay)
+                for lay in keep["cross"]})
+    return out
+
+
+def step_reference_phase(torch, np, path):
+    """The path's model at the reduced preset (fp32; qwen2-vl at G = 7) on
+    the card and on the CPU with the same weights and inputs (2 rows, a
+    prefill, 8 greedy decode steps): tokens equal, logits within 1e-4, the
+    kernel launched per_step x 8 times on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_model
+
+    arch = STEP_PATHS[path][0]
+    over, prompt, side = STEP_REFERENCES[path]
+    cfg = get_config(arch).reduced(**over)
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = step_batch(torch, cfg, 2, prompt, side, "cpu", seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _tree_to(params, dev)
+        logits, cache = make_prefill_step(cfg, max_len=prompt + 8)(
+            p, _tree_to(batch, dev))
+        decode = make_decode_step(cfg)
+        logs, toks = [logits.cpu()], []
+        before = flash_decode.launches
+        for _ in range(8):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok.cpu())
+            logits, cache = decode(p, cache, tok)
+            logs.append(logits.cpu())
+        if dev == "cuda":
+            per = cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+            expect(flash_decode.launches - before == 8 * per,
+                   f"reduced {arch}: {flash_decode.launches - before} "
+                   f"launches, not 8 x {per}")
+        out[dev] = (torch.cat(toks, 1), torch.stack(logs))
+    (tg, lg), (tc, lc) = out["cuda"], out["cpu"]
+    err = float((lg - lc).abs().max())
+    expect(torch.equal(tg, tc), f"reduced {arch}: tokens differ")
+    expect(err <= 1e-4, f"reduced {arch}: logits differ from the CPU's by "
+           f"{err}")
+    log(f"step reference: reduced {arch} ({cfg.family}, G = "
+        f"{cfg.q_per_kv}) on cuda == cpu: prefill + 8 greedy steps, tokens "
+        f"equal, logits max abs diff {err:.2e}")
 
 
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
@@ -2310,13 +2565,13 @@ def live_decode(torch, F, ops, ref, live, label):
     recs = []
     layers = sorted(live)
     for lay in (layers[0], layers[-1]):
-        kw = live[lay][4]
-        expect(kw["k_scale"] is None, f"{label} layer {lay}: {kw}")
+        kw = live[lay][4]  # a cross-attention call passes none
+        expect(kw.get("k_scale") is None, f"{label} layer {lay}: {kw}")
         recs.append(check_decode(
             torch, F, ops, ref, [live[lay][:4]] + [live[x][:4] for x in layers
                                                   if x != lay],
-            f"{label} layer {lay}", softcap=kw["softcap"],
-            window=kw["window"]))
+            f"{label} layer {lay}", softcap=kw.get("softcap", 0.0),
+            window=kw.get("window", 0)))
     return recs
 
 
@@ -2438,13 +2693,25 @@ def main() -> int:
         del params, snap
         torch.cuda.empty_cache()
         lm_reference_phase(torch, np, path)
+    for path in STEP_PATHS:
+        cfg, params, lm_counts[path], snap = step_phase(torch, np, counters,
+                                                        path)
+        calls = step_calls(path)
+        kept = lm_decode_parity(torch, cfg, params, snap, tuple(calls))
+        for call, inputs in kept.items():
+            label, lay = calls[call]
+            live.setdefault(label, {})[lay] = inputs
+        lm_profile(torch, cfg, params, snap)
+        del params, snap, kept
+        torch.cuda.empty_cache()
+        step_reference_phase(torch, np, path)
     decode_live = {path: live_decode(torch, F, ops, ref, live[path], path)
                    for path in live}
     del live
     serve_rec["decode_attention"] = decode_live["lm"][0]
     large_rec["decode_attention"] = decode_live["lm"][1:] + [
-        r for path in ("moe", "hybrid") for r in decode_live[path]] + \
-        decode_shapes(torch, F, ops, ref)
+        r for path in decode_live if path != "lm"
+        for r in decode_live[path]] + decode_shapes(torch, F, ops, ref)
     train_counts = train_phase(torch, np, counters)
     train_reference_phase(torch, np)
     train_reduced_phase(torch, np)

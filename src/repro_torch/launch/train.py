@@ -1,9 +1,10 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
-The torch counterpart of ``repro.launch.train``, on one device: an LM of
-a ported family (``--arch``, ``--preset reduced|full``; the MoE family adds
-its aux losses, ``models.steps.loss_fn``) from ``init_model`` with a
-seeded generator, the optimizer of its config under a warmup-cosine
+The torch counterpart of ``repro.launch.train``, on one device: a
+decoder-only text LM (``--arch``, ``--preset reduced|full``; the MoE family
+adds its aux losses, ``models.steps.loss_fn``; the encoder-decoder and
+vision archs are refused, as the JAX launcher cannot train them) from
+``init_model`` with a seeded generator, the optimizer of its config under a warmup-cosine
 schedule, the deterministic synthetic data pipeline with a prefetch thread,
 optional microbatch accumulation and int8 gradient compression with error
 feedback, a straggler monitor, a hang watchdog, a SIGTERM stop, atomic
@@ -70,8 +71,19 @@ def main(argv=None):
     if args.mesh not in ("", "1x1"):
         ap.error(f"--mesh {args.mesh}: the PyTorch port trains on one device "
                  '(only "" or "1x1"); sharding is not ported yet')
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "encdec" or cfg.frontend == "vision":
+        # the synthetic batch holds tokens, targets and mask only; the JAX
+        # launcher's batch sharding names also ask for the frame or patch
+        # embeddings (and positions), and it fails with a ValueError
+        # before its first step: there is no reference run to hold one of
+        # the port's to
+        raise SystemExit(
+            f"launch/train does not train {cfg.name}: the synthetic batch "
+            "has no frame or patch embeddings, and the JAX launcher fails "
+            "on this family for the same reason, so there is no reference "
+            "to hold it to (models.steps.loss_fn takes such a batch)")
+    device = resolve_device(args.device)
     if args.preset == "reduced":
         cfg = cfg.reduced()
 

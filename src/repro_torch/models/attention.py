@@ -13,10 +13,10 @@ one semantics:
 
 Variants: GQA grouping (K/V are never repeated into H heads), logit softcap
 (gemma2), sliding window (gemma2 local layers), per-head qk RMSNorm (qwen3),
-partial RoPE. Weights keep the JAX layout: ``wq`` (d, H, Dh), ``wo``
-(H, Dh, d). Sharding constraints of the JAX package are the identity on one
-device and have no counterpart; M-RoPE (qwen2-vl) and cross-attention
-(encdec) wait for their families.
+partial RoPE, M-RoPE (qwen2-vl), non-causal attention (the encoder) and
+cross-attention over the encoder's output (encdec). Weights keep the JAX
+layout: ``wq`` (d, H, Dh), ``wo`` (H, Dh, d). Sharding constraints of the
+JAX package are the identity on one device and have no counterpart.
 """
 from __future__ import annotations
 
@@ -26,11 +26,12 @@ import torch
 from repro_torch.kernels.ops import decode_attention
 
 from .config import ModelConfig
-from .layers import apply_rope, normal
+from .layers import apply_mrope, apply_rope, normal
 
 __all__ = ["init_attention", "attention_reference", "attention_chunked",
            "layer_window", "apply_attention", "quantize_kv_rows",
-           "apply_attention_decode", "NEG_INF"]
+           "apply_attention_decode", "cross_kv", "apply_cross_attention_decode",
+           "NEG_INF"]
 
 NEG_INF = -1.0e30
 
@@ -38,7 +39,10 @@ NEG_INF = -1.0e30
 # ------------------------------------------------------------------ params --
 
 
-def init_attention(gen, cfg: ModelConfig, *, device, lead=()):
+def init_attention(gen, cfg: ModelConfig, *, device, lead=(),
+                   cross: bool = False):
+    """q/k/v/o projections; qk-norm scales too (qwen3), but not on a
+    cross-attention block."""
     dt = cfg.pdtype()
     d = cfg.d_model
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -49,7 +53,7 @@ def init_attention(gen, cfg: ModelConfig, *, device, lead=()):
         "wv": normal(gen, (*lead, d, Hkv, Dh), s, dt, device),
         "wo": normal(gen, (*lead, H, Dh, d), so, dt, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((*lead, Dh), device=device)
         p["k_norm"] = torch.ones((*lead, Dh), device=device)
     return p
@@ -161,22 +165,40 @@ def layer_window(cfg: ModelConfig, layer_local: bool) -> int:
     return cfg.sliding_window
 
 
-def apply_attention(params, x, cfg: ModelConfig, *, layer_local: bool = False,
-                    return_kv: bool = False):
-    """Causal self-attention sublayer over a whole sequence (training,
-    prefill), through ``attention_chunked``. return_kv=True also returns
-    the post-rope (k, v): the serving cache entries of this layer."""
+def _rope(x, pos, cfg: ModelConfig):
+    """RoPE at positions (B, S), or M-RoPE at (3, B, S) (stream 0 as RoPE
+    when the config has no M-RoPE sections)."""
+    if pos.dim() == 3:
+        if cfg.mrope_sections is not None:
+            return apply_mrope(x, pos, cfg)
+        pos = pos[0]
+    return apply_rope(x, pos, cfg)
+
+
+def apply_attention(params, x, cfg: ModelConfig, *, causal: bool = True,
+                    positions=None, kv_override=None,
+                    layer_local: bool = False, return_kv: bool = False):
+    """Attention sublayer over a whole sequence (training, prefill), through
+    ``attention_chunked``: self-attention of x (B, S, d), rotated at
+    ``positions`` ((B, S), or (3, B, S) for M-RoPE; default 0..S-1), or
+    cross-attention when ``kv_override`` (B, Sk, d) gives the keys' and
+    values' source (no rope then). return_kv=True also returns the
+    post-rope (k, v): the serving cache entries of this layer."""
     B, S, _ = x.shape
+    src = x if kv_override is None else kv_override
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    k = _project(src, params["wk"])
+    v = _project(src, params["wv"])
     if cfg.qk_norm and "q_norm" in params:
         q = _qk_norm(q, params["q_norm"])
         k = _qk_norm(k, params["k_norm"])
-    pos = torch.arange(S, device=x.device).expand(B, S)
-    q = apply_rope(q, pos, cfg)
-    k = apply_rope(k, pos, cfg)
-    out = attention_chunked(q, k, v, causal=True,
+    if kv_override is None:
+        pos = positions
+        if pos is None:
+            pos = torch.arange(S, device=x.device).expand(B, S)
+        q = _rope(q, pos, cfg)
+        k = _rope(k, pos, cfg)
+    out = attention_chunked(q, k, v, causal=causal,
                             window=layer_window(cfg, layer_local),
                             softcap=cfg.attn_softcap,
                             chunk_q=cfg.attn_chunk_q,
@@ -213,7 +235,8 @@ def apply_attention_decode(params, x, cache_k, cache_v, cache_len,
     cache_len >= S keep their cache, as the JAX package drops those
     writes). With cfg.kv_quant the cache is int8 and ``scales`` is the
     ((B, S, Hkv), (B, S, Hkv)) float32 scale pair, updated in place too.
-    Returns (B, 1, d)."""
+    The token is rotated at its cache length: M-RoPE takes that length on
+    all three streams, as the JAX package does. Returns (B, 1, d)."""
     B = x.shape[0]
     S = cache_k.shape[1]
     q = _project(x, params["wq"])[:, 0]  # (B, H, Dh)
@@ -222,8 +245,11 @@ def apply_attention_decode(params, x, cache_k, cache_v, cache_len,
     if cfg.qk_norm and "q_norm" in params:
         q = _qk_norm(q, params["q_norm"])
         k = _qk_norm(k, params["k_norm"])
-    q = apply_rope(q[:, None], cache_len[:, None], cfg)[:, 0]
-    k = apply_rope(k[:, None], cache_len[:, None], cfg)[:, 0]
+    pos = cache_len[:, None]
+    if cfg.mrope_sections is not None:
+        pos = pos.expand(3, B, 1)
+    q = _rope(q[:, None], pos, cfg)[:, 0]
+    k = _rope(k[:, None], pos, cfg)[:, 0]
 
     rows = torch.arange(B, device=x.device)
     at = cache_len.clamp_max(S - 1).long()
@@ -245,4 +271,20 @@ def apply_attention_decode(params, x, cache_k, cache_v, cache_len,
         q, cache_k, cache_v, cache_len + 1, softcap=cfg.attn_softcap,
         window=window, k_scale=k_scale, v_scale=v_scale,
     )  # (B, H, Dh)
+    return (out.flatten(-2) @ params["wo"].flatten(0, 1))[:, None]
+
+
+def cross_kv(params, enc_out):
+    """A cross-attention block's (k, v) (B, T, Hkv, Dh) of the encoder's
+    output (B, T, d), unrotated: cached once at prefill for every decode
+    step."""
+    return _project(enc_out, params["wk"]), _project(enc_out, params["wv"])
+
+
+def apply_cross_attention_decode(params, x, cross_k, cross_v, enc_len):
+    """One token's cross-attention (x: (B, 1, d)) over the cached (B, T,
+    Hkv, Dh) ``cross_k`` / ``cross_v``, every row at its full ``enc_len``
+    (B,): no rope, softcap or window. Returns (B, 1, d)."""
+    q = _project(x, params["wq"])[:, 0]
+    out = decode_attention(q, cross_k, cross_v, enc_len)
     return (out.flatten(-2) @ params["wo"].flatten(0, 1))[:, None]

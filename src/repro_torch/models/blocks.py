@@ -3,7 +3,8 @@ zamba2's shared attention block with its per-invocation LoRA.
 
 The torch counterpart of ``repro.models.blocks``: pre-norm sublayers with
 residual adds, gemma2's optional post-norms, the MoE branch (which returns
-its aux losses), and the hybrid family's shared block, which sees
+its aux losses), the encoder-decoder's cross-attention sublayer, and the
+hybrid family's shared block, which sees
 concat(hidden, initial embedding) projected back to d and folds this
 invocation's LoRA deltas into the shared q/k/v weights at every call,
 decode included.
@@ -27,7 +28,10 @@ __all__ = ["init_transformer_block", "apply_ffn", "apply_transformer_block",
 # ------------------------------------------------- dense / moe transformer --
 
 
-def init_transformer_block(gen, cfg: ModelConfig, *, device, lead=()):
+def init_transformer_block(gen, cfg: ModelConfig, *, device, lead=(),
+                           cross: bool = False):
+    """A block's params; ``cross`` adds the decoder's cross-attention
+    sublayer (``cross_norm``, ``cross_attn``), drawn after the rest."""
     p = {
         "attn_norm": init_norm(cfg, cfg.d_model, device=device, lead=lead),
         "attn": init_attention(gen, cfg, device=device, lead=lead),
@@ -43,6 +47,11 @@ def init_transformer_block(gen, cfg: ModelConfig, *, device, lead=()):
                                         lead=lead)
         p["mlp_post_norm"] = init_norm(cfg, cfg.d_model, device=device,
                                        lead=lead)
+    if cross:
+        p["cross_norm"] = init_norm(cfg, cfg.d_model, device=device,
+                                    lead=lead)
+        p["cross_attn"] = init_attention(gen, cfg, device=device, lead=lead,
+                                         cross=True)
     return p
 
 
@@ -55,12 +64,18 @@ def apply_ffn(params, x, cfg: ModelConfig):
 
 
 def apply_transformer_block(params, h, cfg: ModelConfig, *,
-                            layer_local: bool = False, return_kv=False):
-    """Pre-norm residual block (causal). Returns (h, aux), or (h, aux,
-    (k, v)) with return_kv; aux holds the MoE losses ({} for an MLP)."""
+                            causal: bool = True, positions=None,
+                            enc_out=None, layer_local: bool = False,
+                            return_kv=False):
+    """Pre-norm residual block: self-attention (``causal``, rotated at
+    ``positions``), then, given the encoder's output ``enc_out``,
+    cross-attention over it, then the FFN. Returns (h, aux), or (h, aux,
+    (k, v)) of the self-attention with return_kv; aux holds the MoE losses
+    ({} for an MLP)."""
     a = apply_attention(
         params["attn"], apply_norm(params["attn_norm"], h, cfg), cfg,
-        layer_local=layer_local, return_kv=return_kv,
+        causal=causal, positions=positions, layer_local=layer_local,
+        return_kv=return_kv,
     )
     kv = None
     if return_kv:
@@ -68,6 +83,10 @@ def apply_transformer_block(params, h, cfg: ModelConfig, *,
     if cfg.post_norm:
         a = apply_norm(params["attn_post_norm"], a, cfg)
     h = h + a
+    if enc_out is not None:
+        h = h + apply_attention(
+            params["cross_attn"], apply_norm(params["cross_norm"], h, cfg),
+            cfg, causal=False, kv_override=enc_out)
     m, aux = apply_ffn(params, apply_norm(params["mlp_norm"], h, cfg), cfg)
     if cfg.post_norm:
         m = apply_norm(params["mlp_post_norm"], m, cfg)

@@ -5,9 +5,7 @@ One dataclass, explicit feature flags — a config IS the architecture
 mamba2's SSD, zamba2's shared block, seamless' enc-dec, qwen2-vl's M-RoPE).
 ``reduced()`` produces the CPU-test variant of any config. The fields and
 their defaults are the JAX package's, so a config means the same model in
-both; ``pdtype()`` / ``cdtype()`` return torch dtypes. The port runs the
-dense, MoE, SSM and hybrid families so far (``ROADMAP.md``); the other
-fields are kept so that configs carry across unchanged.
+both; ``pdtype()`` / ``cdtype()`` return torch dtypes.
 """
 from __future__ import annotations
 

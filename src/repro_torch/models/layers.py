@@ -1,4 +1,5 @@
-"""Shared neural layers: norms, rotary embeddings, MLPs, the embedding table.
+"""Shared neural layers: norms, rotary embeddings (incl. M-RoPE), MLPs, the
+embedding table.
 
 The torch counterpart of ``repro.models.layers``. Compute follows the
 JAX package's mixed-precision contract: params may be bf16, all norm and
@@ -8,7 +9,6 @@ copy. Every ``init_*`` draws in fp32 from ``gen`` on ``device`` and casts
 to the config's ``param_dtype`` (``normal``: a leaf above ``DRAW_BYTES`` in
 fp32 slice by slice); ``lead`` prefixes a stacking shape (the layer axis),
 as the JAX package's ``vmap`` over layer keys does.
-``apply_mrope`` (qwen2-vl) waits for that family (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from .config import ModelConfig
 
 __all__ = ["init_norm", "apply_norm", "rms_norm_groups", "rope_frequencies",
-           "apply_rope", "init_mlp", "apply_mlp", "init_embedding", "normal",
+           "apply_rope", "apply_mrope", "init_mlp", "apply_mlp", "init_embedding", "normal",
            "DRAW_BYTES"]
 
 # The largest fp32 draw ``normal`` makes at once. Every leaf of qwen3-4b and
@@ -104,6 +104,34 @@ def apply_rope(x, positions, cfg: ModelConfig):
     _, rot = rope_frequencies(cfg.head_dim, cfg.rope_fraction, cfg.rope_theta)
     inv = _inv_freq(cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, x.device)
     ang = positions[..., :, None].float() * inv  # (..., S, rot/2)
+    return _rotate(x, ang, rot)
+
+
+@functools.lru_cache(maxsize=16)
+def _section_ids(sections, device: torch.device):
+    # which of the (t, h, w) streams each of the rot/2 frequencies uses
+    return torch.repeat_interleave(torch.arange(3),
+                                   torch.tensor(sections)).to(device)
+
+
+def apply_mrope(x, positions3, cfg: ModelConfig):
+    """Multimodal RoPE (qwen2-vl). x: (..., S, H, Dh); positions3:
+    (3, ..., S) integer, the (t, h, w) streams. The rotary half splits into
+    ``cfg.mrope_sections`` runs of frequencies, and each run rotates by its
+    own stream; dims past the rotary ones stay as they are."""
+    sections = tuple(cfg.mrope_sections)
+    _, rot = rope_frequencies(cfg.head_dim, cfg.rope_fraction, cfg.rope_theta)
+    if sum(sections) != rot // 2:
+        raise ValueError(f"mrope sections {sections} must sum to {rot // 2}")
+    inv = _inv_freq(cfg.head_dim, cfg.rope_fraction, cfg.rope_theta, x.device)
+    pos = torch.movedim(positions3, 0, -1).float()  # (..., S, 3)
+    ang = pos[..., _section_ids(sections, x.device)] * inv  # (..., S, rot/2)
+    return _rotate(x, ang, rot)
+
+
+def _rotate(x, ang, rot: int):
+    """Rotate the first ``rot`` dims of x (..., S, H, Dh) by the angles
+    (..., S, rot/2) in fp32 (halves, not interleaved pairs), cast back."""
     sin = torch.sin(ang)[..., :, None, :]
     cos = torch.cos(ang)[..., :, None, :]
     xf = x.float()

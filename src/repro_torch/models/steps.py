@@ -18,8 +18,8 @@ from repro_torch.train import optim as optim_lib
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
 from .config import ModelConfig
-from .transformer import (forward_decode, forward_full, forward_prefill,
-                          lm_loss, logits_from_hidden)
+from .transformer import (embed_tokens, forward_decode, forward_full,
+                          forward_prefill, lm_loss, logits_from_hidden)
 
 __all__ = ["loss_fn", "make_train_step", "make_prefill_step",
            "make_decode_step", "MOE_LB_WEIGHT", "MOE_Z_WEIGHT"]
@@ -29,12 +29,35 @@ MOE_LB_WEIGHT = 0.01  # the JAX package's weights of the MoE aux losses
 MOE_Z_WEIGHT = 1e-3
 
 
+def _model_inputs(params, batch: Dict, cfg: ModelConfig) -> Dict:
+    """The keyword arguments of ``forward_full`` / ``forward_prefill`` for
+    a batch, read as the JAX package's steps read it: ``tokens`` (B, S);
+    ``positions`` ((B, S), or (3, B, S) for M-RoPE; default 0..S-1);
+    ``src_embeds`` (B, T, d), the encoder-decoder's frame embeddings; and,
+    for a vision frontend, ``vision_embeds`` (B, P, d), which take the
+    place of the first P token slots after the embedding."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = batch["src_embeds"]
+    if "positions" in batch:
+        kw["positions"] = batch["positions"]
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        h = embed_tokens(params, batch["tokens"], cfg)
+        vis = batch["vision_embeds"]
+        kw["embeds"] = torch.cat([vis.to(h.dtype), h[:, vis.shape[1]:]], 1)
+    else:
+        kw["tokens"] = batch["tokens"]
+    return kw
+
+
 def loss_fn(params, batch: Dict, cfg: ModelConfig):
     """Scalar training loss for one (micro)batch of ``tokens``, ``targets``
-    (B, S) and optional ``mask`` (B, S) fp32 -> (loss, metrics); positions
-    are 0..S-1. The MoE family adds ``MOE_LB_WEIGHT`` x its load-balance
-    loss and ``MOE_Z_WEIGHT`` x its router z-loss, and reports both."""
-    hidden, aux = forward_full(params, cfg, tokens=batch["tokens"])
+    (B, S), optional ``mask`` (B, S) fp32 and the inputs
+    ``_model_inputs`` reads -> (loss, metrics). The MoE family adds
+    ``MOE_LB_WEIGHT`` x its load-balance loss and ``MOE_Z_WEIGHT`` x its
+    router z-loss, and reports both."""
+    hidden, aux = forward_full(params, cfg,
+                               **_model_inputs(params, batch, cfg))
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, device=hidden.device)
@@ -95,12 +118,12 @@ def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,
 
 def make_prefill_step(cfg: ModelConfig,
                       max_len: Optional[int] = None) -> Callable:
-    """step(params, batch {"tokens": (B, S)}) -> (last-token logits
-    (B, 1, V), cache)."""
+    """step(params, batch {"tokens": (B, S), and what ``_model_inputs``
+    reads}) -> (last-token logits (B, 1, V), cache)."""
 
     def step(params, batch):
-        hidden, cache = forward_prefill(params, cfg, tokens=batch["tokens"],
-                                        max_len=max_len)
+        hidden, cache = forward_prefill(params, cfg, max_len=max_len,
+                                        **_model_inputs(params, batch, cfg))
         return logits_from_hidden(params, hidden[:, -1:], cfg), cache
 
     return step

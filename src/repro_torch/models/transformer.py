@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, SSM and hybrid decoder-only families,
-and their serving cache.
+"""Model assembly for the dense, MoE, SSM, hybrid and encoder-decoder
+families (the vision frontend and M-RoPE included), and their serving
+cache.
 
 The torch counterpart of ``repro.models.transformer``. Params have the JAX
 package's structure, so a JAX parameter tree carries across as a copy
@@ -11,6 +12,9 @@ package's structure, so a JAX parameter tree carries across as a copy
   tail         (hybrid) the trailing mamba blocks, stacked
   shared       (hybrid) zamba2's shared attention block
   loras        (hybrid) its per-invocation LoRA, stacked on groups
+  encoder      (encdec) the encoder's blocks, stacked; the decoder's blocks
+               in ``layers`` carry ``cross_norm`` and ``cross_attn``
+  enc_norm     (encdec) the encoder's final norm
   final_norm   {"scale": (d,)}
 
 Forward modes: ``forward_full`` runs a whole sequence for training (each
@@ -18,14 +22,16 @@ layer under ``torch.utils.checkpoint`` as ``cfg.remat`` says), and
 ``lm_loss`` takes the cross-entropy in chunks of ``cfg.loss_chunk``
 positions, each chunk recomputed in backward, so the (B, S, V) fp32 logits
 never live at once; ``forward_prefill`` runs the whole prompt and builds the
-serving cache (KV for attention, conv + SSD state for mamba blocks);
-``forward_decode`` runs one token against it, **updating the cache in
+serving cache (KV for attention, conv + SSD state for mamba blocks, the
+cross-attention's K/V of the encoder's output); ``forward_decode`` runs
+one token against it, **updating the cache in
 place** (the JAX launcher donates the cache to the same effect: at
 qwen3-4b's width the cache of 8 slots of 1088 positions is 1.28 GB). Layers
 run as a Python loop over per-layer views of the stacked params
 (``_unstack``), where the JAX package scans; their gradients land in the
-stacked tensors. The encoder-decoder family and the vision frontend raise
-``NotImplementedError`` until they are ported (``ROADMAP.md``).
+stacked tensors. The vision frontend is a stub, as in the JAX package:
+precomputed patch embeddings come in as ``embeds`` (``steps``), with
+(3, B, S) M-RoPE positions; so are the audio frames the encoder takes.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 
-from .attention import (apply_attention_decode, layer_window,
+from .attention import (apply_attention_decode,
+                        apply_cross_attention_decode, cross_kv, layer_window,
                         quantize_kv_rows)
 from .blocks import (apply_ffn, apply_mamba_block, apply_shared_block,
                      apply_transformer_block, init_mamba_block,
@@ -52,19 +59,7 @@ from .mamba2 import init_mamba_cache, mamba_decode
 __all__ = ["init_model", "from_jax_params", "from_jax_opt_state",
            "hybrid_layout", "embed_tokens", "logits_from_hidden",
            "forward_full", "lm_loss", "init_cache", "forward_prefill",
-           "forward_decode", "FAMILIES"]
-
-FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families ported so far
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.frontend == "vision" \
-            or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family"
-            f"{' with a vision frontend' if cfg.frontend == 'vision' else ''}"
-            " is not "
-            f"ported yet; the port runs {', '.join(FAMILIES)} (ROADMAP.md)")
+           "forward_decode"]
 
 
 def hybrid_layout(cfg: ModelConfig):
@@ -93,16 +88,16 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
     and the LoRA's own), in fp32 from ``gen`` (which lives on ``device``),
     cast to ``cfg.param_dtype``; the same tree of shapes and dtypes, not
     the same numbers."""
-    _ported(cfg)
     device = resolve_device(device)
     params = {"embed": init_embedding(gen, cfg, device=device)}
-    if cfg.family in ("dense", "moe"):
-        params["layers"] = init_transformer_block(gen, cfg, device=device,
-                                                  lead=(cfg.n_layers,))
+    if cfg.family in ("dense", "moe", "encdec"):
+        params["layers"] = init_transformer_block(
+            gen, cfg, device=device, lead=(cfg.n_layers,),
+            cross=cfg.family == "encdec")
     elif cfg.family == "ssm":
         params["layers"] = init_mamba_block(gen, cfg, device=device,
                                             lead=(cfg.n_layers,))
-    else:
+    elif cfg.family == "hybrid":
         groups, per, trailing = hybrid_layout(cfg)
         params["layers"] = init_mamba_block(gen, cfg, device=device,
                                             lead=(groups, per))
@@ -112,6 +107,12 @@ def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
         params["shared"] = init_shared_block(gen, cfg, device=device)
         params["loras"] = init_shared_lora(gen, cfg, device=device,
                                            lead=(groups,))
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family == "encdec":
+        params["encoder"] = init_transformer_block(
+            gen, cfg, device=device, lead=(cfg.n_encoder_layers,))
+        params["enc_norm"] = init_norm(cfg, cfg.d_model, device=device)
     params["final_norm"] = init_norm(cfg, cfg.d_model, device=device)
     return params
 
@@ -126,6 +127,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _stack_shapes(cfg: ModelConfig):
     """{top-level key: its leading stacking shape} of the family's tree."""
+    if cfg.family == "encdec":
+        return {"layers": (cfg.n_layers,),
+                "encoder": (cfg.n_encoder_layers,)}
     if cfg.family != "hybrid":
         return {"layers": (cfg.n_layers,)}
     groups, per, trailing = hybrid_layout(cfg)
@@ -138,10 +142,10 @@ def _stack_shapes(cfg: ModelConfig):
 def from_jax_params(params, cfg: ModelConfig, *, device="cuda"):
     """The JAX package's ``init_model`` tree (numpy leaves: ``embed``,
     ``layers`` stacked on a leading L axis, or (groups, per) with ``tail``,
-    ``shared`` and ``loras`` for the hybrid, ``final_norm``) as the port's
-    parameters on ``device``: the same layout and values, so both packages
-    compute the same function."""
-    _ported(cfg)
+    ``shared`` and ``loras`` for the hybrid, ``encoder`` and ``enc_norm``
+    for the encoder-decoder, ``final_norm``) as the port's parameters on
+    ``device``: the same layout and values, so both packages compute the
+    same function."""
     device = resolve_device(device)
 
     def conv(tree):
@@ -152,6 +156,8 @@ def from_jax_params(params, cfg: ModelConfig, *, device="cuda"):
     keys = ["embed", "layers", "final_norm"]
     if cfg.family == "hybrid":
         keys += ["shared", "loras"] + (["tail"] if "tail" in params else [])
+    if cfg.family == "encdec":
+        keys += ["encoder", "enc_norm"]
     out = conv({k: params[k] for k in keys})
     for key, lead in _stack_shapes(cfg).items():
         got = tuple(_first_leaf(out[key]).shape[:len(lead)])
@@ -277,27 +283,56 @@ def _hybrid_stack(params, h, cfg: ModelConfig, emb0):
     return h
 
 
-def forward_full(params, cfg: ModelConfig, *, tokens):
-    """Full-sequence forward of tokens (B, S) -> (hidden (B, S, d), aux);
-    aux is {} but for the MoE family: its load-balance and router z-losses
-    summed over the layers."""
-    _ported(cfg)
-    h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
+def _dense_stack(layers, h, cfg: ModelConfig, *, causal=True,
+                 positions=None, enc_out=None):
+    """Stacked transformer blocks over h, each under ``cfg.remat`` ->
+    (h, aux): the MoE family's aux losses summed over the layers, else
+    {}."""
+    n = layers["attn_norm"]["scale"].shape[0]
     aux = {}
-    if cfg.family == "ssm":
-        return _ssm_stack(params["layers"], h, cfg), aux
-    if cfg.family == "hybrid":
-        return _hybrid_stack(params, h, cfg, emb0=h), aux
     if cfg.moe is not None:
         aux = {k: torch.zeros((), device=h.device)
                for k in ("load_balance_loss", "router_z_loss")}
-    for i, layer in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    for i, layer in enumerate(_unstack(layers, n)):
         block = functools.partial(
-            apply_transformer_block, cfg=cfg,
+            apply_transformer_block, cfg=cfg, causal=causal,
+            positions=positions, enc_out=enc_out,
             layer_local=cfg.layer_is_local(i))
         h, layer_aux = _maybe_remat(block, cfg)(layer, h)
         aux = {k: aux[k] + v for k, v in layer_aux.items()}
     return h, aux
+
+
+def _embed(params, cfg: ModelConfig, tokens, embeds):
+    h = embed_tokens(params, tokens, cfg) if embeds is None else embeds
+    return h.to(cfg.cdtype())
+
+
+def _encode(params, enc_embeds, cfg: ModelConfig):
+    """The encoder (encdec): non-causal blocks over the frame embeddings
+    (B, T, d) at positions 0..T-1, then ``enc_norm``."""
+    h, _ = _dense_stack(params["encoder"], enc_embeds.to(cfg.cdtype()), cfg,
+                        causal=False)
+    return apply_norm(params["enc_norm"], h, cfg)
+
+
+def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                 positions=None, enc_embeds=None):
+    """Full-sequence forward of tokens (B, S), or of their embeddings
+    ``embeds`` (B, S, d), -> (hidden (B, S, d), aux). ``positions``: (B, S),
+    or (3, B, S) for M-RoPE (default 0..S-1); the encoder-decoder encodes
+    ``enc_embeds`` (B, T, d) first and every decoder block cross-attends to
+    it. aux is {} but for the MoE family: its load-balance and router
+    z-losses summed over the layers."""
+    h = _embed(params, cfg, tokens, embeds)
+    if cfg.family == "ssm":
+        return _ssm_stack(params["layers"], h, cfg), {}
+    if cfg.family == "hybrid":
+        return _hybrid_stack(params, h, cfg, emb0=h), {}
+    enc_out = _encode(params, enc_embeds, cfg) \
+        if cfg.family == "encdec" else None
+    return _dense_stack(params["layers"], h, cfg, positions=positions,
+                        enc_out=enc_out)
 
 
 def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
@@ -327,18 +362,18 @@ def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
 # ------------------------------------------------------------------ cache --
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict[str, Any]:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device="cuda") -> Dict[str, Any]:
     """Zeroed cache + length counter for decode: ``len`` (B,) int32, and
-    * dense, MoE: ``k``, ``v`` (L, B, S, Hkv, Dh) in the compute dtype (int8
-      with cfg.kv_quant, plus ``k_scale`` / ``v_scale`` (L, B, S, Hkv)
-      float32);
+    * dense, MoE, encdec: ``k``, ``v`` (L, B, S, Hkv, Dh) in the compute
+      dtype (int8 with cfg.kv_quant, plus ``k_scale`` / ``v_scale`` (L, B,
+      S, Hkv) float32); encdec also ``cross_k``, ``cross_v`` (L, B,
+      enc_len, Hkv, Dh) in the compute dtype;
     * SSM: ``conv`` (L, B, d_conv - 1, conv_dim) in the compute dtype and
       ``ssd`` (L, B, h, n, p) float32;
     * hybrid: ``conv``, ``ssd`` stacked on (groups, per), ``tail_conv``,
       ``tail_ssd`` on the trailing blocks, and one ``k``, ``v`` (groups, B,
       S, Hkv, Dh) per call of the shared block."""
-    _ported(cfg)
     device = resolve_device(device)
     dt = cfg.cdtype()
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -364,6 +399,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.kv_quant:
         cache["k_scale"] = torch.zeros(shape[:-1], device=device)
         cache["v_scale"] = torch.zeros(shape[:-1], device=device)
+    if cfg.family == "encdec":
+        cross = (cfg.n_layers, batch, enc_len, *kv[2:])
+        cache["cross_k"] = torch.zeros(cross, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(cross, dtype=dt, device=device)
     return cache
 
 
@@ -381,16 +420,23 @@ def _pad_cache_seq(x, max_len: int, axis: int = -3):
 # ---------------------------------------------------------------- prefill --
 
 
-def forward_prefill(params, cfg: ModelConfig, *, tokens,
+def forward_prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                    positions=None, enc_embeds=None,
                     max_len: Optional[int] = None):
-    """Full-sequence forward of tokens (B, S) that also builds the serving
-    cache. Returns (hidden (B, S, d), cache); max_len pads the KV cache for
-    later decoding (len = S, the prompt length)."""
-    _ported(cfg)
-    h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
+    """Full-sequence forward of tokens (B, S), or of ``embeds``, at
+    ``positions`` (as ``forward_full``), that also builds the serving cache.
+    Returns (hidden (B, S, d), cache); max_len pads the KV cache for later
+    decoding (len = S, the prompt length). The encoder-decoder encodes
+    ``enc_embeds`` (B, T, d) and caches each decoder block's cross K/V of
+    the result (T positions)."""
+    h = _embed(params, cfg, tokens, embeds)
     B, S = h.shape[0], h.shape[1]
     max_len = max_len or S
-    cache = init_cache(cfg, B, max_len, device=h.device)
+    enc_out = _encode(params, enc_embeds, cfg) \
+        if cfg.family == "encdec" else None
+    cache = init_cache(cfg, B, max_len,
+                       0 if enc_out is None else enc_out.shape[1],
+                       device=h.device)
     cache["len"].fill_(S)
     if cfg.family == "ssm":
         h = _prefill_mamba(params["layers"], h, cfg, cache["conv"],
@@ -401,7 +447,11 @@ def forward_prefill(params, cfg: ModelConfig, *, tokens,
     layers = _unstack(params["layers"], cfg.n_layers)
     for i, layer in enumerate(layers):
         h, _, (k, v) = apply_transformer_block(
-            layer, h, cfg, layer_local=cfg.layer_is_local(i), return_kv=True)
+            layer, h, cfg, positions=positions, enc_out=enc_out,
+            layer_local=cfg.layer_is_local(i), return_kv=True)
+        if enc_out is not None:
+            cache["cross_k"][i], cache["cross_v"][i] = cross_kv(
+                layer["cross_attn"], enc_out)
         if cfg.kv_quant:
             k, k_sc = quantize_kv_rows(k)
             v, v_sc = quantize_kv_rows(v)
@@ -446,7 +496,6 @@ def forward_decode(params, cache, tokens, cfg: ModelConfig):
     """One-token decode. tokens: (B, 1) -> (logits (B, 1, V) float32,
     cache). The cache's tensors are updated in place and its ``len``
     replaced by len + 1; the same dict is returned."""
-    _ported(cfg)
     h = embed_tokens(params, tokens, cfg).to(cfg.cdtype())
     length = cache["len"]
     if cfg.family == "ssm":
@@ -496,8 +545,14 @@ def _decode_hybrid(params, h, cfg: ModelConfig, cache):
 
 
 def _decode_transformer(params, h, cfg: ModelConfig, cache):
+    """Each block: self-attention decode (a flash-decode launch), then for
+    the encoder-decoder cross-attention over the cached encoder K/V at its
+    full length (a second launch), then the FFN."""
     length = cache["len"]
     layers = _unstack(params["layers"], cfg.n_layers)
+    cross = cfg.family == "encdec"
+    if cross:
+        enc_len = torch.full_like(length, cache["cross_k"].shape[2])
     for i, layer in enumerate(layers):
         scales = None
         if cfg.kv_quant:
@@ -510,6 +565,10 @@ def _decode_transformer(params, h, cfg: ModelConfig, cache):
         if cfg.post_norm:
             a = apply_norm(layer["attn_post_norm"], a, cfg)
         h = h + a
+        if cross:
+            h = h + apply_cross_attention_decode(
+                layer["cross_attn"], apply_norm(layer["cross_norm"], h, cfg),
+                cache["cross_k"][i], cache["cross_v"][i], enc_len)
         m, _ = apply_ffn(layer, apply_norm(layer["mlp_norm"], h, cfg), cfg)
         if cfg.post_norm:
             m = apply_norm(layer["mlp_post_norm"], m, cfg)

@@ -19,7 +19,9 @@ ones (one bf16 rounding of the same fp32 result; int8 caches as their
 queries), the LM decode step on the card against the CPU
 1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
 and 1e-2 (logits); the reduced MoE, SSM and hybrid models served on the
-card against the CPU: token streams equal, logits 1e-4; one LM train step on the card against the CPU: loss and
+card against the CPU: token streams equal, logits 1e-4; the reduced
+encoder-decoder and vision models' prefill and 8 decode steps on the card
+against the CPU: tokens equal, logits 1e-4; one LM train step on the card against the CPU: loss and
 grad_norm 1e-5, the moments 1e-4 x their largest magnitude, the params
 1e-3 x the rate where Adam does not amplify a gradient's rounding;
 checkpointed card tensors bit for bit, restored in place.
@@ -454,12 +456,13 @@ def _decode_inputs(dev, b, h, hkv, dh, s, kind, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64, 80, 96, 112, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8",
                                   "int8-bf16"])
 def test_flash_decode_kernel_matches_plain(cuda, dh, g, kind):
-    """GQA groups, head dims (the built widths, and 80, 96, 112 on the next
-    one up), cache types; S not a multiple of 32 (48, 1000); B in {1, 3,
+    """GQA groups (G = 7: qwen2-vl's, a block's last query rows empty),
+    head dims (the built widths, and 80, 96, 112 on the next one up), cache
+    types; S not a multiple of 32 (48, 1000); B in {1, 3,
     8}; softcap and window; ragged lengths with one above S."""
     # bf16 queries: both round an fp32 result once, so at most one ulp apart
     # (< 1e-2 x |out| + 1e-3); fp32 queries: 2e-5
@@ -494,6 +497,12 @@ SPLIT_CASES = [
     ("zamba2-7b: Dh=112 G=1", 8, 32, 32, 112, 1088,
      [1088, 1025, 1088, 1025, 1088, 1025, 1088, 1100], 4096, 0.0),
     ("Dh=80 G=4, a window", 3, 16, 4, 80, 2048, [2048, 1500, 900], 300, 0.0),
+    # qwen2-vl-7b: 28 query heads on 4 KV heads
+    ("qwen2-vl-7b: G=7", 8, 28, 4, 128, 2112, [2080] * 7 + [2112], 0, 0.0),
+    # seamless-m4t-large-v2's cross-attention: MHA at Dh = 64, every row
+    # at the encoder's full length
+    ("seamless cross: G=1 Dh=64, full rows", 8, 16, 16, 64, 256, [256] * 8,
+     0, 0.0),
 ]
 
 
@@ -649,6 +658,64 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda, arch, over, tol):
         else:
             torch.testing.assert_close(cg[key], cc[key], rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("seamless-m4t-large-v2", {}),
+    ("qwen2-vl-7b", dict(n_heads=14, n_kv_heads=2)),  # G = 7
+])
+def test_encdec_and_vl_steps_on_the_card_match_the_cpu(cuda, arch, over):
+    """The reduced encoder-decoder and vision models (fp32), through
+    ``make_prefill_step`` and 8 greedy ``make_decode_step`` steps on the
+    card and on the CPU with the same weights and inputs (frame embeddings;
+    patch embeddings with M-RoPE positions from a 4 x 4 grid): tokens
+    equal, logits within 1e-4, and flash-decode launched once per layer a
+    step (encdec: twice, self and cross)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch).reduced(**over)
+    params = transformer.init_model(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        prompt = 16
+        extra = {"src_embeds": rng.standard_normal((2, 8, cfg.d_model))}
+    else:
+        grid, prompt = 4, 24
+        i = np.arange(grid * grid)
+        pos = np.concatenate([np.stack([0 * i, i // grid, i % grid]),
+                              np.broadcast_to(grid + np.arange(8), (3, 8))],
+                             1)
+        extra = {"vision_embeds": rng.standard_normal((2, 16, cfg.d_model)),
+                 "positions": np.stack([pos, pos], 1).astype(np.int32)}
+    batch = {k: torch.from_numpy(v * 0.02 if v.dtype == np.float64 else v)
+             .to(torch.float32 if v.dtype == np.float64 else torch.int32)
+             for k, v in extra.items()}
+    batch["tokens"] = torch.from_numpy(
+        rng.integers(2, cfg.vocab_size, (2, prompt)).astype(np.int32))
+    per_step = cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _tree_to(params, dev)
+        logits, cache = make_prefill_step(cfg, max_len=prompt + 8)(
+            p, _tree_to(batch, dev))
+        decode = make_decode_step(cfg)
+        logs, toks = [logits.cpu()], []
+        before = flash_decode.launches
+        for _ in range(8):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok.cpu())
+            logits, cache = decode(p, cache, tok)
+            logs.append(logits.cpu())
+        if dev != "cpu":
+            assert flash_decode.launches - before == 8 * per_step
+        out[str(dev)] = (torch.cat(toks, 1), torch.stack(logs))
+    (tc, lc), (tg, lg) = out["cpu"], out[str(cuda)]
+    assert torch.equal(tg, tc)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -70,7 +70,8 @@ def _leaves(tree, prefix=""):
     return {prefix: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-2b",
+                                  "seamless-m4t-large-v2", "qwen2-vl-7b"])
 def test_configs_match_jax(arch):
     assert arch in list_archs()
     for over in ({}, dict(n_heads=8, n_kv_heads=2)):
