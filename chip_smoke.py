@@ -19,7 +19,20 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    While this phase runs, a counting wrapper bound into
    ``ops.h_index_sweep`` tallies the (R, W) of every h-index launch; the
    5 most frequent shapes are printed with their counts and timed on the
-   first call's inputs at each;
+   first call's inputs at each. The service runs with the stock SLO engine
+   attached (``obs.slo.default_slos``); after the launch counts are read
+   (``obs_checks``): every objective has events and the status is ok or
+   alert, ``publish_metrics`` exports the SLO gauges;
+   ``dispatch_cost_report`` (one fused flush under ``obs.compiled_cost``)
+   launches the ELL mean once, counts at least its bytes and operations
+   as ``kernels.cost`` reckons them, and leaves the table and slot map
+   bit-equal; a ``device_profile`` of one top-10 call and one block of
+   1,024 re-ingested edges writes a trace naming ``__global__`` functions
+   of ``csrc/ellmean.cu``, ``hindex.cu`` and ``topk.cu`` (``PROFILED``),
+   and the cores stay exact; ``record_memory`` reports cuda:0 with the
+   card's total memory as its limit. Then ``serve_embed.main`` on the
+   synthetic graph with ``--profile`` and ``--metrics-out``: one trace,
+   and ``device_bytes_in_use{device="cuda:0"}`` in the exported JSON;
 3. a small reference: the same path on a 300-node graph on the card and on
    the CPU (plain versions), cores equal after every block, embeddings and
    link scores within 1e-5, top-10 and top-40 ids (one pass of the top-k
@@ -59,7 +72,9 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    events around them, so the host's launch path is left out; the kernel
    timed through its own wrapper alone), the kernel's CUDA-event time over
    a loop of calls (``loop_ms``) and the bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s, the H100 SXM's published peaks);
+   operations over 67 TFLOP/s, the H100 SXM's published peaks; the bytes
+   and operations from ``kernels.cost``, the formulas the wrappers reckon
+   into an open tally);
 5. the offline path: the port's quick github table
    (``repro_torch.launch.tables``, seed 0: DeepWalk, the 13-core (Dw) row on
    the ``torch`` propagation backend, CoreWalk) at dim 150, batch 8192, with
@@ -180,6 +195,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -327,6 +343,13 @@ SOURCES = {
                          "src/repro/kernels/flash_decode.py:134"),
 }
 SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
+# the ``__global__`` functions of each serving kernel's source, which the
+# serving path's profile must name
+PROFILED = {
+    "csrc/ellmean.cu": ("ell_mean_scalar", "ell_mean_f32x4", "ell_mean_rows"),
+    "csrc/hindex.cu": ("h_index_narrow", "h_index_wide", "h_index_hub"),
+    "csrc/topk.cu": ("topk_partial", "topk_merge"),
+}
 # the serving repair with a hub: 34,000 leaves (and 2,000 random edges
 # among them) and 12 cliques of 30, all joined to the hub; 2,000 of the
 # inner edges streamed in blocks of 250 with 10% churn
@@ -488,7 +511,7 @@ def ratios(rec: dict) -> dict:
 
 
 def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
-    from repro_torch.kernels import ellmean
+    from repro_torch.kernels import cost, ellmean
 
     got = ops.ell_mean(idx, valid, emb, impl="cuda")
     want = ref.ell_mean_ref(idx, valid, emb)
@@ -509,8 +532,7 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
     n, l = idx.shape
     d = emb.shape[1]
     cnt = int(valid.sum())
-    b_ms, b_by = bound(cnt * d * emb.element_size() + n * l * 5
-                       + n * d * emb.element_size(), cnt * d)
+    b_ms, b_by = bound(*cost.ell_mean(idx, valid, emb))
     rec = {
         "shape": f"N={n} L={l} M={emb.shape[0]} D={d} valid={cnt}",
         "max_abs_err": err,
@@ -531,31 +553,12 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
     return rec
 
 
-def probes_of(torch, values, valid, est):
-    """Σ over the probes of each row's search of the row's valid entries:
-    the compares the sort-free search needs on these inputs (a row whose
-    estimate is 0 needs none)."""
-    vals = torch.where(valid, values, -1)
-    deg = valid.sum(1)
-    w = vals.shape[1]
-    lo = torch.zeros_like(est)
-    hi = est.clamp_min(0).clamp_max(w)
-    total = 0
-    while True:
-        live = lo < hi
-        if not bool(live.any()):
-            return total
-        total += int(deg[live].sum())
-        mid = (lo + hi + 1) // 2
-        ok = (vals >= mid[:, None]).sum(1) >= mid
-        lo = torch.where(live & ok, mid, lo)
-        hi = torch.where(live & ~ok, mid - 1, hi)
-
-
 def check_hindex(torch, ops, ref, tiers, label, iters=20):
     """``tiers``: list of (values, valid, est) swept together (one sweep of
     a two-tier descent is two launches); the record covers all of them,
     and with more than one tier holds each tier's own under "tiers"."""
+    from repro_torch.kernels import cost
+
     errs = 0
     for values, valid, est in tiers:
         got = ops.h_index_sweep(values, valid, est, impl="cuda")
@@ -575,13 +578,10 @@ def check_hindex(torch, ops, ref, tiers, label, iters=20):
                 ops.h_index_sweep(values, valid, est, impl=impl)
         return f
 
-    # the valid entries (int32 value + mask byte) of rows with est > 0, the
-    # only rows whose search reads anything, plus est and out of every row:
     # the padded rows of the serving shapes (est 0) cost 8 bytes each
-    nbytes = sum(int(m[e > 0].sum()) * 5 + v.shape[0] * 8
-                 for v, m, e in tiers)
-    nops = sum(probes_of(torch, v, m, e) for v, m, e in tiers)
-    b_ms, b_by = bound(nbytes, nops)
+    per_tier = [cost.h_index(*t) for t in tiers]
+    b_ms, b_by = bound(sum(b for b, _ in per_tier),
+                       sum(o for _, o in per_tier))
     rec = {
         "shape": " + ".join(f"R={v.shape[0]} W={v.shape[1]}"
                             for v, _, _ in tiers),
@@ -633,7 +633,7 @@ def topk_agree(torch, ref, got_v, got_i, q, table, k, valid):
 
 
 def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
-    from repro_torch.kernels import topk
+    from repro_torch.kernels import cost, topk
 
     got_v, got_i = ops.top_k_scores(q, table, k, valid=valid, impl="cuda")
     err, n_tie = topk_agree(torch, ref, got_v, got_i, q, table, k, valid)
@@ -645,8 +645,7 @@ def check_topk(torch, ops, ref, q, table, valid, k, label, iters=20):
     bias.masked_fill_(~valid, float("-inf"))
     n, d = table.shape
     nq = q.shape[0]
-    b_ms, b_by = bound(n * d * 4 + n * 4 + nq * d * 4 + nq * k * 8,
-                       2.0 * nq * n * d)
+    b_ms, b_by = bound(*cost.top_k(q, table, k))
     rec = {
         "shape": f"Q={nq} N={n} D={d} k={k}",
         "max_abs_err": err, "near_tie_positions": n_tie,
@@ -772,6 +771,7 @@ def serve_phase(torch, np, counters):
     )
     log(f"build_service: {time.perf_counter() - t0:.1f} s, k0={k0}, store "
         f"{svc.store.resident}/{svc.store.capacity} rows, dim 128")
+    svc.attach_slo()  # the stock objectives (obs.slo.default_slos)
     t0 = time.perf_counter()
     n_in, n_out = svc.stream_with_churn(
         stream, block_size=1024, churn=0.1, rng=np.random.default_rng(2),
@@ -824,6 +824,144 @@ def serve_phase(torch, np, counters):
         expect(counts[name] > 0,
                f"kernel {name} was not launched on the serving path")
     return svc, counts
+
+
+def obs_checks(torch, np, svc):
+    """The serving path's observability on the card, after its launch
+    counts were read: the SLO health of the stream and queries just served
+    (every objective with events; status ok or alert) and its gauges in a
+    published registry; ``dispatch_cost_report`` (the ELL mean's reckoned
+    bytes and operations in it, one launch, the table and slot map
+    untouched); a ``device_profile`` of one top-10 call and one block of
+    ingest (re-ingesting 1,024 live edges retracted just before) whose
+    trace names the ELL-mean, h-index and top-k kernels; ``record_memory``
+    of cuda:0."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import cost, ellmean
+    from repro_torch.obs import MetricsRegistry, device_profile, record_memory
+
+    health = svc.slo_health()
+    names = sorted(health["objectives"])
+    log("slo health: " + json.dumps(health))
+    expect(names == ["degraded_serving", "flush_latency", "ingest_rate",
+                     "staleness"], f"slo objectives {names}")
+    for name in names:
+        expect(health["objectives"][name]["events"] > 0,
+               f"slo {name}: no events on the serving path")
+    expect(health["status"] in ("ok", "alert"),
+           f"slo status {health['status']}")
+    reg = MetricsRegistry()
+    svc.publish_metrics(reg)
+    expect(all(reg.get("slo_compliance", slo=n) is not None
+               for n in names) and reg.get("slo_healthy") is not None,
+           "publish_metrics exported no SLO gauges")
+
+    st, dev = svc.store, svc.device
+    st.ensure_nodes(svc.graph.node_cap)
+    idx = svc.graph.ell().neighbours[torch.zeros(svc.batch, dtype=torch.long,
+                                                 device=dev)]
+    valid = (idx != svc.graph.node_cap) & (
+        st.slot_table_dev()[idx.long()] < st.capacity)
+    n, l = idx.shape
+    cnt = int(valid.sum())
+    ell_bytes, ell_ops = cost.ell_mean(idx, valid, st.table())
+    table, slot_map = st.table().clone(), st.slot_table().copy()
+    before = ellmean.launches
+    rep = svc.dispatch_cost_report()
+    torch.cuda.synchronize()
+    log(f"dispatch cost report (fused flush, batch {svc.batch}): "
+        f"{json.dumps(rep)}; the ELL mean at N={n} L={l} D={st.dim} "
+        f"valid={cnt}: {ell_bytes} bytes, {ell_ops} operations")
+    expect(ellmean.launches == before + 1,
+           "dispatch_cost_report: not one ELL-mean launch")
+    expect(rep["flops"] > 0 and rep["flops"] >= ell_ops,
+           f"dispatch_cost_report: flops {rep['flops']}")
+    expect(rep["bytes_accessed"] >= ell_bytes,
+           f"dispatch_cost_report: {rep['bytes_accessed']} bytes < the ELL "
+           f"mean's {ell_bytes}")
+    expect(torch.equal(st.table(), table)
+           and np.array_equal(st.slot_table(), slot_map),
+           "dispatch_cost_report changed the table or the slot map")
+
+    rng = np.random.default_rng(12)
+    src, dst = svc.graph.arc_arrays()
+    arcs = np.stack([src, dst], 1)[src < dst]
+    block = arcs[rng.choice(len(arcs), size=1024, replace=False)]
+    expect(svc.retract_block(block) == 1024, "retract before the profile")
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    pdir = tempfile.mkdtemp(prefix="profile_", dir=build_dir)
+    try:
+        t0 = time.perf_counter()
+        with device_profile(pdir) as prof:
+            svc.top_k_neighbors(rng.integers(0, svc.graph.n_nodes, 64), 10)
+            expect(len(svc.ingest_block(block)) == 1024,
+                   "re-ingest in the profile")
+        t_prof = time.perf_counter() - t0
+        expect(prof["active"] and "error" not in prof,
+               f"device_profile: {prof}")
+        expect(Path(prof["trace"]).is_file(), "device_profile wrote no trace")
+        with open(prof["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        ours = {source: sorted(
+                    k for k in kernels
+                    if re.search(rf"::({'|'.join(names)})[<(]", k))
+                for source, names in PROFILED.items()}
+        log(f"device_profile: {len(events)} events, {len(kernels)} kernel "
+            f"names ({Path(prof['trace']).stat().st_size} bytes, "
+            f"{t_prof:.2f} s): {ours}")
+        missing = [want for want, found in ours.items() if not found]
+        expect(not missing, f"device_profile: no {missing} kernel in the "
+               f"trace (categories {sorted({str(e.get('cat')) for e in events})})")
+    finally:
+        shutil.rmtree(pdir)
+    mismatches = svc.cores.resync()
+    expect(mismatches == 0, f"{mismatches} core mismatches after the profile")
+
+    mem = record_memory(reg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"record_memory: {mem}, limit {total}")
+    expect(mem.get("cuda:0", 0) > 0, f"record_memory: {mem}")
+    expect(reg.get("device_bytes_limit", device="cuda:0").value == total,
+           "record_memory: the limit is not total_memory")
+
+
+def launcher_obs_phase(torch):
+    """``serve_embed.main`` on the card at the synthetic graph (2,000
+    nodes) with ``--profile`` and ``--metrics-out``: a trace of the ingest
+    window and the card's memory gauge in the exported JSON."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve_embed
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="launcher_", dir=build_dir))
+    try:
+        t0 = time.perf_counter()
+        n = serve_embed.main([
+            "--dataset", "synthetic", "--requests", "128", "--block-size",
+            "256", "--churn", "0.1", "--topk", "10", "--verify",
+            "--profile", str(tmp / "prof"),
+            "--metrics-out", str(tmp / "metrics.json")])
+        traces = list((tmp / "prof").glob("*.json"))
+        with open(tmp / "metrics.json") as f:
+            snap = json.load(f)
+        in_use = [s for s in snap.get("device_bytes_in_use", {}).get(
+            "series", []) if s["labels"] == {"device": "cuda:0"}]
+        log(f"launcher --profile --metrics-out: {n} queries in "
+            f"{time.perf_counter() - t0:.1f} s; traces {len(traces)} "
+            f"({sum(t.stat().st_size for t in traces)} bytes); "
+            f"device_bytes_in_use {in_use}")
+        expect(n > 0 and len(traces) == 1, "launcher: no profile trace")
+        expect(in_use and in_use[0]["value"] > 0,
+               "launcher: no device_bytes_in_use{device=\"cuda:0\"}")
+    finally:
+        shutil.rmtree(tmp)
 
 
 def sweep_tally(torch, ops, ref, tally, n=5):
@@ -1486,6 +1624,8 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20,
     the plain version's fp32 sums over K terms drift by about 1e-6 x their
     magnitude (|dcenter| reaches about 80 at K = 2,048), the kernel's dc
     sum is compensated."""
+    from repro_torch.kernels import cost
+
     tol = TOL_SGNS[str(dtype).split(".")[-1]]
     gen = torch.Generator(device="cuda").manual_seed(b + 31 * k + d)
     dt = getattr(torch, str(dtype).split(".")[-1])
@@ -1534,11 +1674,8 @@ def check_sgns(torch, ref, sgns, b, k, d, dtype, label, iters=20,
                zip(sgns.sgns_bwd_cuda(c, x, n, dout), grads)),
            f"sgns_bwd {label}: a second call gave other bits")
     shape = f"B={b} K={k} D={d} {str(dt).split('.')[-1]}"
-    flops = 2.0 * b * d * (k + 1)  # the K + 1 dots
-    # forward: read the inputs, write the loss; backward: read the inputs and
-    # dout, recompute the dots, then 3 FLOP per element for the gradients
-    fb_ms, fb_by = bound(in_bytes + 4 * b, flops)
-    bb_ms, bb_by = bound(2 * in_bytes + 4 * b, flops + 3.0 * b * d * (k + 1))
+    fb_ms, fb_by = bound(*cost.sgns_fwd(c, n))
+    bb_ms, bb_by = bound(*cost.sgns_bwd(c, n))
     recs = {
         "sgns_fwd": {
             "shape": shape, "max_abs_err": err_f,
@@ -2485,7 +2622,7 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
             kw.update(k_scale=t[4], v_scale=t[5])
         return q, k, v, lens, kw
 
-    from repro_torch.kernels import flash_decode
+    from repro_torch.kernels import cost, flash_decode
 
     q, k, v, lens, kw = split(sets[0])
     got = ops.decode_attention(q, k, v, lens, impl="cuda", **kw)
@@ -2502,14 +2639,11 @@ def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
            f"flash_decode {label}: a second call gave other bits")
     b, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    end = lens.clamp_max(s)
     lo = (lens - window).clamp_min(0) if window > 0 else torch.zeros_like(
         lens)
-    vis = int((end - lo).clamp_min(0).sum())
-    nbytes = vis * hkv * dh * 2 * k.element_size() \
-        + (vis * hkv * 8 if "k_scale" in kw else 0) \
-        + 2 * q.numel() * q.element_size() + 8 * b
-    b_ms, b_by = bound(nbytes, 4.0 * vis * h * dh)
+    vis = int((lens.clamp_max(s) - lo).clamp_min(0).sum())
+    b_ms, b_by = bound(*cost.decode_attention(q, k, lens, lo,
+                                              "k_scale" in kw))
 
     expect(all(torch.equal(t[3], lens) for t in sets),
            f"flash_decode {label}: the timed sets' lengths differ")
@@ -2658,6 +2792,8 @@ def main() -> int:
     })
     with SweepTally(ops) as tally:  # the serving phase only
         svc, serve_counts = serve_phase(torch, np, counters)
+    obs_checks(torch, np, svc)
+    launcher_obs_phase(torch)
     shape_tally, tally_recs = sweep_tally(torch, ops, ref, tally)
     reference_phase(torch, np)
     hub_counts, hub_tier = hub_serve_phase(torch, np, counters)

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["ell_mean_cuda", "row_split", "launches"]
 
@@ -73,4 +73,5 @@ def ell_mean_cuda(idx: torch.Tensor, valid: torch.Tensor,
     build.check(lib, code, "ell_mean kernel")
     if n and d:  # the C side launches nothing for an empty output
         launches += 1
+        cost.reckon(cost.ell_mean, idx, valid, emb)
     return out

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["decode_attention_cuda", "splits", "launches", "HEAD_DIMS"]
 
@@ -123,4 +123,5 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(lib, code, "flash_decode kernel")
     if b and h:  # the C side launches nothing for an empty output
         launches += 1
+        cost.reckon(cost.decode_attention, q, k, cache_len, win_lo, quant)
     return out

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["h_index_cuda", "max_width", "launches", "narrow_launches",
            "wide_launches", "hub_launches", "NARROW_MAX"]
@@ -82,4 +82,5 @@ def h_index_cuda(values: torch.Tensor, valid: torch.Tensor,
             wide_launches += 1
         else:
             hub_launches += 1
+        cost.reckon(cost.h_index, values, valid, est)
     return out

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["sgns_fwd_cuda", "sgns_bwd_cuda", "fwd_launches", "bwd_launches"]
 
@@ -65,6 +65,7 @@ def sgns_fwd_cuda(center: torch.Tensor, ctx: torch.Tensor,
     build.check(lib, code, "sgns forward kernel")
     if b:  # the C side launches nothing for an empty batch
         fwd_launches += 1
+        cost.reckon(cost.sgns_fwd, center, neg)
     return loss
 
 
@@ -92,4 +93,5 @@ def sgns_bwd_cuda(center: torch.Tensor, ctx: torch.Tensor,
     build.check(lib, code, "sgns backward kernel")
     if b:
         bwd_launches += 1
+        cost.reckon(cost.sgns_bwd, center, neg)
     return dc, dx, dn

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, cost
 
 __all__ = ["topk_cuda", "plan", "launches", "partial_launches",
            "merge_launches", "ROUND_K", "TILE_ROWS", "QUERY_BLOCK"]
@@ -127,4 +127,6 @@ def topk_cuda(q: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
             partial_launches += 1
             merge_launches += 1
             launches += 2
+    if nq:  # one reckoning for all the rounds
+        cost.reckon(cost.top_k, q, table, k)
     return vals, idx

@@ -24,9 +24,14 @@ snapshots; with ``--fault-plan ...:crash`` the run dies at the injected
 point, recovers from the newest snapshot plus the WAL tail (re-firing the
 auto-retrains), and reports what it replayed.
 
-Not in this port yet, and refused with an error: ``--jax-profile`` and
-``--shards`` > 1. ``--no-pipeline`` is accepted and changes nothing: the
-port ingests every block serially.
+``--profile DIR`` captures a ``torch.profiler`` trace of the ingest
+window (the window the JAX launcher's ``--jax-profile`` captures; on the
+card it holds the kernels) into DIR; ``--metrics-out`` also exports the
+card's memory gauges (``obs.record_memory``).
+
+Refused with an error: ``--jax-profile`` (use ``--profile``) and
+``--shards`` > 1 (sharding is not ported). ``--no-pipeline`` is accepted
+and changes nothing: the port ingests every block serially.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ from repro_torch.core.pipeline import EmbedConfig, embed_graph
 from repro_torch.core.propagation import propagate
 from repro_torch.device import resolve_device
 from repro_torch.graph import datasets, generators
-from repro_torch.obs import metrics
+from repro_torch.obs import device_profile, metrics, record_memory
 from repro_torch.obs import trace as obs
 from repro_torch.serve import (
     DynamicGraph,
@@ -198,13 +203,13 @@ def build_service(
 
 
 def _refuse(ap, args) -> None:
-    """Flags of the JAX launcher that this port does not implement yet."""
-    for flag, on in (
-        ("--jax-profile", args.jax_profile), ("--shards", args.shards != 1),
-    ):
-        if on:
-            ap.error(f"{flag} is not implemented in the PyTorch port yet "
-                     "(profiling and sharding come in later slices)")
+    """Flags of the JAX launcher that this port does not take."""
+    if args.jax_profile:
+        ap.error("--jax-profile captures a jax.profiler trace; the PyTorch "
+                 "port profiles with --profile DIR")
+    if args.shards != 1:
+        ap.error("--shards is not implemented in the PyTorch port "
+                 "(sharding is not ported)")
 
 
 def main(argv=None):
@@ -224,9 +229,9 @@ def main(argv=None):
     ap.add_argument("--churn", type=float, default=0.0,
                     help="fraction of each block re-drawn as deletions of "
                          "previously streamed edges")
-    not_yet = "not in the PyTorch port yet (refused)"
     ap.add_argument("--shards", type=int, default=1,
-                    help=f"row-shard across N devices: {not_yet} above 1")
+                    help="row-shard across N devices: not in the PyTorch "
+                         "port (refused above 1)")
     ap.add_argument("--train", action="store_true",
                     help="real CoreWalk+SGNS base embeddings (slower)")
     ap.add_argument("--retrain", action="store_true",
@@ -271,8 +276,13 @@ def main(argv=None):
     ap.add_argument("--metrics-out", metavar="PATH", default=None,
                     help="write the metrics registry as a JSON snapshot, "
                          "plus a Prometheus text sibling (.prom)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture a torch.profiler trace of the ingest "
+                         "phase into DIR (Chrome trace; the card's kernels "
+                         "too on cuda)")
     ap.add_argument("--jax-profile", metavar="DIR", default=None,
-                    help=f"device trace of the ingest phase: {not_yet}")
+                    help="the JAX launcher's profile flag: refused, use "
+                         "--profile")
     ap.add_argument("--wal-dir", metavar="DIR", default=None,
                     help="crash-safe serving: write-ahead-log every ingest/"
                          "retract block and keep atomic state snapshots "
@@ -342,12 +352,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     crashed = False
     try:
-        n_in, n_out = svc.stream_with_churn(
-            stream_edges,
-            block_size=args.block_size,
-            churn=args.churn,
-            rng=np.random.default_rng(args.seed + 2),
-        )
+        with device_profile(args.profile) as prof:
+            n_in, n_out = svc.stream_with_churn(
+                stream_edges,
+                block_size=args.block_size,
+                churn=args.churn,
+                rng=np.random.default_rng(args.seed + 2),
+            )
     except faults.InjectedCrash as e:
         if recovery is None:
             raise
@@ -373,6 +384,10 @@ def main(argv=None):
         n_in = svc.stats.edges_ingested
         n_out = svc.stats.edges_removed
     t_ingest = time.perf_counter() - t0
+    if args.profile and not crashed:
+        where = (f"captured to {prof['trace']}" if "trace" in prof
+                 else f"unavailable ({prof.get('error')})")
+        print(f"[serve-embed] profile: {where}")
     mismatches = svc.cores.resync()  # oracle check (exactness expected)
     eps = (n_in + n_out) / max(t_ingest, 1e-9)
     print(f"[serve-embed] ingested {n_in} edges (+{n_out} retracted) in "
@@ -479,6 +494,7 @@ def main(argv=None):
 
     if args.metrics_out:
         svc.publish_metrics()
+        record_memory()
         reg = metrics()
         reg.export_json(args.metrics_out)
         prom = args.metrics_out.rsplit(".", 1)[0] + ".prom"

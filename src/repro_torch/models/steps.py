@@ -71,14 +71,26 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig):
     return loss, metrics
 
 
+def _microbatch(key: str, x: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The k-th of n equal slices of a batch entry along its batch axis:
+    axis 1 of M-RoPE's (3, B, S) ``positions``, axis 0 of the rest."""
+    axis = 1 if key == "positions" and x.dim() == 3 else 0
+    size = x.shape[axis] // n
+    if size * n != x.shape[axis]:
+        raise ValueError(f"batch entry {key!r} has {x.shape[axis]} rows: "
+                         f"not {n} equal microbatches")
+    return x.narrow(axis, k * size, size)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,
                     accum_steps: int = 1,
                     grad_transform: Optional[Callable] = None) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics); ``params`` (the same tree) and ``opt_state`` are updated in
     place. With ``accum_steps`` > 1 the batch splits into that many
-    microbatches along its first axis; their gradients add up in fp32 and
-    are divided by ``accum_steps``, and the metrics are the last
+    microbatches along its batch axis (axis 1 of M-RoPE's (3, B, S)
+    ``positions``, axis 0 of every other entry); their gradients add up in
+    fp32 and are divided by ``accum_steps``, and the metrics are the last
     microbatch's. ``grad_transform`` (e.g. int8 compression) runs on the
     gradients before the optimizer; ``grad_norm`` is the norm of what the
     optimizer receives."""
@@ -98,8 +110,7 @@ def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             for k in range(accum_steps):
-                micro = {key: x.reshape(accum_steps, x.shape[0] // accum_steps,
-                                        *x.shape[1:])[k]
+                micro = {key: _microbatch(key, x, accum_steps, k)
                          for key, x in batch.items()}
                 g, metrics = single_grads(params, micro)
                 for acc, gi in zip(leaves(grads), leaves(g)):

@@ -577,6 +577,10 @@ class IncrementalCore:
         rep["descends"] = int(self.descends)
         return rep
 
+    def reset_phases(self) -> None:
+        """Zero the per-phase timers (benchmarks call this after warmup)."""
+        self.phase_seconds = {}
+
     # ------------------------------------------------------------- views
 
     @property
@@ -1166,6 +1170,14 @@ class IncrementalCore:
         self.on_update(removed=edges)
         return self.demoted - before
 
+    def on_edge(self, u: int, v: int) -> int:
+        """Repair after ``g.add_edge(u, v)`` returned True.
+
+        Single-edge compatibility wrapper over ``on_edge_block``; returns the
+        number of nodes whose core number was promoted.
+        """
+        return self.on_edge_block(np.array([[u, v]], np.int64))
+
     # ------------------------------------------------------------- oracle
 
     def resync(self) -> int:
@@ -1182,6 +1194,16 @@ class IncrementalCore:
         return mismatches
 
     # ------------------------------------------------------------- drift
+
+    def drift(self) -> int:
+        """#nodes whose core number changed since the last ``mark_refresh``.
+
+        Newly appeared nodes count (their baseline level is 0); so do nodes
+        demoted by deletions — drift is direction-agnostic.
+        """
+        self._ensure_size()
+        n = self.g.n_nodes
+        return int(np.sum(self._core[:n] != self._baseline[:n]))
 
     def membership_drift(self, k0: int) -> tuple:
         """k0-core membership churn since the last ``mark_refresh``.

@@ -40,11 +40,17 @@ a kernel that fails to build or launch, or any other device error,
 propagates to the caller. ``faults.InjectedCrash`` (simulated process
 death) is a ``BaseException`` and passes every handler.
 
-Not in this port yet: the SLO engine and pipelined ingest (staging block
-N+1 while block N's descent is in flight): the descent here reads a flag
-back every sweep, so the card would sit idle while the host staged, and
-every block is repaired before the next one is taken; ``sync()`` is a
-device synchronize at a block boundary.
+A live SLO engine (``attach_slo``, ``obs.slo``) is fed at the JAX
+package's points: each ingested block's edges/s, each flush's seconds and
+whether it was degraded; the store's staleness is sampled when the health
+is read. ``dispatch_cost_report`` measures one fused flush with
+``obs.compiled_cost``.
+
+Not in this port: pipelined ingest (staging block N+1 while block N's
+descent is in flight): the descent here reads a flag back every sweep, so
+the card would sit idle while the host staged, and every block is repaired
+before the next one is taken; ``sync()`` is a device synchronize at a block
+boundary.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ import torch
 
 from repro_torch.device import synchronize
 from repro_torch.kernels import ops
-from repro_torch.obs import Histogram, metrics
+from repro_torch.obs import Histogram, compiled_cost, metrics
 from repro_torch.obs import trace as obs
 
 from . import faults
@@ -150,6 +156,9 @@ class EmbeddingService:
         # transactional retrain (store rolled back on an injected fault),
         # and an optional hang watchdog around blocking device reads
         self._recovery = None
+        # live SLO engine (obs.slo): attach_slo() wires the stock
+        # objectives; hot paths feed it only when attached (None check)
+        self._slo = None
         self.flush_retries = max(int(flush_retries), 0)
         self.retry_backoff = float(retry_backoff)
         self.degraded = False
@@ -166,6 +175,32 @@ class EmbeddingService:
         every block is WAL-logged before mutation, snapshots run on its
         cadence."""
         self._recovery = manager
+
+    def attach_slo(self, engine=None, **thresholds):
+        """Attach a live :class:`~repro_torch.obs.slo.SLOEngine` (or build
+        the stock one, ``thresholds`` forwarded to
+        :func:`~repro_torch.obs.slo.default_slos`).
+
+        Event objectives (flush latency, per-block ingest rate, degraded
+        fraction) are fed from the hot paths at one comparison + one deque
+        append per event; the staleness objective is provider-backed (the
+        stale-row walk is O(resident rows)) and sampled only when
+        ``slo_health()`` / ``publish_metrics`` pull it. Returns the engine.
+        """
+        if engine is None:
+            from repro_torch.obs.slo import default_slos
+
+            thresholds.setdefault(
+                "staleness_provider",
+                lambda: self.store.staleness(self.cores.core),
+            )
+            engine = default_slos(**thresholds)
+        self._slo = engine
+        return engine
+
+    def slo_health(self):
+        """Current SLO snapshot (``None`` when no engine is attached)."""
+        return None if self._slo is None else self._slo.health()
 
     def _on_hang(self) -> None:
         """HangWatchdog callback: count the hang, enter degraded mode."""
@@ -232,6 +267,7 @@ class EmbeddingService:
         retraining on, drift is re-checked after the repair.
         """
         edges = self._validate_block(edges)
+        t_slo = time.perf_counter() if self._slo is not None else 0.0
         with obs.span("serve.ingest", block=len(edges)) as sp:
             if self._recovery is not None:  # durable *before* any mutation
                 self._recovery.log_block(KIND_INGEST, edges)
@@ -246,6 +282,13 @@ class EmbeddingService:
             self._maybe_compact()
             if self.auto_retrain:
                 self.maybe_retrain()
+        if self._slo is not None and len(accepted):
+            # the block's edges/s from before its WAL append to after its
+            # repair (and any compaction or retrain it triggered)
+            self._slo.observe(
+                "ingest_rate",
+                len(accepted) / max(time.perf_counter() - t_slo, 1e-9),
+            )
         if self._recovery is not None:
             self._recovery.after_block()
         return accepted
@@ -367,14 +410,15 @@ class EmbeddingService:
         """Slot gather -> §2.2 cold-start mean -> select -> write-back, on
         the store's device. ``wb_slots[i]`` is the pre-reserved target slot
         of a cold row (``capacity`` = no write-back), or None when nothing
-        is written back. Returns ``(out (B, dim), resolved (B,))`` tensors.
+        is written back; each input is a numpy array or a tensor. Returns
+        ``(out (B, dim), resolved (B,))`` tensors.
         """
         st = self.store
         dev, cap, sentinel = self.device, st.capacity, self.graph.node_cap
         table = st.table()
         slot_of = st.slot_table_dev()
-        nodes_t = torch.tensor(nodes_c, device=dev)
-        found_t = torch.tensor(found, device=dev)
+        nodes_t = torch.as_tensor(nodes_c, device=dev)
+        found_t = torch.as_tensor(found, device=dev)
         idx = self.graph.ell().neighbours[nodes_t]  # (B, W) neighbour ids
         slots = slot_of[idx.long()]  # (B, W) store slots (sentinel = cap)
         valid = (idx != sentinel) & (slots < cap)
@@ -389,7 +433,7 @@ class EmbeddingService:
             # zeros, so the sentinel stays zero; the write lands in the
             # device table in place (index_copy_), where the JAX package's
             # jitted program returned a new table
-            wb = torch.tensor(wb_slots, device=dev)
+            wb = torch.as_tensor(wb_slots, device=dev)
             do_wb = ~found_t & resolved & (wb < cap)
             wslots = torch.where(do_wb, wb, cap).long()
             table.index_copy_(0, wslots, torch.where(do_wb[:, None], out, 0.0))
@@ -538,7 +582,13 @@ class EmbeddingService:
             reg.counter("serve_cold_starts_total").inc(n_cold)
             reg.counter("serve_unresolved_total").inc(n_unresolved)
             self.stats.flushes += 1
-            self.stats.flush_seconds.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.stats.flush_seconds.observe(dt)
+            if self._slo is not None:
+                self._slo.observe("flush_latency", dt)
+                self._slo.observe(
+                    "degraded_serving", 1.0 if degraded_batch else 0.0
+                )
             sp.set(hits=n_hits, cold=n_cold, unresolved=n_unresolved)
         return out
 
@@ -787,4 +837,28 @@ class EmbeddingService:
         reg.gauge("serve_retrain_pressure").set(self.retrain_pressure())
         reg.gauge("store_staleness").set(
             self.store.staleness(self.cores.core)
+        )
+        if self._slo is not None:
+            self._slo.publish(reg)
+
+    def dispatch_cost_report(self) -> dict:
+        """Measured cost of one fused flush (``_fused_flush``: gather ->
+        cold-start mean -> select -> write-back) at the batch the serving
+        path dispatches, from :func:`~repro_torch.obs.compiled_cost`: flops,
+        bytes accessed, argument / output / temp bytes.
+
+        The inputs are the JAX package's: node 0 in every row, none found,
+        every write-back slot ``capacity``, so the only write is zeros into
+        the zero sentinel row and the table, slot map and stats stay as they
+        were. The call runs on the device like any flush (on the card, one
+        ELL-mean launch); call it at export time, not on the hot path.
+        """
+        self.store.ensure_nodes(self.graph.node_cap)
+        dev, b = self.device, self.batch
+        return compiled_cost(
+            self._fused_flush,
+            torch.zeros(b, dtype=torch.int64, device=dev),
+            torch.zeros(b, dtype=torch.bool, device=dev),
+            torch.full((b,), self.store.capacity, dtype=torch.int32,
+                       device=dev),
         )

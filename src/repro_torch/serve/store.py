@@ -72,6 +72,9 @@ class EmbeddingStore:
     def __len__(self) -> int:
         return self.capacity - len(self._free)
 
+    def __contains__(self, node: int) -> bool:
+        return self._slot_of[node] < self.capacity or node in self._spill
+
     @property
     def resident(self) -> int:
         return len(self)
@@ -83,6 +86,10 @@ class EmbeddingStore:
     def slots_of(self, nodes: np.ndarray) -> np.ndarray:
         """(B,) int32 device-table slots; absent/spilled -> ``capacity``."""
         return self._slot_of[np.asarray(nodes)]
+
+    def slot_table(self) -> np.ndarray:
+        """(node_cap + 1,) node->slot map (sentinel = capacity). Live view."""
+        return self._slot_of
 
     def slot_table_dev(self) -> torch.Tensor:
         """Device copy of the node->slot map, re-uploaded only after writes."""
@@ -110,6 +117,12 @@ class EmbeddingStore:
         valid = np.zeros(self._rows, bool)
         valid[: self.capacity] = self._node_at >= 0
         return valid
+
+    def candidate_bias(self) -> np.ndarray:
+        """(capacity + 1,) float32 additive retrieval mask: 0 on live rows,
+        -inf on dead and sentinel rows — the top-k kernel adds it to scores
+        so dead rows can never enter a result."""
+        return np.where(self.row_valid(), 0.0, -np.inf).astype(np.float32)
 
     # ------------------------------------------------------------- writes
 
@@ -200,6 +213,10 @@ class EmbeddingStore:
         self._table.index_copy_(0, slots, rows)
         self._slot_dirty = True
         metrics().counter("store_rows_written_total").inc(len(staged))
+
+    def put(self, node: int, vec: np.ndarray, core: int) -> None:
+        self.put_many(np.asarray([node]), np.asarray(vec)[None],
+                      np.asarray([core]))
 
     # ------------------------------------------------- fused-flush support
     # The fused flush (service._flush_batch) gathers, cold-starts, and

@@ -80,6 +80,9 @@ class DynamicGraph:
 
     # ------------------------------------------------------------- host side
 
+    def degree(self, v: int) -> int:
+        return int(self._deg[v]) + len(self._overflow.get(v, ()))
+
     def degrees(self) -> np.ndarray:
         deg = self._deg[: self.n_nodes].astype(np.int64).copy()
         for v, extra in self._overflow.items():
@@ -109,6 +112,13 @@ class DynamicGraph:
         if extra:
             return np.concatenate([row, np.asarray(extra, np.int32)])
         return row.copy()
+
+    def has_edge(self, u: int, v: int) -> bool:
+        if u >= self.node_cap:
+            return False
+        if np.any(self._nbr[u, : self._deg[u]] == v):
+            return True
+        return v in self._overflow.get(u, ())
 
     def arc_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         """All current arcs as (src, dst) int64 arrays (table + overflow).
@@ -268,6 +278,10 @@ class DynamicGraph:
             metrics().counter("graph_edges_added_total").inc(len(edges))
         return edges
 
+    def add_edge(self, u: int, v: int) -> bool:
+        """Insert one undirected edge. Returns False for self-loops/duplicates."""
+        return bool(len(self.add_edges(np.array([[u, v]], np.int64))))
+
     def _remove_arc(self, a: int, b: int) -> None:
         """Drop arc a->b: swap-with-last in the table, backfill from overflow."""
         d = int(self._deg[a])
@@ -320,9 +334,17 @@ class DynamicGraph:
             metrics().counter("graph_edges_removed_total").inc(len(edges))
         return edges
 
+    def remove_edge(self, u: int, v: int) -> bool:
+        """Delete one undirected edge. Returns False if it was not present."""
+        return bool(len(self.remove_edges(np.array([[u, v]], np.int64))))
+
     @property
     def overflow_arcs(self) -> int:
         return sum(len(x) for x in self._overflow.values())
+
+    @property
+    def needs_compact(self) -> bool:
+        return bool(self._overflow)
 
     def compact(self, min_width: int = 4) -> None:
         """Pause-free re-pack at a fresh slacked width (merges overflow).

@@ -24,7 +24,10 @@ encoder-decoder and vision models' prefill and 8 decode steps on the card
 against the CPU: tokens equal, logits 1e-4; one LM train step on the card against the CPU: loss and
 grad_norm 1e-5, the moments 1e-4 x their largest magnitude, the params
 1e-3 x the rate where Adam does not amplify a gradient's rounding;
-checkpointed card tensors bit for bit, restored in place.
+checkpointed card tensors bit for bit, restored in place. Each kernel
+wrapper's cost tally (``kernels.cost``) holds exactly the bytes and
+operations ``chip_smoke.py`` bounds the call by, and ``obs.compiled_cost``
+of a lone ``ops.ell_mean`` counts them.
 """
 import numpy as np
 import pytest
@@ -1026,3 +1029,113 @@ def test_checkpoint_restores_card_tensors_in_place(cuda, tmp_path):
     assert torch.equal(got["a"].view(torch.int16), want["a"].view(torch.int16))
     assert torch.equal(got["b"], want["b"])
     assert grew <= 64 * 2**20, grew
+
+
+def _probes(values, valid, est):
+    """The sort-free search's compares on these inputs (``chip_smoke``'s
+    ``probes_of``): each live row's valid count, once a probe."""
+    vals = torch.where(valid, values, -1)
+    deg = valid.sum(1)
+    lo = torch.zeros_like(est)
+    hi = est.clamp_min(0).clamp_max(vals.shape[1])
+    total = 0
+    while bool((lo < hi).any()):
+        live = lo < hi
+        total += int(deg[live].sum())
+        mid = (lo + hi + 1) // 2
+        ok = (vals >= mid[:, None]).sum(1) >= mid
+        lo = torch.where(live & ok, mid, lo)
+        hi = torch.where(live & ~ok, mid - 1, hi)
+    return total
+
+
+def _cost_cases(dev):
+    """name -> (the kernel's wrapper, its arguments, the (bytes,
+    operations) of the call's bound)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    n, l, m, d = 64, 300, 5000, 128
+    idx = torch.randint(0, m, (n, l), generator=gen, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((n, l), generator=gen, device=dev) < 0.6
+    emb = torch.randn((m, d), generator=gen, device=dev)
+    cnt = int(valid.sum())
+    out["ell_mean"] = (ellmean.ell_mean_cuda, (idx, valid, emb),
+                       (cnt * d * 4 + n * l * 5 + n * d * 4, cnt * d))
+    r, w = 500, 64
+    values = torch.randint(0, 80, (r, w), generator=gen, device=dev,
+                           dtype=torch.int32)
+    hvalid = torch.rand((r, w), generator=gen, device=dev) < 0.7
+    est = torch.randint(0, 80, (r,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    est[:7] = 0
+    out["h_index"] = (
+        hindex.h_index_cuda, (values, hvalid, est),
+        (int(hvalid[est > 0].sum()) * 5 + r * 8,
+         _probes(values, hvalid, est)))
+    nq, nt, k = 64, 9000, 150  # two rounds of the top-k
+    q = torch.randn((nq, d), generator=gen, device=dev)
+    table = torch.randn((nt, d), generator=gen, device=dev)
+    bias = torch.zeros(nt, device=dev)
+    out["top_k"] = (topk.topk_cuda, (q, table, bias, k),
+                    (nt * d * 4 + nt * 4 + nq * d * 4 + nq * k * 8,
+                     2.0 * nq * nt * d))
+    b, kn, dd = 4096, 5, 150
+    c, x = (torch.randn((b, dd), generator=gen, device=dev) for _ in "cx")
+    ng = torch.randn((b, kn, dd), generator=gen, device=dev)
+    dout = torch.randn(b, generator=gen, device=dev)
+    in_bytes = (2 * b * dd + b * kn * dd) * 4
+    flops = 2.0 * b * dd * (kn + 1)
+    out["sgns_fwd"] = (sgns.sgns_fwd_cuda, (c, x, ng),
+                       (in_bytes + 4 * b, flops))
+    out["sgns_bwd"] = (sgns.sgns_bwd_cuda, (c, x, ng, dout),
+                       (2 * in_bytes + 4 * b,
+                        flops + 3.0 * b * dd * (kn + 1)))
+    bq, h, hkv, dh, s, window = 8, 32, 8, 128, 1088, 700
+    qd = torch.randn((bq, h, dh), generator=gen, device=dev).bfloat16()
+    kd, vd = (torch.randn((bq, s, hkv, dh), generator=gen,
+                          device=dev).bfloat16() for _ in "kv")
+    lens = torch.randint(1, s + 40, (bq,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lo = (lens - window).clamp_min(0)
+    vis = int((lens.clamp_max(s) - lo).clamp_min(0).sum())
+    out["decode_attention"] = (
+        flash_decode.decode_attention_cuda, (qd, kd, vd, lens, lo),
+        (vis * hkv * dh * 2 * 2 + 2 * qd.numel() * 2 + 8 * bq,
+         4.0 * vis * h * dh))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ell_mean", "h_index", "top_k", "sgns_fwd",
+                                  "sgns_bwd", "decode_attention"])
+def test_kernel_wrappers_reckon_the_smoke_formulas(cuda, name):
+    """Each wrapper adds, per call, the bytes and operations of the bound
+    formulas (written out here apart from ``kernels.cost``, which
+    ``chip_smoke.py`` bounds the kernels with) to an open tally."""
+    from repro_torch.kernels import cost
+
+    fn, args, (nbytes, nops) = _cost_cases(cuda)[name]
+    fn(*args)  # the first call loads the kernel
+    with cost.tally() as t:
+        fn(*args)
+        fn(*args)
+    torch.cuda.synchronize()
+    assert (t.bytes, t.operations) == (2.0 * nbytes, 2.0 * nops)
+
+
+@pytest.mark.cuda
+def test_compiled_cost_counts_a_lone_ell_mean(cuda):
+    """``obs.compiled_cost`` of one ``ops.ell_mean`` call on the card: its
+    FLOPs are the kernel's reckoned operations (no aten op of the call does
+    arithmetic), its bytes at least the kernel's reckoned bytes, its
+    argument and output bytes the tensors' ``nbytes``."""
+    from repro_torch.obs import compiled_cost
+
+    _, (idx, valid, emb), (nbytes, nops) = _cost_cases(cuda)["ell_mean"]
+    rep = compiled_cost(ops.ell_mean, idx, valid, emb)
+    assert rep["flops"] == nops > 0
+    assert rep["bytes_accessed"] >= nbytes
+    assert rep["argument_bytes"] == idx.nbytes + valid.nbytes + emb.nbytes
+    assert rep["output_bytes"] == idx.shape[0] * emb.shape[1] * 4
+    assert rep["temp_bytes"] >= 0

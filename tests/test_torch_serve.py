@@ -5,8 +5,15 @@ split, the k0-core table and the churn are all numpy ``default_rng``), are
 driven through the same blocks, and must agree: core numbers exactly after
 every block, embeddings and link scores within 1e-5 (fp32 means summed in
 another order), top-k ids equal except at near-tied scores. The same holds
-after the JAX package's state is carried over with ``from_jax_state``.
+after the JAX package's state is carried over with ``from_jax_state``. The
+single-edge and reporting helpers (``IncrementalCore.drift`` /
+``reset_phases`` / ``on_edge``, the store's ``put`` / ``in`` /
+``slot_table`` / ``candidate_bias``, the graph's ``add_edge`` /
+``remove_edge`` / ``has_edge`` / ``degree`` / ``needs_compact``) give the
+JAX package's answers on the same streams.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -255,10 +262,143 @@ def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
         "replayed records" in out
     assert "core mismatches vs oracle: 0" in out
     assert "recovered after injected crash" in out
-    for flags in (["--jax-profile", "x"], ["--shards", "2"]):
+    for flags, says in ((["--jax-profile", "x"], "profiles with --profile"),
+                        (["--shards", "2"],
+                         "not implemented in the PyTorch port")):
         with pytest.raises(SystemExit):
             serve_embed.main(["--device", "cpu", "--dataset", "tiny", *flags])
-        assert "not implemented in the PyTorch port" in capsys.readouterr().err
+        assert says in capsys.readouterr().err
+
+
+def test_launcher_profiles_the_ingest_and_exports_metrics(capsys, tmp_path):
+    """``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+    ingest window (the repair's spans in it) and prints where;
+    ``--metrics-out`` writes the registry (with no card, ``record_memory``
+    adds no device gauge)."""
+    prof, out_json = tmp_path / "prof", tmp_path / "m.json"
+    assert serve_embed.main(["--device", "cpu", "--dataset", "tiny",
+                             "--requests", "32", "--block-size", "16",
+                             "--churn", "0.1", "--batch", "16", "--verify",
+                             "--profile", str(prof),
+                             "--metrics-out", str(out_json)]) > 0
+    out = capsys.readouterr().out
+    traces = list(prof.iterdir())
+    assert len(traces) == 1
+    assert f"profile: captured to {traces[0]}" in out
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::index" for e in events)
+    snap = json.loads(out_json.read_text())
+    assert snap["serve_queries"]["series"][0]["value"] > 0
+    assert ("device_bytes_in_use" in snap) == torch.cuda.is_available()
+
+
+def _cores_without(dyn_cls, inc_cls, g, stream, **kw):
+    """A DynamicGraph (``dyn_cls``) + IncrementalCore (``inc_cls``) on g's
+    edges less ``stream``."""
+    streamed = set(map(tuple, stream.tolist()))
+    edges = g.edge_list()
+    base = edges[[tuple(e) not in streamed for e in edges.tolist()]]
+    dyn = dyn_cls(g.n_nodes, base, width=6, **kw)
+    return dyn, inc_cls(dyn)
+
+
+def test_repair_helpers_match_jax():
+    """One churned stream through both packages' repair layer: ``drift()``
+    after ``mark_refresh`` and more blocks, ``reset_phases()`` emptying
+    ``phase_report()``, and the per-edge ``on_edge`` repair, cores equal to
+    the JAX package's after each edge."""
+    g = generators.barabasi_albert_varying(300, 4.0, seed=8)
+    edges = g.edge_list()
+    stream = edges[np.random.default_rng(8).permutation(len(edges))[:400]]
+    dyn, inc = _cores_without(DynamicGraph, IncrementalCore, g, stream,
+                              device="cpu")
+    jdyn, jinc = _cores_without(jserve.DynamicGraph, jserve.IncrementalCore,
+                                g, stream)
+    rng = np.random.default_rng(9)
+    for start in range(0, 160, 20):
+        if start == 80:
+            inc.mark_refresh()
+            jinc.mark_refresh()
+            assert inc.drift() == jinc.drift() == 0
+        acc = dyn.add_edges(stream[start:start + 20])
+        np.testing.assert_array_equal(acc, jdyn.add_edges(
+            stream[start:start + 20]))
+        inc.on_edge_block(acc)
+        jinc.on_edge_block(acc)
+        live = dyn.arc_arrays()
+        pick = rng.choice(len(live[0]), size=4, replace=False)
+        drop = np.stack([live[0][pick], live[1][pick]], 1)
+        gone = dyn.remove_edges(drop)
+        np.testing.assert_array_equal(gone, jdyn.remove_edges(drop))
+        inc.on_remove(gone)
+        jinc.on_remove(gone)
+        assert inc.drift() == jinc.drift()
+    assert inc.drift() > 0
+    assert set(inc.phase_report()) and set(jinc.phase_report())
+    inc.reset_phases()
+    jinc.reset_phases()
+    assert inc.phase_report() == jinc.phase_report() == {}
+    promoted = 0
+    for u, v in stream[160:]:
+        added = dyn.add_edge(int(u), int(v))
+        assert added == jdyn.add_edge(int(u), int(v))
+        if added:
+            got = inc.on_edge(int(u), int(v))
+            assert got == jinc.on_edge(int(u), int(v))
+            promoted += got
+        np.testing.assert_array_equal(inc.core, np.asarray(jinc.core))
+    np.testing.assert_array_equal(inc.core, core_numbers_host(dyn.snapshot()))
+    assert promoted > 0 and set(inc.phase_report())
+
+
+def test_store_helpers_match_jax():
+    """``put`` (with evictions), ``in``, ``slot_table`` and
+    ``candidate_bias`` of the two packages' stores, driven alike."""
+    rng = np.random.default_rng(2)
+    st = EmbeddingStore(6, 4, 20, device="cpu")
+    jst = jserve.EmbeddingStore(6, 4, 20)
+    for i in range(14):
+        node = int(rng.integers(0, 20))
+        vec = rng.normal(size=4).astype(np.float32)
+        st.put(node, vec, i % 3)
+        jst.put(node, vec, i % 3)
+        for n in range(21):
+            assert (n in st) == (n in jst)
+        np.testing.assert_array_equal(st.slot_table(), jst.slot_table())
+        np.testing.assert_array_equal(st.candidate_bias(),
+                                      jst.candidate_bias())
+    assert st.evictions == jst.evictions > 0 and st.spilled > 0
+    assert st.candidate_bias().dtype == np.float32
+    assert np.isneginf(st.candidate_bias()[-1])  # the zero sentinel row
+    np.testing.assert_array_equal(st.table().numpy(), np.asarray(jst.table()))
+
+
+def test_stream_helpers_match_jax():
+    """``add_edge`` / ``remove_edge`` / ``has_edge`` / ``degree`` /
+    ``needs_compact`` of both packages' graphs, through overflow (width 2)
+    and a compaction."""
+    rng = np.random.default_rng(3)
+    dyn = DynamicGraph(20, width=2, device="cpu")
+    jdyn = jserve.DynamicGraph(20, width=2)
+    for step in range(120):
+        u, v = (int(x) for x in rng.integers(0, 24, 2))
+        if step % 3 == 2:
+            assert dyn.remove_edge(u, v) == jdyn.remove_edge(u, v)
+        else:
+            assert dyn.add_edge(u, v) == jdyn.add_edge(u, v)
+        assert dyn.needs_compact == jdyn.needs_compact
+        if step == 80:
+            assert dyn.needs_compact
+            dyn.compact()
+            jdyn.compact()
+            assert not dyn.needs_compact
+    assert dyn.node_cap == jdyn.node_cap
+    for a in range(dyn.node_cap + 3):  # ids past node_cap have no edges
+        if a < dyn.node_cap:
+            assert dyn.degree(a) == jdyn.degree(a)
+        for b in range(26):
+            assert dyn.has_edge(a, b) == jdyn.has_edge(a, b)
+    assert dyn.n_edges == jdyn.n_edges
 
 
 def test_launcher_trains_the_base_on_cpu(capsys):

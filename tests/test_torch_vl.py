@@ -14,7 +14,9 @@ positions with and without sections (the latter rotates by stream 0),
 prefill step (1e-5) and four greedy decode steps (flash-decode's plain
 version at G = 7; tokens equal, logits and cache 1e-5), the decode's
 rotation at the cache length on all three streams in both packages, and
-both launchers' refusals.
+both launchers' refusals. The port's train step at ``accum_steps=2``
+(``positions`` split along axis 1) is held to its unsplit step (rtol
+1e-5, atol 1e-6): the JAX package's fails on this batch.
 """
 import dataclasses
 
@@ -281,3 +283,35 @@ def test_decode_rotates_at_the_cache_length_in_both_packages():
 
 def test_launchers_refuse_vl():
     check_launchers_refuse(ARCH)
+
+
+def test_accumulation_splits_mrope_positions_along_the_batch_axis():
+    """``make_train_step(accum_steps=2)`` on a qwen2-vl batch: the (3, B, S)
+    ``positions`` split along axis 1, every other entry along axis 0. With
+    an all-ones mask the two microbatches hold equal token counts, so the
+    accumulated gradients equal the unsplit step's (fp32, rtol 1e-5,
+    atol 1e-6). The JAX package cannot be the reference here: its step
+    splits ``positions`` along axis 0 and fails."""
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.train import optim
+    from repro_torch.train.tree import leaves
+
+    jcfg, tcfg = _cfgs(**GQA)
+    _, tparams = _weights(jcfg, tcfg)
+    batch = _batch(tcfg, seed=5)
+    batch["targets"] = np.random.default_rng(6).integers(
+        0, tcfg.vocab_size, (B, S)).astype(np.int32)
+    batch["mask"] = np.ones((B, S), np.float32)
+    tb = _both(batch)[1]
+    grads = {}
+    for accum in (1, 2):
+        seen = []
+        opt = optim.sgd(0.0)  # the params stay as they are
+        step = make_train_step(tcfg, opt, accum_steps=accum,
+                               grad_transform=lambda g: seen.append(g) or g)
+        step(tparams, opt.init(tparams), tb)
+        grads[accum] = leaves(seen[0])
+    assert len(grads[1]) == len(grads[2])
+    for i, (g2, g1) in enumerate(zip(grads[2], grads[1])):
+        np.testing.assert_allclose(g2.numpy(), g1.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"leaf {i}")
