@@ -173,7 +173,36 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    launcher at the reduced preset on the card:
    resumed from a checkpoint against an uninterrupted run (steps 8-11
    within 1e-6; the restore allocates at most one leaf on the card),
-   ``--compress-grads`` (falling) and ``--accum 2`` (finite).
+   ``--compress-grads`` (falling) and ``--accum 2`` (finite);
+13. the dry run of the production single-pod mesh, the "dryrun" path
+   (``dryrun_phase``): (a) ``python -m repro_torch.launch.dryrun --mesh
+   single --device cuda`` over every arch at ``DRYRUN_SHAPES`` and the
+   graph cell, one process an arch, all started together (each cell rank
+   0 of a fake process group of 256 ranks on meta shards).
+   ``DRYRUN_DROPPED`` lists the cells the smoke leaves out for time (they
+   are in the committed ``results/dryrun_torch.json``). Held: no
+   ``fail``, the JAX package's skip set (the full-attention archs at
+   long_500k), FLOPs on every ``ok`` cell; printed: a table of per-device
+   argument and temp GiB, TFLOP and collective MiB, and the sweep's time.
+   (b) ``--real`` on ``DRYRUN_REAL``: qwen3-4b decode_32k (flash-decode
+   on rank 0's shards: the cache split along its sequence and gathered,
+   the rank's query heads kept and their KV head picked), qwen3-4b
+   train_4k and deepwalk-web1b train_4k (both SGNS kernels on the rank's
+   own pairs), rank 0's shards on the card with seeded values, the
+   collectives faked. Held: exactly 36 flash-decode launches a decode
+   step, SGNS forward and backward launches > 0, every launch at the
+   rank's own shard shape (``DRYRUN_DECODE_SHAPE``,
+   ``DRYRUN_SGNS_SHAPE``), the measured peak below the card's memory;
+   printed: step ms (median of 5 after 2 warm-ups), the measured peak
+   beside the tracker's temp and argument bytes, TFLOP, launches. These
+   launches are the path's counts in the kernels line. (c) qwen3-4b at
+   full width on a real 1x1 mesh (NCCL, a world of one): a prefill of 8 x
+   1,024 and 8 greedy steps through ``distribute_tree`` and the sharded
+   flash-decode, held bit-equal to the same steps with no mesh (36 x 8
+   launches), the group destroyed after. Then flash-decode and both SGNS
+   kernels at (b)'s per-device shapes, against their plain versions, with
+   their bounds (and the SDPA time for flash-decode): rows of the kernels
+   line's ``large``.
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
@@ -186,7 +215,7 @@ and records which of its two paths each shape takes.
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
 serving, the hub, the resilience, the offline, the four LM serving, the
-two step and the train path, each path's count beside it; the h-index's hub kernel also as
+two step, the train and the dryrun path, each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -325,6 +354,32 @@ DECODE_SHAPES = [
     # zamba2-7b's heads (MHA, Dh = 112 on the 128-wide build)
     ("large Dh=112", 32, 32, 32, 112, 8192, 0.0, 0, False),
 ]
+# the dry run's single-pod sweep (launch/dryrun) runs one subprocess per
+# arch (and one for the graph cell), all started together.
+# Left out of the smoke's sweep for time: the full-attention archs' 32k
+# prefills (190-380 s each there, eight at once; their chunked attention
+# is ~1,000 blocks a layer of eager ops on the host), grok-1-314b's
+# train_4k (180 s) and nemotron-4-15b's decode_32k (120 s, which with its
+# train_4k's 131 s in one process made the sweep 268 s). They are in the
+# committed results/dryrun_torch.json, which the CPU makes
+DRYRUN_DROPPED = tuple((a, "prefill_32k") for a in (
+    "gemma2-2b", "grok-1-314b", "moonshot-v1-16b-a3b", "nemotron-4-15b",
+    "qwen2-vl-7b", "qwen3-4b", "seamless-m4t-large-v2", "starcoder2-7b")) \
+    + (("grok-1-314b", "train_4k"), ("nemotron-4-15b", "decode_32k"))
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# the cells run again for real on the card (rank 0's local shards):
+# flash-decode on the KV-sequence-split cache, a train step, both SGNS
+# kernels; flash-decode launches a decode step: one a layer
+DRYRUN_REAL = (("qwen3-4b", "decode_32k"), ("qwen3-4b", "train_4k"),
+               ("deepwalk-web1b", "train_4k"))
+DRYRUN_DECODE_LAUNCHES = 36
+# the graph cell's pairs on each of the single pod's 256 ranks (2^20 / 256)
+DRYRUN_SGNS_SHAPE = (4096, 5, 128, "float32")
+# qwen3-4b decode_32k on one rank: 8 of the 128 rows, 2 of the 32 query
+# heads and the one KV head they share, the 32,768 positions gathered
+DRYRUN_DECODE_SHAPE = (8, 2, 1, 128, 32768, "bfloat16")
+# the 1x1 mesh: qwen3-4b at full width, rows x prompt, then greedy steps
+MESH_ROWS, MESH_PROMPT, MESH_STEPS = 8, 1024, 8
 
 SOURCES = {
     "ell_mean": ("src/repro_torch/csrc/ellmean.cu",
@@ -2744,6 +2799,251 @@ def decode_shapes(torch, F, ops, ref, dev="cuda"):
     return recs
 
 
+# ------------------------------------------------------------ dry run ----
+
+
+def _dryrun(args, out, log_path):
+    """Start ``python -m repro_torch.launch.dryrun`` on the card with
+    ``args``, its records to ``out`` and its output to ``log_path``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logf = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+         "cuda", "--mesh", "single", "--out", str(out), *args],
+        cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT), logf
+
+
+def _wait(procs, what):
+    """Wait for every process; on a failure stop the others first."""
+    try:
+        for proc, logf in procs:
+            code = proc.wait()
+            expect(code == 0, f"{what}: launch/dryrun exited {code} (its "
+                   f"log: {logf.name})")
+    finally:
+        for proc, logf in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+
+
+def _dryrun_dir():
+    work = ROOT / "build" / "dryrun"
+    work.mkdir(parents=True, exist_ok=True)
+    return work
+
+
+def dryrun_phase(torch):
+    """The dry run of the production single-pod mesh: (a) the sweep, (b)
+    the real per-device cells, (c) a 1x1 mesh against no mesh. Returns the
+    real cells' launch counts by kernel."""
+    dryrun_sweep()
+    counts = dryrun_real(torch)
+    mesh_1x1_phase(torch)
+    return counts
+
+
+def dryrun_sweep():
+    """(a) The sweep's cells (every arch at ``DRYRUN_SHAPES`` and the graph
+    cell, less ``DRYRUN_DROPPED``), one process an arch, held and
+    tabled."""
+    from repro_torch.configs import REGISTRY, get_config
+
+    work = _dryrun_dir()
+    for old in work.glob("sweep_*.json"):
+        old.unlink()
+    cells = {(a, s) for a in REGISTRY for s in DRYRUN_SHAPES}
+    cells.add(("deepwalk-web1b", "train_4k"))
+    want = cells - set(DRYRUN_DROPPED)
+    archs = sorted({a for a, _ in want})
+    t0 = time.perf_counter()
+    procs = [_dryrun(["--arch", arch, "--shape", ",".join(
+        sorted(s for a, s in want if a == arch))],
+        work / f"sweep_{i}.json", work / f"sweep_{i}.log")
+        for i, arch in enumerate(archs)]
+    _wait(procs, "dryrun sweep")
+    sweep_s = time.perf_counter() - t0
+    recs = {}
+    for i in range(len(archs)):
+        for r in json.loads((work / f"sweep_{i}.json").read_text()):
+            recs[(r["arch"], r["shape"])] = r
+    expect(set(recs) == want, f"dryrun sweep: cells {sorted(set(recs) ^ want)}"
+           " missing or extra")
+    fails = [k for k, r in recs.items() if r["status"] == "fail"]
+    expect(not fails, f"dryrun sweep: failed cells {fails}: " + "; ".join(
+        recs[k]["error"][:200] for k in fails))
+    skips = {k for k, r in recs.items() if r["status"] == "skip"}
+    ref_skips = {(a, "long_500k") for a in REGISTRY
+                 if get_config(a).family not in ("ssm", "hybrid")} & want
+    expect(skips == ref_skips, f"dryrun sweep: skips {sorted(skips)}, the "
+           f"JAX package's {sorted(ref_skips)}")
+    no_flops = [k for k, r in recs.items()
+                if r["status"] == "ok" and not r["flops"] > 0]
+    expect(not no_flops, f"dryrun sweep: no FLOPs in {no_flops}")
+    log(f"dryrun sweep (single pod, 256 fake ranks, {len(archs)} "
+        f"processes): {sweep_s:.1f} s; "
+        f"{len(recs) - len(skips)} ok, {len(skips)} skip, 0 fail; left out "
+        f"for time: {', '.join(f'{a} {s}' for a, s in DRYRUN_DROPPED)}")
+    log(f"  {'arch':24s} {'shape':12s} {'args GiB':>9s} {'temp GiB':>9s} "
+        f"{'TFLOP':>9s} {'coll MiB':>10s}  (per device)")
+    for (arch, shape), r in sorted(recs.items()):
+        if r["status"] != "ok":
+            log(f"  {arch:24s} {shape:12s} skip: {r['reason'][:40]}")
+            continue
+        m = r["memory"]
+        log(f"  {arch:24s} {shape:12s} {m['argument_bytes'] / 2**30:9.3f} "
+            f"{m['temp_bytes'] / 2**30:9.3f} {r['flops'] / 1e12:9.4g} "
+            f"{sum(r['collective_bytes'].values()) / 2**20:10.1f}")
+
+    return recs
+
+
+def dryrun_real(torch):
+    """(b) The real per-device runs (``DRYRUN_REAL``), one process ->
+    their launch counts by kernel, and the local shapes flash-decode and
+    the SGNS kernels were launched at (held to ``DRYRUN_DECODE_SHAPE`` and
+    ``DRYRUN_SGNS_SHAPE``)."""
+    work = _dryrun_dir()
+    t0 = time.perf_counter()
+    archs = ",".join(sorted({a for a, _ in DRYRUN_REAL}))
+    shapes = ",".join(sorted({s for _, s in DRYRUN_REAL}))
+    real = ",".join(f"{a}:{s}" for a, s in DRYRUN_REAL)
+    _wait([_dryrun(["--arch", archs, "--shape", shapes, "--real", real],
+                   work / "real.json", work / "real.log")], "dryrun --real")
+    got = {(r["arch"], r["shape"]): r for r in
+           json.loads((work / "real.json").read_text())}
+    total = torch.cuda.get_device_properties(0).total_memory
+    counts = {"decode_attention": 0, "sgns_fwd": 0, "sgns_bwd": 0}
+    for cell in DRYRUN_REAL:
+        r = got[cell]
+        expect(r["status"] == "ok" and "real" in r,
+               f"dryrun --real {cell}: {r.get('error', r['status'])}")
+        rr = r["real"]
+        expect(0 < rr["peak_bytes"] < total, f"dryrun --real {cell}: peak "
+               f"{rr['peak_bytes']} bytes against the card's {total}")
+        counts["decode_attention"] += rr["launches"]["flash_decode"]
+        counts["sgns_fwd"] += rr["launches"]["sgns_fwd"]
+        counts["sgns_bwd"] += rr["launches"]["sgns_bwd"]
+        log(f"dryrun real {cell[0]} {cell[1]} (rank 0 of 256): step "
+            f"{rr['step_ms']:.3f} ms (median of {len(rr['step_ms_all'])}), "
+            f"peak {rr['peak_bytes'] / 2**30:.3f} GiB measured, tracker "
+            f"temp {r['memory']['temp_bytes'] / 2**30:.3f} GiB + args "
+            f"{r['memory']['argument_bytes'] / 2**30:.3f} GiB, "
+            f"{r['flops'] / 1e12:.4g} TFLOP, launches {rr['launches']}")
+    dec = got[("qwen3-4b", "decode_32k")]["real"]["launches"]
+    expect(dec["flash_decode"] == DRYRUN_DECODE_LAUNCHES,
+           f"dryrun real qwen3-4b decode_32k: {dec['flash_decode']} "
+           f"flash-decode launches, want {DRYRUN_DECODE_LAUNCHES}")
+    graph = got[("deepwalk-web1b", "train_4k")]["real"]["launches"]
+    expect(graph["sgns_fwd"] > 0 and graph["sgns_bwd"] > 0,
+           f"dryrun real deepwalk-web1b: SGNS launches {graph}")
+    shapes = {}
+    for cell, key, want in (
+            (("qwen3-4b", "decode_32k"), "flash_decode", DRYRUN_DECODE_SHAPE),
+            (("deepwalk-web1b", "train_4k"), "sgns_fwd", DRYRUN_SGNS_SHAPE),
+            (("deepwalk-web1b", "train_4k"), "sgns_bwd", DRYRUN_SGNS_SHAPE)):
+        seen = [tuple(x) for x in got[cell]["real"]["shapes"].get(key, [])]
+        expect(seen == [want], f"dryrun real {cell}: {key} launched at "
+               f"{seen}, want each rank's own shards {want}")
+        shapes[key] = want
+    log(f"dryrun --real: kernels launched at flash_decode "
+        f"{shapes['flash_decode']}, sgns {shapes['sgns_fwd']} (rank 0's "
+        f"shards); {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def mesh_1x1_phase(torch):
+    """(c) qwen3-4b at full width (bf16, seeded weights on the card): a
+    prefill of ``MESH_ROWS`` x ``MESH_PROMPT`` and ``MESH_STEPS`` greedy
+    decode steps with no mesh, then on a real 1x1 mesh (NCCL, a world of
+    one: params and tokens DTensors through ``distribute_tree``,
+    flash-decode through its ``local_map`` path): the logits of every step
+    bit-equal, as one rank moves no data."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, sharding_overrides
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  sharding_scope)
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_model, model_specs
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(7), "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_ROWS, MESH_PROMPT),
+                           generator=torch.Generator("cuda").manual_seed(8),
+                           device="cuda", dtype=torch.int32)
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def run(p, place):
+        logits, cache = make_prefill_step(
+            cfg, max_len=MESH_PROMPT + MESH_STEPS)(p, {"tokens": place(
+                tokens)})
+        outs, decode = [full(logits)], make_decode_step(cfg)
+        for _ in range(MESH_STEPS):
+            tok = outs[-1][:, -1].argmax(-1)[:, None].to(torch.int32)
+            logits, cache = decode(p, cache, place(tok))
+            outs.append(full(logits))
+        return outs
+
+    plain = run(params, lambda x: x)
+    expect(not dist.is_initialized(), "a process group before the 1x1 mesh")
+    init_world(device="cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        before = flash_decode.launches
+        with sharding_scope(mesh, **sharding_overrides(cfg.name)):
+            meshed = run(distribute_tree(params, model_specs(cfg),
+                                         src_data_rank=None),
+                         lambda x: distribute_tree(
+                             x, ("batch",) + (None,) * (x.dim() - 1),
+                             src_data_rank=None))
+        launched = flash_decode.launches - before
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(plain, meshed)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(plain, meshed))
+    expect(all(equal), f"1x1 mesh: logits not bit-equal to no mesh "
+           f"({equal}, max abs diff {err})")
+    expect(launched == cfg.n_layers * MESH_STEPS,
+           f"1x1 mesh: {launched} flash-decode launches, want "
+           f"{cfg.n_layers * MESH_STEPS}")
+    log(f"1x1 mesh (NCCL, world 1): qwen3-4b full width, {MESH_ROWS} x "
+        f"{MESH_PROMPT} prefill + {MESH_STEPS} steps: logits bit-equal to "
+        f"no mesh at all {len(equal)} steps; {launched} flash-decode "
+        f"launches on the mesh; {time.perf_counter() - t0:.1f} s")
+    del params, plain, meshed
+    torch.cuda.empty_cache()
+
+
+def dryrun_decode_shape(torch, F, ops, ref, dev="cuda"):
+    """flash-decode at the per-device shape the dry run's real decode cell
+    launched it at (``DRYRUN_DECODE_SHAPE``): qwen3-4b decode_32k on the
+    single pod (8 rows of its 128, the rank's 2 query heads and their one
+    KV head, the cache's 32,768 positions gathered whole, every row
+    full), bf16."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, h, hkv, dh, s, _ = DRYRUN_DECODE_SHAPE
+    q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    lens = torch.full((b,), s, device=dev, dtype=torch.int32)
+    sets = [(q, k, v, lens), (q, torch.roll(k, 1, 0), torch.roll(v, 1, 0),
+                              lens)]
+    rec = check_decode(torch, F, ops, ref, sets, "dryrun qwen3-4b "
+                       "decode_32k per device", iters=10)
+    del sets, k, v
+    return rec
+
+
 # -------------------------------------------------------------- main ----
 
 
@@ -2851,18 +3151,28 @@ def main() -> int:
     train_counts = train_phase(torch, np, counters)
     train_reference_phase(torch, np)
     train_reduced_phase(torch, np)
+    dryrun_counts = {key: 0 for key in counters.table}
+    dryrun_counts.update(dryrun_phase(torch))
+    large_rec["decode_attention"].append(
+        dryrun_decode_shape(torch, F, ops, ref))
+    b, k, d, _ = DRYRUN_SGNS_SHAPE
+    graph = check_sgns(torch, ref, sgns, b, k, d, torch.float32,
+                       "dryrun deepwalk-web1b per device")
+    for name in ("sgns_fwd", "sgns_bwd"):
+        large_rec[name].append(graph[name])
 
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, offline_counts,
-             *lm_counts.values(), train_counts)
+             *lm_counts.values(), train_counts, dryrun_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
                    "offline": offline_counts[name],
                    **{path: c[name] for path, c in lm_counts.items()},
-                   "train": train_counts[name]}
+                   "train": train_counts[name],
+                   "dryrun": dryrun_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {
             "name": name, "route": "cuda", "source": src_path,

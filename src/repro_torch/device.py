@@ -3,6 +3,9 @@
 Every entry point takes an explicit ``device`` and defaults to ``"cuda"``.
 Asking for CUDA on a machine without it raises: the port never drops to the
 CPU on its own, and runs there only when the caller passes ``"cpu"``.
+``"meta"`` builds shapes and dtypes with no storage (the dry run's
+parameter, optimizer and cache trees at full width; the counterpart of
+``jax.eval_shape``).
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ __all__ = ["resolve_device", "synchronize"]
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device`` with a concrete CUDA index; raises
-    when CUDA is asked for and absent, or for any other device type."""
+    when CUDA is asked for and absent, or for a device type other than
+    cuda, cpu and meta."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -23,8 +27,9 @@ def resolve_device(device) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: use 'cuda', 'cpu' "
+                         "or 'meta'")
     return dev
 
 

@@ -27,8 +27,10 @@ Guarantees, as in the JAX package:
   * retention: the newest ``keep`` committed checkpoints stay;
   * ``restore_latest`` walks committed steps newest first and skips one
     that fails to load.
-On one card there are no shards to reassemble across a mesh; restore still
-reads a leaf saved as several shards (a JAX checkpoint from a mesh).
+A DTensor leaf (``launch/train --mesh``) is saved whole (gathered on every
+rank, written by rank 0) and restored into each rank's own slice, so a
+checkpoint moves between meshes; restore also reads a leaf saved as
+several shards (a JAX checkpoint from a mesh).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.train.tree import leaf_paths, unflatten
 
 __all__ = ["CheckpointManager"]
@@ -49,9 +52,12 @@ BF16 = "bfloat16"
 
 
 def _host(leaf):
-    """(numpy copy of ``leaf``, the manifest's dtype name)."""
+    """(numpy copy of ``leaf``, the manifest's dtype name); a DTensor is
+    gathered whole first (every rank takes part)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             words = t.view(torch.int16).to("cpu", copy=True).numpy()
             return words.view(np.dtype("V2")), BF16
@@ -61,6 +67,24 @@ def _host(leaf):
     else:
         arr = np.array(leaf)
     return arr, str(arr.dtype)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _copy_into(t, x):
+    """``t.copy_(x)`` of a whole saved tensor: a DTensor target takes its
+    own slice of x on each rank."""
+    if not is_dtensor(t):
+        return t.copy_(x)
+    from torch.distributed.tensor import distribute_tensor
+    loc = t.to_local()
+    part = distribute_tensor(x.to(loc.device), t.device_mesh, t.placements,
+                             src_data_rank=None)
+    loc.copy_(part.to_local())
+    return t
 
 
 class CheckpointManager:
@@ -73,9 +97,13 @@ class CheckpointManager:
     # ------------------------------------------------------------- save ----
 
     def save(self, step: int, tree: Any, *, blocking: bool = True):
-        """Snapshot ``tree`` (tensors, numpy arrays, ints) for ``step``."""
+        """Snapshot ``tree`` (tensors, numpy arrays, ints) for ``step``.
+        DTensor leaves are saved whole, so a checkpoint moves between
+        meshes; every rank calls this, and rank 0 alone writes."""
         self.wait()
         entries = [(name, *_host(leaf)) for name, leaf in leaf_paths(tree)]
+        if _rank() != 0:
+            return
 
         def write():
             final = os.path.join(self.directory, f"step_{step:09d}")
@@ -200,7 +228,7 @@ class CheckpointManager:
                 if (tuple(t.shape), t.dtype) != (shape, x.dtype):
                     raise ValueError(f"{name}: saved {shape} {x.dtype}, "
                                      f"target {tuple(t.shape)} {t.dtype}")
-                out.append(t.copy_(x))
+                out.append(_copy_into(t, x))
             elif isinstance(t, int) and not isinstance(t, bool):
                 out.append(int(full))
             else:

@@ -15,10 +15,23 @@ The TPU tiling work of the JAX wrappers (lane and row padding, the
 left-pack argsort, the final sort, the decode block size that must divide
 S) has no counterpart: the kernels take the shapes as they come and return
 ordered results.
+
+Under a mesh (``distributed.sharding``), ``sgns_loss`` and
+``decode_attention`` take DTensors: each rank runs the kernel (or, on CPU
+shards, its plain version) on its own local shards through
+``torch.distributed.tensor.experimental.local_map``, the counterpart of a
+``shard_map`` in JAX. The batch stays split as it comes; flash-decode's
+heads stay split with the cache's KV heads, and a cache split along its
+sequence (``kv_seq``) is gathered whole first, each rank keeping its own
+query heads and picking their KV heads (the JAX package's GSPMD combines
+partial softmaxes instead). Every other wrapper refuses a DTensor:
+there is no silent fallback to a global plain version.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.sharding import as_dtensor, is_dtensor, shard_map
 
 from . import ellmean as _em
 from . import flash_decode as _fd
@@ -31,7 +44,14 @@ __all__ = ["sgns_loss", "SGNSLoss", "ell_mean", "h_index_sweep",
            "top_k_scores", "normalize_rows", "decode_attention"]
 
 
+def _is_dtensor(*ts) -> bool:
+    return any(map(is_dtensor, ts))
+
+
 def _resolve(impl: str, t: torch.Tensor, cpu_default: str, allowed) -> str:
+    if _is_dtensor(t):
+        raise TypeError("a DTensor reached a kernel wrapper that has no "
+                        "sharded path: pass its local shard")
     if impl == "auto":
         impl = "cuda" if t.is_cuda else cpu_default
     if impl not in allowed:
@@ -68,13 +88,32 @@ def sgns_loss(center, ctx, neg, *, impl: str = "auto"):
     center, ctx: (B, D); neg: (B, K, D), float32 or bfloat16 -> (B,)
     float32. ``impl``: "cuda" (the fused kernels), "ref" (the plain version,
     differentiated by autograd) or "auto" (by the tensors' device).
+    DTensors: each rank's batch rows on its own (``local_map``).
     """
+    if _is_dtensor(center, ctx, neg):
+        return _sgns_loss_sharded(center, ctx, neg, impl)
     impl = _resolve(impl, center, "ref", ("ref", "cuda"))
     if impl == "ref":
         return _ref.sgns_loss_ref(center, ctx, neg)
     return SGNSLoss.apply(center.contiguous(), ctx.contiguous(),
                           neg.contiguous(), _sg.sgns_fwd_cuda,
                           _sg.sgns_bwd_cuda)
+
+
+def _batch_layout(x):
+    """Placements that keep x's batch (dim 0) split where it is and
+    replicate everything else (a partial sum is reduced)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+
+
+def _sgns_loss_sharded(center, ctx, neg, impl):
+    mesh = next(t.device_mesh for t in (center, ctx, neg) if is_dtensor(t))
+    center, ctx, neg = (as_dtensor(t, mesh) for t in (center, ctx, neg))
+    pl = _batch_layout(center)
+    return shard_map(lambda c, x, n: sgns_loss(c, x, n, impl=impl), mesh,
+                     (pl, pl, pl), pl)(center, ctx, neg)
 
 
 def ell_mean(idx, valid, emb, *, impl: str = "auto"):
@@ -150,8 +189,13 @@ def decode_attention(q, k, v, cache_len, *, softcap: float = 0.0, window=0,
     data), keeps the positions ``max(len - window, 0) <= s < len`` of each
     row; a length above S sees the S cached positions. ``impl``: "cuda" (the
     kernel; the cache must be contiguous), "ref" (the plain version) or
-    "auto" (by the tensors' device).
+    "auto" (by the tensors' device). DTensors: each rank's rows and heads
+    on its own (``local_map``), the cache's sequence gathered whole and the
+    rank's KV heads picked.
     """
+    if _is_dtensor(q, k, v, cache_len):
+        return _decode_attention_sharded(q, k, v, cache_len, softcap, window,
+                                         k_scale, v_scale, impl)
     impl = _resolve(impl, q, "ref", ("ref", "cuda"))
     if impl == "ref":
         return _ref.decode_attention_ref(
@@ -169,3 +213,61 @@ def decode_attention(q, k, v, cache_len, *, softcap: float = 0.0, window=0,
         q.contiguous(), k, v, lens, win_lo.to(torch.int32), softcap=softcap,
         k_scale=k_scale, v_scale=v_scale,
     )
+
+
+def _decode_attention_sharded(q, k, v, cache_len, softcap, window, k_scale,
+                              v_scale, impl):
+    """``decode_attention`` on DTensors. The cache (B, S, Hkv, Dh) keeps its
+    batch and KV-head splits and is gathered along S; q (B, H, Dh) and
+    cache_len (B,) follow the batch split, q's heads the KV heads' split.
+    On an axis that splits q's heads but not the KV heads (the cache split
+    along S, or replicated), q stays split where each rank's H/n heads use
+    a contiguous run of KV heads (their groups whole, or one group shared):
+    the cache is replicated there and each rank picks its own KV heads, as
+    ``attention._attention_by_heads`` does; elsewhere q is gathered. The
+    output is laid out as q."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = next(t.device_mesh for t in (k, q, v, cache_len)
+                if is_dtensor(t))
+    q, k, v, cache_len = (as_dtensor(t, mesh) for t in (q, k, v, cache_len))
+    H, Hkv = q.shape[1], k.shape[2]
+    G = H // Hkv
+    q_pl, kv_pl, len_pl, pick = [], [], [], []
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        h = H // mesh.size(m)
+        if isinstance(pk, Shard) and pk.dim == 0:
+            q_pl.append(pk)
+            kv_pl.append(pk)
+            len_pl.append(pk)
+        elif isinstance(pk, Shard) and pk.dim == 2:
+            q_pl.append(Shard(1))
+            kv_pl.append(pk)
+            len_pl.append(Replicate())
+        elif (isinstance(pq, Shard) and pq.dim == 1 and not pick
+              and H % mesh.size(m) == 0 and (h % G == 0 or G % h == 0)):
+            q_pl.append(pq)
+            kv_pl.append(Replicate())
+            len_pl.append(Replicate())
+            lo = mesh.get_local_rank(m) * h // G
+            pick.append(slice(lo, lo + max(h // G, 1)))
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            len_pl.append(Replicate())
+    quant = k_scale is not None
+    sc_pl = kv_pl if quant else None
+    if quant:
+        k_scale, v_scale = (as_dtensor(t, mesh) for t in (k_scale, v_scale))
+
+    def local(q, k, v, lens, ks, vs):
+        if pick:  # the kernel takes a contiguous cache
+            k, v = (t[:, :, pick[0]].contiguous() for t in (k, v))
+            if quant:
+                ks, vs = (t[:, :, pick[0]].contiguous() for t in (ks, vs))
+        return decode_attention(q, k, v, lens, softcap=softcap,
+                                window=window, k_scale=ks, v_scale=vs,
+                                impl=impl)
+
+    return shard_map(local, mesh, (q_pl, kv_pl, kv_pl, len_pl, sc_pl, sc_pl),
+                     q_pl)(q, k, v, cache_len, k_scale, v_scale)

@@ -1,6 +1,6 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
-The torch counterpart of ``repro.launch.train``, on one device: a
+The torch counterpart of ``repro.launch.train``: a
 decoder-only text LM (``--arch``, ``--preset reduced|full``; the MoE family
 adds its aux losses, ``models.steps.loss_fn``; the encoder-decoder and
 vision archs are refused, as the JAX launcher cannot train them) from
@@ -14,12 +14,24 @@ checkpoints in the JAX package's format with auto-resume, and a
 Unlike the JAX launcher, the compression residual carries from step to step
 (``distributed/compression.py``; the JAX launcher stores a tracer, so every
 step there compresses from zero). The residual is not checkpointed, in
-either package: a resumed run starts it from zero. ``--mesh`` takes only
-"" or "1x1": sharding across devices is not ported (``ROADMAP.md``).
+either package: a resumed run starts it from zero.
+
+``--mesh DxM`` (or ``PxDxM``, axes (pod,) data, model) trains on a mesh of
+that many ranks, whose product must be the world size: under ``torchrun``
+one process a device (NCCL on the card, gloo with ``--device cpu``), a
+1x1 mesh also without it. The params, the optimizer state and each batch
+are laid out by their logical names under the arch's rule overrides
+(``distributed.sharding``; every rank draws the same params and reads the
+same batch, and keeps its own slice), and checkpoints hold whole tensors,
+so a run resumes on another mesh. "" (the default) trains on one device
+with no mesh. ``--compress-grads`` is for the one-device run only.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
       --preset reduced --device cpu --steps 20 --batch 4 --seq 128 \\
       --ckpt-dir "$(mktemp -d)"
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen3-4b --preset reduced --device cpu --mesh 2x2 --steps 3 \\
+      --batch 4 --seq 32 --ckpt-dir "$(mktemp -d)"
 
 A directory that holds a checkpoint is resumed from its newest step, into
 the tensors just built (``CheckpointManager.restore`` copies in place).
@@ -28,19 +40,24 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, sharding_overrides
+from repro_torch.configs.shapes import batch_logical_names
 from repro_torch.data.pipeline import PrefetchIterator, SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.compression import ErrorFeedbackInt8
+from repro_torch.distributed.sharding import (distribute_tree, is_dtensor,
+                                              sharding_scope)
 from repro_torch.distributed.watchdog import HangWatchdog, StragglerMonitor
+from repro_torch.launch.mesh import init_world, make_mesh, parse_mesh
 from repro_torch.models.steps import make_train_step
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import init_model, model_specs
 from repro_torch.train import optim
 
 
@@ -54,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--mesh", default="",
-                    help='"" or "1x1": one device (sharding is not ported)')
+                    help='"" (one device, no mesh), DxM or PxDxM (a mesh '
+                         'of the world: under torchrun, or 1x1)')
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--compress-grads", action="store_true")
@@ -65,12 +83,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _scalar(x) -> float:
+    """A metric as a float: a DTensor's (possibly partial) value reduced
+    first."""
+    return float(x.full_tensor() if is_dtensor(x) else x)
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh not in ("", "1x1"):
-        ap.error(f"--mesh {args.mesh}: the PyTorch port trains on one device "
-                 '(only "" or "1x1"); sharding is not ported yet')
+    try:
+        mesh_dims = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    if mesh_dims and args.compress_grads:
+        ap.error("--compress-grads runs on one device only (no --mesh)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if mesh_dims and math.prod(mesh_dims[0]) != world:
+        ap.error(f"--mesh {args.mesh} needs {math.prod(mesh_dims[0])} "
+                 f"ranks; the world has {world} (run under torchrun)")
     cfg = get_config(args.arch)
     if cfg.family == "encdec" or cfg.frontend == "vision":
         # the synthetic batch holds tokens, targets and mask only; the JAX
@@ -86,6 +117,16 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.preset == "reduced":
         cfg = cfg.reduced()
+    mesh = scope = None
+    if mesh_dims:
+        dims, axes = mesh_dims
+        started = not torch.distributed.is_initialized()
+        init_world(device=device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(dims, axes, device=device)  # product == world size
+        scope = sharding_scope(mesh, **sharding_overrides(cfg.name))
+        scope.__enter__()
 
     data = SyntheticLMData(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
     opt = optim.make_optimizer(
@@ -114,6 +155,11 @@ def main(argv=None):
         params = init_model(cfg, torch.Generator(device).manual_seed(args.seed),
                             device)
         opt_state = opt.init(params)
+        if mesh is not None:
+            p_specs = model_specs(cfg)
+            opt_state = distribute_tree(opt_state, optim.optimizer_state_specs(
+                cfg.optimizer, params, p_specs), src_data_rank=None)
+            params = distribute_tree(params, p_specs, src_data_rank=None)
         start_step = 0
         if mgr is not None and mgr.latest_step() is not None:
             start_step = mgr.latest_step()
@@ -140,14 +186,17 @@ def main(argv=None):
             monitor.start_step()
             wd.arm()
             batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            if mesh is not None:
+                batch = distribute_tree(batch, batch_logical_names(
+                    cfg, train=True), src_data_rank=None)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-            loss = float(metrics["loss"])
+            loss = _scalar(metrics["loss"])
             wd.disarm()
             slow = monitor.end_step()
             losses.append(loss)
             done = s + 1
             rec = {"step": s, "loss": loss, "straggler": slow,
-                   "grad_norm": float(metrics["grad_norm"])}
+                   "grad_norm": _scalar(metrics["grad_norm"])}
             if mf:
                 mf.write(json.dumps(rec) + "\n")
                 mf.flush()
@@ -165,6 +214,10 @@ def main(argv=None):
         signal.signal(signal.SIGTERM, prev_handler)
         if mf:
             mf.close()
+        if scope is not None:
+            scope.__exit__(None, None, None)
+            if started:
+                torch.distributed.destroy_process_group()
     if losses:
         print(f"[train] done: first loss {losses[0]:.4f} last loss "
               f"{losses[-1]:.4f} stragglers {monitor.straggler_fraction:.2%}")

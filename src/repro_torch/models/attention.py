@@ -15,14 +15,20 @@ Variants: GQA grouping (K/V are never repeated into H heads), logit softcap
 (gemma2), sliding window (gemma2 local layers), per-head qk RMSNorm (qwen3),
 partial RoPE, M-RoPE (qwen2-vl), non-causal attention (the encoder) and
 cross-attention over the encoder's output (encdec). Weights keep the JAX
-layout: ``wq`` (d, H, Dh), ``wo`` (H, Dh, d). Sharding constraints of the
-JAX package are the identity on one device and have no counterpart.
+layout: ``wq`` (d, H, Dh), ``wo`` (H, Dh, d). The JAX package's sharding
+constraints sit at the same points (``distributed.sharding.constrain``):
+the identity outside a sharding scope or on plain tensors.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (as_dtensor, constrain,
+                                              is_dtensor, local_offset,
+                                              matmul, shard_map)
 from repro_torch.kernels.ops import decode_attention
 
 from .config import ModelConfig
@@ -31,7 +37,7 @@ from .layers import apply_mrope, apply_rope, normal
 __all__ = ["init_attention", "attention_reference", "attention_chunked",
            "layer_window", "apply_attention", "quantize_kv_rows",
            "apply_attention_decode", "cross_kv", "apply_cross_attention_decode",
-           "NEG_INF"]
+           "NEG_INF", "spec_attention"]
 
 NEG_INF = -1.0e30
 
@@ -59,6 +65,19 @@ def init_attention(gen, cfg: ModelConfig, *, device, lead=(),
     return p
 
 
+def spec_attention(cfg: ModelConfig, *, cross: bool = False):
+    p = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = (None,)
+        p["k_norm"] = (None,)
+    return p
+
+
 def _qk_norm(x, scale, eps=1e-6):
     xf = x.float()
     rms = torch.sqrt(xf.square().mean(-1, keepdim=True) + eps)
@@ -66,11 +85,64 @@ def _qk_norm(x, scale, eps=1e-6):
 
 
 def _project(x, w):
-    """``einsum("bsd,dhe->bshe", x, w)`` as one matmul."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    """``einsum("bsd,dhe->bshe", x, w)`` as one matmul (each rank on its
+    shards under a mesh: ``distributed.sharding.matmul``)."""
+    return matmul(x, w, 1, lambda x, w: (x @ w.reshape(w.shape[0], -1))
+                  .unflatten(-1, w.shape[1:]))
+
+
+def _out_project(out, wo):
+    """``einsum("...he,hed->...d", out, wo)`` as one matmul."""
+    return matmul(out, wo, 2, lambda x, w: x.flatten(-2) @ w.flatten(0, 1))
 
 
 # ------------------------------------------------------------------- cores --
+
+
+def _attention_by_heads(attn, q, k, v):
+    """``attn(q, k, v)`` on DTensors. Where q (B, Sq, H, Dh) is split by
+    batch and heads alone, each rank runs ``attn`` on its own rows and
+    heads (``local_map``) with the KV heads of its GQA groups: K/V split as
+    the heads where the KV heads divide that mesh axis, else replicated and
+    the rank's one KV head picked out (its H/n heads then share one KV
+    head). A split sequence (Ulysses, ``attn_seq``) is gathered first: each
+    rank then attends over its rows and heads in full. A split head dim
+    runs ``attn`` on the DTensors as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    q_pl, kv_pl, pick = [], [], []
+    for m, p in enumerate(q.placements):
+        n = mesh.size(m)
+        if isinstance(p, Shard) and p.dim == 0:
+            q_pl.append(p)
+            kv_pl.append(p)
+        elif isinstance(p, Shard) and p.dim == 2:
+            q_pl.append(p)
+            if Hkv % n == 0:
+                kv_pl.append(p)
+            elif G % (H // n) == 0:  # the rank's heads share one KV head
+                kv_pl.append(Replicate())
+                pick.append(mesh.get_local_rank(m) * (H // n) // G)
+            else:
+                return attn(q, k, v)
+        elif isinstance(p, Shard) and p.dim == 3:
+            return attn(q, k, v)
+        else:  # replicated, partial, or a split sequence (gathered)
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    if len(pick) > 1:
+        return attn(q, k, v)
+
+    def local(q, k, v):
+        if pick:
+            k = k[:, :, pick[0]:pick[0] + 1]
+            v = v[:, :, pick[0]:pick[0] + 1]
+        return attn(q, k, v)
+
+    return shard_map(local, mesh, (q_pl, kv_pl, kv_pl), q_pl)(q, k, v)
 
 
 def _mask(pos_q, pos_k, *, causal: bool, window: int):
@@ -198,12 +270,20 @@ def apply_attention(params, x, cfg: ModelConfig, *, causal: bool = True,
             pos = torch.arange(S, device=x.device).expand(B, S)
         q = _rope(q, pos, cfg)
         k = _rope(k, pos, cfg)
-    out = attention_chunked(q, k, v, causal=causal,
-                            window=layer_window(cfg, layer_local),
-                            softcap=cfg.attn_softcap,
-                            chunk_q=cfg.attn_chunk_q,
-                            chunk_kv=cfg.attn_chunk_kv)
-    y = out.flatten(-2) @ params["wo"].flatten(0, 1)
+    # "attn_seq" is () by default (pure head-TP); archs whose head counts
+    # don't divide the model axis override it to ("model",): Ulysses-style
+    # sequence parallelism with the (small, GQA) KV replicated
+    q = constrain(q, "batch", "attn_seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
+    v = constrain(v, "batch", "seq", "kv_heads", None)
+    attn = functools.partial(
+        attention_chunked, causal=causal,
+        window=layer_window(cfg, layer_local), softcap=cfg.attn_softcap,
+        chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+    out = _attention_by_heads(attn, q, k, v) if is_dtensor(q) \
+        else attn(q, k, v)
+    out = constrain(out, "batch", "attn_seq", "heads", None)
+    y = _out_project(out, params["wo"])
     if return_kv:
         return y, (k, v)
     return y
@@ -223,8 +303,40 @@ def _append(cache, rows, pos, keep, new):
     keep what they hold. A row whose length has reached S keeps decoding
     in the JAX launcher, and there the out-of-range write is dropped; an
     index past S would be an error here, so it is clamped and masked."""
+    if is_dtensor(cache):
+        return _append_sharded(cache, pos, keep, new)
     old = cache[rows, pos]
     cache[rows, pos] = torch.where(keep, new.to(cache.dtype), old)
+
+
+def _append_sharded(cache, pos, keep, new):
+    """``_append`` on a DTensor cache (B, S, ...): the new rows (B, ...)
+    and the per-row position and keep flag are laid out as the cache's
+    batch and trailing dims, whole along S; each rank writes the rows whose
+    position falls in its own slice of S (``kv_seq`` sharding)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, cache.placements
+
+    def drop_seq(p, ndim):  # the cache's placement of a tensor without S
+        if isinstance(p, Shard) and p.dim == 1:
+            return Replicate()
+        if isinstance(p, Shard) and p.dim > 1:
+            return Shard(p.dim - 1) if p.dim - 1 < ndim else Replicate()
+        return p
+
+    def local(x, ndim):
+        x = as_dtensor(x, mesh)
+        return x.redistribute(mesh, [drop_seq(p, ndim) for p in pl]
+                              ).to_local()
+
+    c = cache.to_local()
+    s_loc, s0 = c.shape[1], local_offset(cache)[1]
+    at = local(pos, 1) - s0
+    ok = local(keep.reshape(-1), 1) & (at >= 0) & (at < s_loc)
+    rows = torch.arange(c.shape[0], device=c.device)
+    _append(c, rows, at.clamp(0, s_loc - 1),
+            ok.reshape((-1,) + (1,) * (keep.ndim - 1)), local(new, new.ndim))
 
 
 def apply_attention_decode(params, x, cache_k, cache_v, cache_len,
@@ -271,7 +383,7 @@ def apply_attention_decode(params, x, cache_k, cache_v, cache_len,
         q, cache_k, cache_v, cache_len + 1, softcap=cfg.attn_softcap,
         window=window, k_scale=k_scale, v_scale=v_scale,
     )  # (B, H, Dh)
-    return (out.flatten(-2) @ params["wo"].flatten(0, 1))[:, None]
+    return _out_project(out, params["wo"])[:, None]
 
 
 def cross_kv(params, enc_out):
@@ -287,4 +399,4 @@ def apply_cross_attention_decode(params, x, cross_k, cross_v, enc_len):
     (B,): no rope, softcap or window. Returns (B, 1, d)."""
     q = _project(x, params["wq"])[:, 0]
     out = decode_attention(q, cross_k, cross_v, enc_len)
-    return (out.flatten(-2) @ params["wo"].flatten(0, 1))[:, None]
+    return _out_project(out, params["wo"])[:, None]

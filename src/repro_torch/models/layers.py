@@ -7,8 +7,12 @@ rope math runs in fp32 and is cast back to the input's dtype. Weights keep
 JAX's ``(in, out)`` layout, so a JAX parameter tree carries across as a
 copy. Every ``init_*`` draws in fp32 from ``gen`` on ``device`` and casts
 to the config's ``param_dtype`` (``normal``: a leaf above ``DRAW_BYTES`` in
-fp32 slice by slice); ``lead`` prefixes a stacking shape (the layer axis),
-as the JAX package's ``vmap`` over layer keys does.
+fp32 slice by slice; on ``meta`` no draw at all); ``lead`` prefixes a
+stacking shape (the layer axis), as the JAX package's ``vmap`` over layer
+keys does. Every ``init_*`` has
+a twin ``spec_*`` returning the same tree of logical axis-name tuples
+(``distributed.sharding``), without the stacking names (``transformer.
+model_specs`` adds them).
 """
 from __future__ import annotations
 
@@ -19,11 +23,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, matmul
+
 from .config import ModelConfig
 
 __all__ = ["init_norm", "apply_norm", "rms_norm_groups", "rope_frequencies",
            "apply_rope", "apply_mrope", "init_mlp", "apply_mlp", "init_embedding", "normal",
-           "DRAW_BYTES"]
+           "DRAW_BYTES", "spec_norm", "spec_mlp", "spec_embedding"]
 
 # The largest fp32 draw ``normal`` makes at once. Every leaf of qwen3-4b and
 # gemma2-2b at full width is below it (the largest, qwen3-4b's stacked MLP
@@ -55,6 +61,12 @@ def init_norm(cfg: ModelConfig, d: int, *, device, lead=()):
     if cfg.norm_type == "layernorm":
         p["bias"] = torch.zeros((*lead, d), device=device)
     return p
+
+
+def spec_norm(cfg: ModelConfig):
+    if cfg.norm_type == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
 
 
 def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
@@ -157,19 +169,27 @@ def init_mlp(gen, cfg: ModelConfig, d_in: int, d_ff: int, *, device,
     return p
 
 
+def spec_mlp(cfg: ModelConfig):
+    p = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = ("embed", "mlp")
+    return p
+
+
 def apply_mlp(params, x, cfg: ModelConfig):
-    h = x @ params["w_up"]
+    h = matmul(x, params["w_up"])
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * h
+        h = F.silu(matmul(x, params["w_gate"])) * h
     elif cfg.mlp_type == "geglu":
-        h = F.gelu(x @ params["w_gate"], approximate="tanh") * h
+        h = F.gelu(matmul(x, params["w_gate"]), approximate="tanh") * h
     elif cfg.mlp_type == "gelu":
         h = F.gelu(h, approximate="tanh")
     elif cfg.mlp_type == "relu2":  # nemotron squared-ReLU
         h = torch.square(F.relu(h))
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ params["w_down"]
+    h = constrain(h, "batch", "seq", "mlp")
+    return matmul(h, params["w_down"])
 
 
 # -------------------------------------------------------------- embedding --
@@ -182,4 +202,11 @@ def init_embedding(gen, cfg: ModelConfig, *, device):
     if not cfg.tie_embeddings:
         p["unembed"] = normal(gen, (cfg.d_model, cfg.vocab_size),
                               1.0 / np.sqrt(cfg.d_model), dt, device)
+    return p
+
+
+def spec_embedding(cfg: ModelConfig):
+    p = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
     return p

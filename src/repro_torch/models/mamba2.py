@@ -19,10 +19,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, is_dtensor, shard_map
+
 from .config import ModelConfig
 from .layers import normal, rms_norm_groups
 
-__all__ = ["init_mamba", "mamba_forward", "mamba_decode", "xbc_conv_state",
+__all__ = ["init_mamba", "spec_mamba", "mamba_forward", "mamba_decode",
+           "xbc_conv_state",
            "init_mamba_cache", "ssd_reference", "ssd_chunked"]
 
 
@@ -57,6 +60,19 @@ def init_mamba(gen, cfg: ModelConfig, *, device, lead=()):
         "d_skip": torch.ones((*lead, h), dtype=f32, device=device),
         "norm_scale": torch.ones((*lead, di), dtype=f32, device=device),
         "out_proj": out_proj,
+    }
+
+
+def spec_mamba(cfg: ModelConfig):
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",),
+        "a_log": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "norm_scale": ("mlp",),
+        "out_proj": ("mlp", "embed"),
     }
 
 
@@ -163,9 +179,50 @@ def _depthwise_conv(x, w, b):
     return (out + b).to(x.dtype)
 
 
+def _by_rows(fn, n_out: int, params, x, *states):
+    """``fn(params, x, *states)`` (a mamba block's forward or decode step:
+    ``n_out`` batch-major outputs, flat) on DTensors: each rank runs it on
+    its own batch rows (``shard_map``) with the whole weights and states,
+    gathered, and its outputs keep the rows split. The block's in_proj
+    output mixes z, x, B, C and dt along one dim, so no split of it holds
+    whole heads: the block runs unsplit over the other mesh axes (its work
+    is replicated there, as a fallback dim's is)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+    whole = [Replicate()] * mesh.ndim
+    names = sorted(params)
+
+    def local(x, *rest):
+        return fn(dict(zip(names, rest)), x, *rest[len(names):])
+
+    return shard_map(
+        local, mesh, (rows,) + (whole,) * len(names) + (rows,) * len(states),
+        rows if n_out == 1 else (rows,) * n_out)(
+        x, *[params[k] for k in names], *states)
+
+
 def mamba_forward(params, xin, cfg: ModelConfig, *,
                   return_state: bool = False):
-    """xin: (B, S, d) -> (B, S, d) [, (conv_state, ssm_state)]."""
+    """xin: (B, S, d) -> (B, S, d) [, (conv_state, ssm_state)]. On
+    DTensors, each rank's batch rows on their own (``_by_rows``)."""
+    if not is_dtensor(xin):
+        return _forward(params, xin, cfg, return_state=return_state)
+    if not return_state:
+        return _by_rows(lambda p, x: _forward(p, x, cfg), 1, params, xin)
+
+    def flat(p, x):
+        out, (conv, state) = _forward(p, x, cfg, return_state=True)
+        return out, conv, state
+
+    out, conv, state = _by_rows(flat, 3, params, xin)
+    return out, (conv, state)
+
+
+def _forward(params, xin, cfg: ModelConfig, *, return_state: bool = False):
+    """``mamba_forward`` on plain tensors."""
     s = cfg.ssm
     d = cfg.d_model
     di, g, n = s.d_inner(d), s.n_groups, s.d_state
@@ -178,7 +235,7 @@ def mamba_forward(params, xin, cfg: ModelConfig, *,
     x, B_in, C = torch.split(xbc, [di, g * n, g * n], dim=-1)
 
     Bsz, S = xin.shape[0], xin.shape[1]
-    xh = x.reshape(Bsz, S, h, p)
+    xh = constrain(x.reshape(Bsz, S, h, p), "batch", "seq", "ssm_heads", None)
     dtv = _softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])
     y, state = ssd_chunked(xh, dtv, a, B_in.reshape(Bsz, S, g, n),
@@ -219,7 +276,16 @@ def init_mamba_cache(batch: int, cfg: ModelConfig, dtype=torch.float32, *,
 
 def mamba_decode(params, xin, conv_state, ssm_state, cfg: ModelConfig):
     """One-token step. xin: (B, 1, d) -> (y (B, 1, d), (conv_state,
-    ssm_state)), the states new tensors."""
+    ssm_state)), the states new tensors. On DTensors, each rank's batch
+    rows on their own (``_by_rows``)."""
+    if is_dtensor(xin):
+        def flat(p, x, conv, ssm):
+            out, (conv, ssm) = mamba_decode(p, x, conv, ssm, cfg)
+            return out, conv, ssm
+
+        out, conv, ssm = _by_rows(flat, 3, params, xin, conv_state,
+                                  ssm_state)
+        return out, (conv, ssm)
     s = cfg.ssm
     d = cfg.d_model
     di, g, n = s.d_inner(d), s.n_groups, s.d_state

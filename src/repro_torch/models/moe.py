@@ -21,10 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (constrain, is_dtensor, matmul,
+                                              shard_map, spec_for)
+
 from .config import ModelConfig
 from .layers import normal
 
-__all__ = ["init_moe", "apply_moe", "group_shape"]
+__all__ = ["init_moe", "spec_moe", "apply_moe", "group_shape"]
 
 
 def init_moe(gen, cfg: ModelConfig, *, device, lead=()):
@@ -37,6 +40,15 @@ def init_moe(gen, cfg: ModelConfig, *, device, lead=()):
         "w_gate": normal(gen, (*lead, E, d, f), s_in, dt, device),
         "w_up": normal(gen, (*lead, E, d, f), s_in, dt, device),
         "w_down": normal(gen, (*lead, E, f, d), s_out, dt, device),
+    }
+
+
+def spec_moe(cfg: ModelConfig):
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "expert_embed", "expert_mlp"),
+        "w_up": ("experts", "expert_embed", "expert_mlp"),
+        "w_down": ("experts", "expert_mlp", "expert_embed"),
     }
 
 
@@ -57,6 +69,40 @@ def _top_k_gates(probs, k: int):
     return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
+def _constrain_by_group(x, G: int, last: str):
+    """``constrain`` an expert-major (E, G * C, n) buffer as the JAX
+    package constrains its (G, E, C, n) twin: the groups' rows split as
+    "batch" where the G groups divide it, else whole."""
+    batch = "batch" if spec_for((G,), ("batch",)) not in ((), (None,)) \
+        else None
+    return constrain(x, "experts", batch, last)
+
+
+def _group_bmm(a, b):
+    """``a @ b`` over the groups: a (G, m, k), b (G, k, n). On DTensors
+    each rank multiplies its own groups (split as b's are) and b's split
+    of n (``shard_map``), so the backward's gradients keep those splits
+    (DTensor's own batched product may split G over every axis, more ways
+    than a batch of microbatched rows divides evenly)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(b):
+        return a @ b
+    a_pl, b_pl = [], []
+    for p in b.placements:
+        if isinstance(p, Shard) and p.dim == 0:
+            a_pl.append(p)
+            b_pl.append(p)
+        elif isinstance(p, Shard) and p.dim == 2:
+            a_pl.append(Replicate())
+            b_pl.append(p)
+        else:
+            a_pl.append(Replicate())
+            b_pl.append(Replicate())
+    return shard_map(lambda a, b: a @ b, b.device_mesh, (a_pl, b_pl),
+                     b_pl)(a, b)
+
+
 def apply_moe(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux {load_balance_loss,
     router_z_loss})."""
@@ -65,8 +111,8 @@ def apply_moe(params, x, cfg: ModelConfig):
     E, k = m.n_experts, m.top_k
     G, Tg, C = group_shape(cfg, B * S)
 
-    xt = x.reshape(G, Tg, d)
-    logits = xt.float() @ params["router"]  # (G, Tg, E) fp32
+    xt = constrain(x.reshape(G, Tg, d), "batch", None, "act_embed")
+    logits = matmul(xt.float(), params["router"])  # (G, Tg, E) fp32
     probs = torch.softmax(logits, dim=-1)
     gates = _top_k_gates(probs, k)
     routed = gates > 0
@@ -87,13 +133,16 @@ def apply_moe(params, x, cfg: ModelConfig):
     combine = dispatch * gates[..., None].to(x.dtype)
 
     disp = dispatch.reshape(G, Tg, E * C)
-    expert_in = (disp.transpose(1, 2) @ xt).reshape(G, E, C, d)
+    expert_in = _group_bmm(disp.transpose(1, 2), xt).reshape(G, E, C, d)
+    expert_in = constrain(expert_in, "batch", "experts", None, "act_embed")
     rows = expert_in.transpose(0, 1).reshape(E, G * C, d)  # per expert
     h = torch.bmm(rows, params["w_up"])
     g = torch.bmm(rows, params["w_gate"])
     h = F.gelu(g, approximate="tanh") * h
+    h = _constrain_by_group(h, G, "expert_mlp")
     out = torch.bmm(h, params["w_down"])  # (E, G * C, d)
+    out = _constrain_by_group(out, G, "act_embed")
     out = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
-    y = combine.reshape(G, Tg, E * C) @ out
+    y = _group_bmm(combine.reshape(G, Tg, E * C), out)
     return y.reshape(B, S, d), aux
 

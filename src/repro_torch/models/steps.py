@@ -14,6 +14,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, local_narrow
 from repro_torch.train import optim as optim_lib
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
@@ -73,8 +74,12 @@ def loss_fn(params, batch: Dict, cfg: ModelConfig):
 
 def _microbatch(key: str, x: torch.Tensor, n: int, k: int) -> torch.Tensor:
     """The k-th of n equal slices of a batch entry along its batch axis:
-    axis 1 of M-RoPE's (3, B, S) ``positions``, axis 0 of the rest."""
+    axis 1 of M-RoPE's (3, B, S) ``positions``, axis 0 of the rest. A
+    DTensor gives the k-th of each rank's rows (the microbatches hold other
+    rows than the unsharded run's; their mean gradient is the same)."""
     axis = 1 if key == "positions" and x.dim() == 3 else 0
+    if is_dtensor(x):  # each rank's own rows, in n pieces
+        return local_narrow(x, axis, k, n)
     size = x.shape[axis] // n
     if size * n != x.shape[axis]:
         raise ValueError(f"batch entry {key!r} has {x.shape[axis]} rows: "
@@ -107,8 +112,8 @@ def make_train_step(cfg: ModelConfig, optimizer: optim_lib.GradientTransform,
         if accum_steps == 1:
             grads, metrics = single_grads(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for k in range(accum_steps):
                 micro = {key: _microbatch(key, x, accum_steps, k)
                          for key, x in batch.items()}

@@ -48,18 +48,25 @@ from repro_torch.device import resolve_device
 from .attention import (apply_attention_decode,
                         apply_cross_attention_decode, cross_kv, layer_window,
                         quantize_kv_rows)
+from repro_torch.distributed.sharding import (assign_, constrain,
+                                              is_dtensor, local_tree, matmul,
+                                              shapes_only, sharded_rows)
+
 from .blocks import (apply_ffn, apply_mamba_block, apply_shared_block,
                      apply_transformer_block, init_mamba_block,
                      init_shared_block, init_shared_lora,
-                     init_transformer_block, lora_attention_params)
+                     init_transformer_block, lora_attention_params,
+                     spec_mamba_block, spec_shared_block, spec_shared_lora,
+                     spec_transformer_block)
 from .config import ModelConfig
-from .layers import apply_mlp, apply_norm, init_embedding, init_norm
+from .layers import (apply_mlp, apply_norm, init_embedding, init_norm,
+                     spec_embedding, spec_norm)
 from .mamba2 import init_mamba_cache, mamba_decode
 
 __all__ = ["init_model", "from_jax_params", "from_jax_opt_state",
            "hybrid_layout", "embed_tokens", "logits_from_hidden",
            "forward_full", "lm_loss", "init_cache", "forward_prefill",
-           "forward_decode"]
+           "forward_decode", "model_specs", "cache_specs"]
 
 
 def hybrid_layout(cfg: ModelConfig):
@@ -199,16 +206,52 @@ def from_jax_opt_state(state, like, *, device="cuda"):
     return unflatten(like, out)
 
 
+def _stack_spec(spec):
+    """Prefix every name tuple of a spec tree with the stacking axis."""
+    if isinstance(spec, dict):
+        return {k: _stack_spec(v) for k, v in spec.items()}
+    return ("stack",) + spec
+
+
+def model_specs(cfg: ModelConfig):
+    """The logical-name tree of ``init_model``'s parameters
+    (``distributed.sharding``), leaf for leaf."""
+    specs: Dict[str, Any] = {"embed": spec_embedding(cfg)}
+    fam = cfg.family
+    if fam in ("dense", "moe", "encdec"):
+        specs["layers"] = _stack_spec(
+            spec_transformer_block(cfg, cross=fam == "encdec"))
+    elif fam == "ssm":
+        specs["layers"] = _stack_spec(spec_mamba_block(cfg))
+    elif fam == "hybrid":
+        _, _, trailing = hybrid_layout(cfg)
+        specs["layers"] = _stack_spec(_stack_spec(spec_mamba_block(cfg)))
+        if trailing:
+            specs["tail"] = _stack_spec(spec_mamba_block(cfg))
+        specs["shared"] = spec_shared_block(cfg)
+        specs["loras"] = _stack_spec(spec_shared_lora(cfg))
+    if fam == "encdec":
+        specs["encoder"] = _stack_spec(spec_transformer_block(cfg))
+        specs["enc_norm"] = spec_norm(cfg)
+    specs["final_norm"] = spec_norm(cfg)
+    return specs
+
+
 # ------------------------------------------------------------------ embed --
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    h = params["embed"]["embedding"][tokens.long()].to(cfg.cdtype())
+    table = params["embed"]["embedding"]
+    if is_dtensor(table):  # each rank looks up its own vocabulary rows
+        h = sharded_rows(table, tokens)
+    else:
+        h = table[tokens.long()]
+    h = h.to(cfg.cdtype())
     if cfg.embed_scale:
         # the JAX package multiplies by a numpy float32 scalar, which
         # promotes a bf16 hidden state to float32
         h = h.float() * float(np.sqrt(cfg.d_model).astype(np.float32))
-    return h
+    return constrain(h, "batch", "res_seq", "act_embed")
 
 
 def logits_from_hidden(params, hidden, cfg: ModelConfig):
@@ -216,12 +259,12 @@ def logits_from_hidden(params, hidden, cfg: ModelConfig):
     logits cast to float32, then the final softcap."""
     h = apply_norm(params["final_norm"], hidden, cfg)
     if cfg.tie_embeddings:
-        logits = (h @ params["embed"]["embedding"].T).float()
+        logits = matmul(h, params["embed"]["embedding"].T).float()
     else:
-        logits = (h @ params["embed"]["unembed"]).float()
+        logits = matmul(h, params["embed"]["unembed"]).float()
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # ------------------------------------------------------------------ remat --
@@ -339,6 +382,9 @@ def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
     """Masked mean softmax cross-entropy over chunks of ``cfg.loss_chunk``
     positions (halved until it divides S), each chunk's logits recomputed
     in backward."""
+    # gather the residual stream out of sequence-parallel sharding: the
+    # loss re-chunks S, and one (B, S, d) copy is cheap beside the logits
+    hidden = constrain(hidden, "batch", "seq", "act_embed")
     B, S, _ = hidden.shape
     C = min(cfg.loss_chunk, S)
     while S % C:
@@ -347,7 +393,14 @@ def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
     def chunk_nll(h_c, t_c, m_c):
         logits = logits_from_hidden(params, h_c, cfg)  # (B, C, V) f32
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, t_c.long()[..., None])[..., 0]
+        if is_dtensor(logits):
+            # vocab-sharded logits: each rank picks the targets in its own
+            # slice (a gather there would need the whole vocabulary)
+            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            gold = torch.where(vocab == t_c.long()[..., None], logits,
+                               0.0).sum(-1)
+        else:
+            gold = logits.gather(-1, t_c.long()[..., None])[..., 0]
         return ((lse - gold) * m_c).sum()
 
     tot = cnt = torch.zeros((), device=hidden.device)
@@ -406,6 +459,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
     return cache
 
 
+def cache_specs(cfg: ModelConfig):
+    """Logical sharding names for each leaf of ``init_cache``."""
+    names: Dict[str, Any] = {"len": ("batch",)}
+    kv = ("stack", "batch", "kv_seq", "kv_heads", None)
+    if cfg.family in ("dense", "moe", "encdec"):
+        names["k"] = names["v"] = kv
+        if cfg.kv_quant:
+            names["k_scale"] = names["v_scale"] = kv[:-1]
+    if cfg.family == "encdec":
+        names["cross_k"] = names["cross_v"] = kv
+    if cfg.family == "ssm":
+        names["conv"] = ("stack", "batch", None, "mlp")
+        names["ssd"] = ("stack", "batch", "ssm_heads", None, None)
+    if cfg.family == "hybrid":
+        names["conv"] = ("stack", "stack", "batch", None, "mlp")
+        names["ssd"] = ("stack", "stack", "batch", "ssm_heads", None, None)
+        if hybrid_layout(cfg)[2]:
+            names["tail_conv"] = ("stack", "batch", None, "mlp")
+            names["tail_ssd"] = ("stack", "batch", "ssm_heads", None, None)
+        names["k"] = names["v"] = kv
+    return names
+
+
 def _pad_cache_seq(x, max_len: int, axis: int = -3):
     """Pad (with zeros) or cut a (..., S, Hkv, Dh) cache tensor along S to
     max_len (``axis=-2`` for the (..., S, Hkv) scales)."""
@@ -434,9 +510,15 @@ def forward_prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     max_len = max_len or S
     enc_out = _encode(params, enc_embeds, cfg) \
         if cfg.family == "encdec" else None
-    cache = init_cache(cfg, B, max_len,
-                       0 if enc_out is None else enc_out.shape[1],
-                       device=h.device)
+    enc_len = 0 if enc_out is None else enc_out.shape[1]
+    if is_dtensor(h):  # under a mesh: each rank's zeroed shards alone
+        dev = h.to_local().device
+        cache = local_tree(
+            shapes_only(init_cache, cfg, B, max_len, enc_len, device="meta"),
+            cache_specs(cfg),
+            lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev))
+    else:
+        cache = init_cache(cfg, B, max_len, enc_len, device=h.device)
     cache["len"].fill_(S)
     if cfg.family == "ssm":
         h = _prefill_mamba(params["layers"], h, cfg, cache["conv"],
@@ -450,15 +532,16 @@ def forward_prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             layer, h, cfg, positions=positions, enc_out=enc_out,
             layer_local=cfg.layer_is_local(i), return_kv=True)
         if enc_out is not None:
-            cache["cross_k"][i], cache["cross_v"][i] = cross_kv(
-                layer["cross_attn"], enc_out)
+            ck, cv = cross_kv(layer["cross_attn"], enc_out)
+            assign_(cache["cross_k"][i], ck)
+            assign_(cache["cross_v"][i], cv)
         if cfg.kv_quant:
             k, k_sc = quantize_kv_rows(k)
             v, v_sc = quantize_kv_rows(v)
-            cache["k_scale"][i] = _pad_cache_seq(k_sc, max_len, -2)
-            cache["v_scale"][i] = _pad_cache_seq(v_sc, max_len, -2)
-        cache["k"][i] = _pad_cache_seq(k, max_len)
-        cache["v"][i] = _pad_cache_seq(v, max_len)
+            assign_(cache["k_scale"][i], _pad_cache_seq(k_sc, max_len, -2))
+            assign_(cache["v_scale"][i], _pad_cache_seq(v_sc, max_len, -2))
+        assign_(cache["k"][i], _pad_cache_seq(k, max_len))
+        assign_(cache["v"][i], _pad_cache_seq(v, max_len))
     return h, cache
 
 
@@ -466,8 +549,9 @@ def _prefill_mamba(layers, h, cfg: ModelConfig, conv, ssd):
     """Mamba blocks stacked on conv's leading axis, each writing its final
     (conv, ssd) state into that slot of ``conv`` and ``ssd``."""
     for i, layer in enumerate(_unstack(layers, conv.shape[0])):
-        h, (conv[i], ssd[i]) = apply_mamba_block(layer, h, cfg,
-                                                 return_state=True)
+        h, (c, s) = apply_mamba_block(layer, h, cfg, return_state=True)
+        assign_(conv[i], c)
+        assign_(ssd[i], s)
     return h
 
 
@@ -481,8 +565,8 @@ def _prefill_hybrid(params, h, cfg: ModelConfig, cache, max_len: int):
                            cache["ssd"][gi])
         h, (k, v) = apply_shared_block(params["shared"], lora, h, emb0, cfg,
                                        return_kv=True)
-        cache["k"][gi] = _pad_cache_seq(k, max_len)
-        cache["v"][gi] = _pad_cache_seq(v, max_len)
+        assign_(cache["k"][gi], _pad_cache_seq(k, max_len))
+        assign_(cache["v"][gi], _pad_cache_seq(v, max_len))
     if trailing:
         h = _prefill_mamba(params["tail"], h, cfg, cache["tail_conv"],
                            cache["tail_ssd"])
@@ -516,8 +600,8 @@ def _decode_mamba(layers, h, cfg: ModelConfig, conv, ssd):
         x = apply_norm(layer["norm"], h, cfg)
         y, (nconv, nssd) = mamba_decode(layer["mamba"], x, conv[i], ssd[i],
                                         cfg)
-        conv[i].copy_(nconv)
-        ssd[i].copy_(nssd)
+        assign_(conv[i], nconv)
+        assign_(ssd[i], nssd)
         h = h + y
     return h
 
@@ -530,7 +614,7 @@ def _decode_hybrid(params, h, cfg: ModelConfig, cache):
             _unstack(params["loras"], groups))):
         h = _decode_mamba(layers, h, cfg, cache["conv"][gi],
                           cache["ssd"][gi])
-        u = torch.cat([h, emb0], dim=-1) @ shared["in_proj"]
+        u = matmul(torch.cat([h, emb0], dim=-1), shared["in_proj"])
         a = apply_attention_decode(
             lora_attention_params(shared, lora, cfg),
             apply_norm(shared["norm"], u, cfg), cache["k"][gi],

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import is_dtensor, sharded_rows
 from repro_torch.kernels import ops
 from repro_torch.train.optim import AdamState
 
@@ -67,7 +68,11 @@ class _SortedRows(torch.autograd.Function):
 
 def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with a backward that gives the same bits every run:
-    CUDA's own (sorted) on the card, ``_SortedRows`` on the CPU."""
+    CUDA's own (sorted) on the card, ``_SortedRows`` on the CPU. A
+    row-sharded DTensor table is looked up by each rank in its own rows (a
+    partial sum, ``distributed.sharding.sharded_rows``)."""
+    if is_dtensor(table):
+        return sharded_rows(table, ids)
     if table.is_cuda:
         return table[ids]
     return _SortedRows.apply(table, ids)

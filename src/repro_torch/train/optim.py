@@ -47,7 +47,8 @@ __all__ = [
     "global_norm", "chain", "scale", "scale_by_schedule",
     "clip_by_global_norm", "add_decayed_weights", "scale_by_adam", "sgd",
     "adam", "adamw", "adafactor", "make_optimizer", "warmup_cosine",
-    "constant_schedule",
+    "constant_schedule", "adam_state_specs", "adafactor_state_specs",
+    "optimizer_state_specs",
 ]
 
 Schedule = Callable[[int], float]
@@ -299,6 +300,41 @@ def make_optimizer(name: str, lr, weight_decay: float = 0.0) -> GradientTransfor
         return adafactor(lr, weight_decay=weight_decay)
     if name == "sgd":
         return sgd(lr, momentum=0.9)
+    raise ValueError(name)
+
+
+def adam_state_specs(param_specs):
+    """Logical-name tree mirroring adamw's state (``distributed.sharding``):
+    the moments take their parameters' names, the counts ()."""
+    return (AdamState(count=(), mu=param_specs, nu=param_specs), (), ())
+
+
+def adafactor_state_specs(params, param_specs, min_dim_size_to_factor=128):
+    """Logical-name tree mirroring adafactor's factored state: a factored
+    leaf's row moment drops the last name, its column moment the one before
+    it; an unfactored leaf keeps its names in ``vr`` and () in ``vc``."""
+
+    def factored(a):
+        return (a.ndim >= 2 and a.shape[-1] >= min_dim_size_to_factor
+                and a.shape[-2] >= min_dim_size_to_factor)
+
+    flat_a, flat_s = leaves(params), leaves_up_to(params, param_specs)
+    vr = unflatten(params, [s[:-1] if factored(a) else s
+                            for a, s in zip(flat_a, flat_s)])
+    vc = unflatten(params, [s[:-2] + s[-1:] if factored(a) else ()
+                            for a, s in zip(flat_a, flat_s)])
+    return AdafactorState(count=(), vr=vr, vc=vc)
+
+
+def optimizer_state_specs(name: str, params, param_specs):
+    """The logical-name tree of ``make_optimizer(name)``'s state for
+    ``params`` (tensors, meta ones too) named by ``param_specs``."""
+    if name in ("adamw", "adam"):
+        return adam_state_specs(param_specs)
+    if name == "adafactor":
+        return adafactor_state_specs(params, param_specs)
+    if name == "sgd":
+        return ((), param_specs)
     raise ValueError(name)
 
 
