@@ -59,7 +59,22 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    launches in the replay; SGNS forward and backward launches equal to the
    retrains' steps; every serving kernel launched. Printed: each retrain's
    stage times and steps, WAL append + fsync ms a block, snapshot and
-   recovery seconds, the records replayed;
+   recovery seconds, the records replayed. Then the sixth path, "shard"
+   (``shard_phase``): the same configuration over the stream's first 16
+   blocks, built at one shard and row-sharded with
+   ``ShardPlan.build(4, devices=["cuda:0"] * 4)``, the two driven in
+   lockstep with the counts set to 0 before. Held after every block:
+   cores equal, store and graph ``state_dict`` byte-equal; at the end: 0
+   core mismatches, embeddings, link scores and top-10 ids and scores
+   bit-equal, a 4-shard snapshot restored at 1 shard byte-equal, the ELL
+   mean, h-index and top-k launched by the sharded service (its launches
+   alone are the path's counts), every h-index launch there at a chunk's
+   rows, and bytes moved between shards by every kind of copy; the
+   three kernels checked at the shapes the path gave them. Printed: each
+   service's ingest and query seconds and the ``shard_report()``.
+   Where four cards are present, shard s lies on cuda:s.
+   ``python3 chip_smoke.py --shard-only`` builds the kernels and runs this
+   path alone, and prints no result line;
 4. kernel parity and timing: each kernel against its plain PyTorch version
    on the same inputs, at the shapes the serving path gave it (taken from
    the live service; the h-index's two tiers also each on its own) and at
@@ -214,7 +229,8 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the resilience, the offline, the four LM serving, the
+serving, the hub, the resilience, the shard, the offline, the four LM
+serving, the
 two step, the train and the dryrun path, each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -365,7 +381,8 @@ DECODE_SHAPES = [
 DRYRUN_DROPPED = tuple((a, "prefill_32k") for a in (
     "gemma2-2b", "grok-1-314b", "moonshot-v1-16b-a3b", "nemotron-4-15b",
     "qwen2-vl-7b", "qwen3-4b", "seamless-m4t-large-v2", "starcoder2-7b")) \
-    + (("grok-1-314b", "train_4k"), ("nemotron-4-15b", "decode_32k"))
+    + (("grok-1-314b", "train_4k"), ("nemotron-4-15b", "decode_32k"),
+       ("nemotron-4-15b", "train_4k"))
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 # the cells run again for real on the card (rank 0's local shards):
 # flash-decode on the KV-sequence-split cache, a train step, both SGNS
@@ -421,6 +438,9 @@ RESIL_CRASH = "ingest_apply:12:crash"
 RESIL_THRESHOLD = 0.01  # the twin retrains after ops 5 and 11
 RESIL_BUDGET = 2
 RESIL_HANG_TIMEOUT = 120.0  # s: the watchdog around flushes and retrains
+# the shard path: the serving configuration over the stream's first 16
+# blocks, row-sharded over 4 shards on the one card, beside its unsharded twin
+SHARD_N, SHARD_BLOCKS, SHARD_BLOCK, SHARD_CHURN = 4, 16, 1024, 0.1
 
 
 def log(msg: str) -> None:
@@ -456,12 +476,14 @@ class SweepTally:
     """While bound (``with``), counts the (R, W) of every h-index sweep
     through ``ops.h_index_sweep`` (the repair's and the k-core's entry) and
     keeps a copy of the first call's inputs at each shape; every call goes
-    on to the kernel as before."""
+    on to the kernel as before. Calls made while ``active`` is false are
+    not tallied."""
 
     def __init__(self, ops):
         self.ops = ops
         self.counts = {}
         self.first = {}
+        self.active = True
 
     def __enter__(self):
         self.orig = self.ops.h_index_sweep
@@ -473,7 +495,7 @@ class SweepTally:
 
     def __call__(self, values, valid, est, **kw):
         key = tuple(values.shape)
-        if key[0]:  # the wrapper launches nothing for no rows
+        if key[0] and self.active:  # the wrapper launches nothing for no rows
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.first:
                 self.first[key] = (values.clone(), valid.clone(), est.clone())
@@ -1042,9 +1064,10 @@ def sweep_tally(torch, ops, ref, tally, n=5):
     return out, recs
 
 
-def lockstep(np, svcs, stream, block_size, churn, seed):
+def lockstep(np, svcs, stream, block_size, churn, seed, check=None):
     """Drive services through the same blocks and churn, checking that
-    their cores agree after every block."""
+    their cores agree (and ``check(start)``, if given) after every
+    block."""
     rng = np.random.default_rng(seed)
     live = []
     for start in range(0, len(stream), block_size):
@@ -1064,6 +1087,8 @@ def lockstep(np, svcs, stream, block_size, churn, seed):
         cores = [s.cores.core for s in svcs]
         expect(all(np.array_equal(cores[0], c) for c in cores),
                f"cores differ after the block at {start}")
+        if check is not None:
+            check(start)
 
 
 def reference_phase(torch, np):
@@ -1461,6 +1486,230 @@ def resilience_phase(torch, np, counters):
         expect(counts[name] > 0,
                f"kernel {name} was not launched on the resilience path")
     return counts, out
+
+
+# -------------------------------------------------------------- shard ----
+
+
+class PathMeter:
+    """Seconds and launch counts of one service's calls: ``with meter:``
+    around them (or methods bound through ``wrap``) adds the counts'
+    increase and the device-synchronised seconds to its totals, and sets
+    ``tally.active`` meanwhile."""
+
+    def __init__(self, torch, counters, tally=None):
+        self.torch, self.counters, self.tally = torch, counters, tally
+        self.counts = {k: 0 for k in counters.table}
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.before = self.counters.read()
+        if self.tally is not None:
+            self.tally.active = True
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - self.t0
+        if self.tally is not None:
+            self.tally.active = False
+        for k, v in self.counters.read().items():
+            self.counts[k] += v - self.before[k]
+
+    def wrap(self, svc, *names):
+        for name in names:
+            fn = getattr(svc, name)
+
+            def metered(*a, fn=fn, **kw):
+                with self:
+                    return fn(*a, **kw)
+            setattr(svc, name, metered)
+
+
+class FirstCall:
+    """While bound (``with``), keeps clones of the tensor arguments of the
+    first call to ``ops.<name>`` made while ``active``; every call goes on
+    as before."""
+
+    def __init__(self, torch, ops, name):
+        self.torch, self.ops, self.name = torch, ops, name
+        self.args = None
+        self.active = False
+
+    def __enter__(self):
+        self.orig = getattr(self.ops, self.name)
+        setattr(self.ops, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.orig)
+
+    def __call__(self, *a, **kw):
+        if self.active and self.args is None:
+            keep = [x.clone() if isinstance(x, self.torch.Tensor) else x
+                    for x in (*a, *kw.values())]
+            self.args = keep
+        return self.orig(*a, **kw)
+
+
+def shard_phase(torch, np, ops, ref, F, counters):
+    """Row-sharded serving on the card (``serve/shard.py``): the serving
+    configuration (``github-like``, dim 128, batch 64, blocks of 1024, 10%
+    churn) over the stream's first SHARD_BLOCKS blocks, built twice: at
+    one shard and with ``ShardPlan.build(SHARD_N, devices=["cuda:0"] *
+    SHARD_N)``, driven in lockstep with the counts set to 0 before. Held
+    after every block: cores equal, store and graph ``state_dict`` byte
+    equal. Held at the end: 0 core mismatches against the peeling oracle,
+    embeddings and link scores bit-equal, top-10 ids equal and scores
+    bit-equal, a 4-shard snapshot restored at 1 shard byte-equal, the ELL
+    mean, h-index and top-k launched on the sharded service, and every
+    h-index launch there at a chunk's rows (per (R, W), a multiple of
+    SHARD_N launches, SHARD_N x R a tier's row count). The path's counts
+    are the sharded service's alone; its kernels are then checked at the
+    shapes it gave them (a chunk's h-index sweep, the compact table's ELL
+    mean, a chunk's top-11). With SHARD_N cards present, shard s lies on
+    cuda:s instead and rows cross cards by peer copies. Returns (launch
+    counts, records, numbers)."""
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import datasets
+    from repro_torch.launch.serve_embed import build_service
+    from repro_torch.serve import ShardPlan
+    from repro_torch.serve.recovery import capture_state, restore_service
+
+    g = datasets.load("github-like", seed=0)
+    many = torch.cuda.device_count() >= SHARD_N
+    plan = ShardPlan.build(SHARD_N, devices=[
+        f"cuda:{s if many else 0}" for s in range(SHARD_N)])
+    svcs, t_build = [], []
+    for shards in (1, plan):
+        t0 = time.perf_counter()
+        svc, stream, _, k0 = build_service(
+            g, stream_frac=STREAM_FRAC, dim=128, batch=64, shards=shards,
+            device="cuda")
+        t_build.append(time.perf_counter() - t0)
+        svcs.append(svc)
+    one, sh = svcs
+    stream = stream[: SHARD_BLOCKS * SHARD_BLOCK]
+
+    def diff(a, b):
+        return [k for k in sorted(set(a) | set(b)) if k not in a
+                or k not in b or not np.array_equal(a[k], b[k])]
+
+    def same_state(start):
+        for part in ("store", "graph"):
+            d = diff(getattr(one, part).state_dict(),
+                     getattr(sh, part).state_dict())
+            expect(d == [], f"shard: {part} state differs after the block "
+                            f"at {start} in {d}")
+
+    counters.reset()
+    sh.store.reset_shard_traffic()  # the report covers the driven run
+    tally = SweepTally(ops)
+    tally.active = False
+    meters = [PathMeter(torch, counters), PathMeter(torch, counters, tally)]
+    for m, svc in zip(meters, svcs):
+        m.wrap(svc, "ingest_block", "retract_block")
+    with tally:
+        lockstep(np, svcs, stream, SHARD_BLOCK, SHARD_CHURN, 2,
+                 check=same_state)
+    oracle = core_numbers_host(sh.graph.snapshot())
+    mismatches = int((sh.cores.core[: len(oracle)] != oracle).sum())
+    expect(mismatches == 0, f"shard: {mismatches} core mismatches")
+    ingest_s = [m.seconds for m in meters]
+
+    # queries: the ELL mean's and the top-k's inputs kept from the sharded
+    # service's first calls
+    rng = np.random.default_rng(1)
+    n_now = one.graph.n_nodes
+    warm = rng.integers(0, n_now, size=64)
+    batches = [rng.integers(0, n_now, size=64) for _ in range(4)]
+    pairs = rng.integers(0, n_now, size=(256, 2))
+    query_s = []
+    answers = []
+    with FirstCall(torch, ops, "ell_mean") as ell, \
+            FirstCall(torch, ops, "top_k_scores") as tk:
+        for m, svc in zip(meters, svcs):
+            ell.active = tk.active = svc is sh
+            with m:  # a warmup, left out of the query seconds
+                svc.top_k_neighbors(warm, 10)
+            t0 = m.seconds
+            with m:
+                emb = [svc.embed(b) for b in batches]
+                link = svc.link_scores(pairs)
+                top = [svc.top_k_neighbors(b, 10) for b in batches]
+            query_s.append(m.seconds - t0)
+            answers.append((emb, link, top))
+    (e1, l1, t1), (e4, l4, t4) = answers
+    expect(all(np.array_equal(a, b) for a, b in zip(e1, e4)),
+           "shard: embeddings differ from one shard's")
+    expect(np.array_equal(l1, l4), "shard: link scores differ")
+    for (i1, v1), (i4, v4) in zip(t1, t4):
+        expect(np.array_equal(i1, i4), "shard: top-10 ids differ")
+        expect(np.array_equal(v1, v4), "shard: top-10 scores differ")
+    same_state("the queries")
+
+    counts = meters[1].counts
+    log(f"shard: launches on the {SHARD_N}-shard service: {counts}; "
+        f"the unsharded twin's: {meters[0].counts}")
+    for name in SERVING:
+        expect(counts[name] > 0,
+               f"kernel {name} was not launched on the shard path")
+    bad = {k: c for k, c in tally.counts.items()
+           if c % SHARD_N or (SHARD_N * k[0]) & (SHARD_N * k[0] - 1)
+           or SHARD_N * k[0] < 64}
+    expect(tally.counts and not bad,
+           f"shard: h-index launches not at a chunk's rows: {bad}")
+
+    # snapshot at 4 shards -> restore at 1: byte-equal
+    t0 = time.perf_counter()
+    arrays, manifest = capture_state(sh, 0)
+    back = restore_service(arrays, manifest, device="cuda")
+    d = diff(arrays, capture_state(back, 0)[0])
+    expect(d == [], f"shard: a {SHARD_N}-shard snapshot restored at 1 "
+                    f"shard differs in {d}")
+    expect(diff(arrays, capture_state(one, 0)[0]) == [],
+           "shard: the sharded snapshot differs from the twin's")
+    t_snap = time.perf_counter() - t0
+    report = sh.store.shard_report()
+    moved = report["moved_bytes"]
+    expect(all(moved.get(op, 0) > 0 for op in ("gather", "scatter", "topk",
+                                                "descent", "region")),
+           f"shard: an operation moved no bytes between shards: {moved}")
+    out = {
+        "shards": SHARD_N, "devices": [str(x) for x in plan.devices],
+        "blocks": SHARD_BLOCKS, "build_s": t_build,
+        "ingest_s": {"1": ingest_s[0], str(SHARD_N): ingest_s[1]},
+        "query_s": {"1": query_s[0], str(SHARD_N): query_s[1]},
+        "snapshot_restore_s": t_snap,
+        "h_index_shapes": {f"R={r} W={w}": c
+                           for (r, w), c in tally.top(8)},
+        "shard_report": report, "launches": counts,
+        "twin_launches": meters[0].counts,
+    }
+    log("shard: " + json.dumps(out))
+    log(f"shard: {SHARD_BLOCKS} blocks of {SHARD_BLOCK} in "
+        f"{ingest_s[1]:.2f} s at {SHARD_N} shards vs {ingest_s[0]:.2f} s "
+        f"at 1; queries (4 x embed 64, 256 link scores, 4 x top-10 of 64) "
+        f"{query_s[1]:.3f} s vs {query_s[0]:.3f} s; cores, stores, graphs, "
+        f"embeddings, link scores, top-10 ids and scores bit-equal; shard "
+        f"report {report}")
+
+    # each kernel at the shapes the shard path gave it
+    (r, w), _ = tally.top(1)[0]
+    recs = {"h_index": check_hindex(torch, ops, ref, [tally.first[(r, w)]],
+                                    f"shard chunk R={r} W={w}")}
+    idx, valid, emb = ell.args[:3]
+    # the flush's remapped indices are int64: the wrapper's cast to int32
+    # is a kernel of its own, left out of the kernel's time here
+    recs["ell_mean"] = check_ell(torch, ops, ref, F, idx.int(), valid, emb,
+                                 "shard compact table")
+    q, table, k, live = tk.args
+    recs["top_k"] = check_topk(torch, ops, ref, q, table, live, k,
+                               "shard chunk")
+    del svcs, one, sh, back
+    return counts, recs, out
 
 
 # ------------------------------------------------------------ offline ----
@@ -3090,6 +3339,10 @@ def main() -> int:
         "h_index.hub": (hindex, "hub_launches"),
         "h_index_hub": (hindex, "hub_launches"),  # its own record too
     })
+    if sys.argv[1:] == ["--shard-only"]:
+        shard_phase(torch, np, ops, ref, F, counters)
+        log(f"smoke: {time.perf_counter() - t_start:.1f} s, shard path only")
+        return 0
     with SweepTally(ops) as tally:  # the serving phase only
         svc, serve_counts = serve_phase(torch, np, counters)
     obs_checks(torch, np, svc)
@@ -3104,6 +3357,10 @@ def main() -> int:
         torch, ops, ref, hub_tier)
     _, offline_counts, split = offline_phase(torch, np, counters)
     resil_counts, _ = resilience_phase(torch, np, counters)
+    shard_counts, shard_rec, _ = shard_phase(torch, np, ops, ref, F,
+                                             counters)
+    for name, rec in shard_rec.items():
+        large_rec[name].append(rec)
     large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
                                                 split)
     train = check_sgns(torch, ref, sgns, 8192, 5, 150, torch.float32,
@@ -3164,11 +3421,13 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
-    paths = (serve_counts, hub_counts, resil_counts, offline_counts,
-             *lm_counts.values(), train_counts, dryrun_counts)
+    paths = (serve_counts, hub_counts, resil_counts, shard_counts,
+             offline_counts, *lm_counts.values(), train_counts,
+             dryrun_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
+                   "shard": shard_counts[name],
                    "offline": offline_counts[name],
                    **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name],

@@ -29,9 +29,16 @@ window (the window the JAX launcher's ``--jax-profile`` captures; on the
 card it holds the kernels) into DIR; ``--metrics-out`` also exports the
 card's memory gauges (``obs.record_memory``).
 
-Refused with an error: ``--jax-profile`` (use ``--profile``) and
-``--shards`` > 1 (sharding is not ported). ``--no-pipeline`` is accepted
-and changes nothing: the port ingests every block serially.
+``--shards N`` row-shards the store table, the ELL mirror and the descent's
+candidate rows over N devices (``serve.ShardPlan``: cuda:0 .. cuda:N-1, or N
+chunks on the CPU with ``--device cpu``), bit-identical to ``--shards 1``,
+and prints the per-shard balance and gather traffic; N must be a power of
+two and at most the cards present. The report also gives the bytes the
+shards' copies moved, per operation (``ShardPlan.traffic``).
+
+Refused with an error: ``--jax-profile`` (use ``--profile``).
+``--no-pipeline`` is accepted and changes nothing: the port ingests every
+block serially.
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ from repro_torch.serve import (
     RetrainConfig,
     Retrainer,
     ServiceStats,
+    ShardPlan,
     faults,
 )
 from repro_torch.skipgram.trainer import SGNSConfig
@@ -117,6 +125,7 @@ def build_service(
     compact_every: int = 512,
     prop_iters: int = 20,
     seed: int = 0,
+    shards=1,
     train: bool = False,
     retrain: bool = False,
     retrain_threshold: float = 0.1,
@@ -128,6 +137,11 @@ def build_service(
     device="cuda",
 ):
     """Returns (service, stream_edges, base_core, k0), on ``device``.
+
+    ``shards > 1`` row-shards the store table and the ELL mirror over that
+    many devices (``ShardPlan.build(shards, device=device)``; a
+    ``ShardPlan`` is taken as it is, e.g. several shards on one card); 1
+    keeps the single-device path.
 
     The same split, k0-core table and propagation as the JAX package's
     ``build_service``. Without ``train`` the k0-core rows are drawn from
@@ -148,9 +162,12 @@ def build_service(
     counted in ``stats.hangs``.
     """
     device = resolve_device(device)
+    plan = (shards if isinstance(shards, ShardPlan)
+            else ShardPlan.build(shards, device=device))
     base_edges, stream_edges = _split_stream(g, stream_frac, seed)
     # nodes that only appear in the stream are the future cold-start users
-    base = DynamicGraph(g.n_nodes, base_edges, width=16, device=device)
+    base = DynamicGraph(g.n_nodes, base_edges, width=16, plan=plan,
+                        device=device)
     base_graph = base.snapshot()
     core = core_numbers_host(base_graph)
     k0 = max(2, int(round(degeneracy(core) * k0_frac)))
@@ -182,7 +199,8 @@ def build_service(
     served = np.where(base_graph.degrees() > 0)[0]
     cap = capacity if capacity > 0 else g.n_nodes
     store = EmbeddingStore(
-        capacity=cap, dim=dim, node_cap=base.node_cap, device=device
+        capacity=cap, dim=dim, node_cap=base.node_cap, plan=plan,
+        device=device,
     )
     store.put_many(served, emb[served], core[served])
 
@@ -207,9 +225,10 @@ def _refuse(ap, args) -> None:
     if args.jax_profile:
         ap.error("--jax-profile captures a jax.profiler trace; the PyTorch "
                  "port profiles with --profile DIR")
-    if args.shards != 1:
-        ap.error("--shards is not implemented in the PyTorch port "
-                 "(sharding is not ported)")
+    try:
+        ShardPlan.build(args.shards, device=args.device)
+    except ValueError as e:
+        ap.error(f"--shards {args.shards}: {e}")
 
 
 def main(argv=None):
@@ -230,8 +249,9 @@ def main(argv=None):
                     help="fraction of each block re-drawn as deletions of "
                          "previously streamed edges")
     ap.add_argument("--shards", type=int, default=1,
-                    help="row-shard across N devices: not in the PyTorch "
-                         "port (refused above 1)")
+                    help="row-shard the store table, ELL mirror and descent "
+                         "across N devices (a power of two, at most the "
+                         "cards present; 1 = single device)")
     ap.add_argument("--train", action="store_true",
                     help="real CoreWalk+SGNS base embeddings (slower)")
     ap.add_argument("--retrain", action="store_true",
@@ -317,6 +337,7 @@ def main(argv=None):
         capacity=args.capacity,
         compact_every=args.compact_every,
         seed=args.seed,
+        shards=args.shards,
         train=args.train,
         retrain=args.retrain,
         retrain_threshold=args.retrain_threshold,
@@ -374,7 +395,7 @@ def main(argv=None):
               f"{plan.total_fired if plan else '?'} faults fired) — "
               f"recovering from {args.wal_dir}")
         svc, recovery, report = RecoveryManager.recover(
-            args.wal_dir, device=args.device,
+            args.wal_dir, device=args.device, plan=svc.store.plan,
             snapshot_every=args.snapshot_every, configure=_reconfigure,
         )
         print(f"[serve-embed] recovered: snapshot@wal_seq "
@@ -491,6 +512,14 @@ def main(argv=None):
           f"retrain={'yes' if svc.should_retrain() else 'no'}, "
           f"retrains={st.retrains}, "
           f"last_swap_version={st.last_swap_version})")
+    if svc.store.plan is not None:
+        rep = svc.store.shard_report()
+        print(f"[serve-embed] shards {rep['n_shards']}: resident/shard "
+              f"{rep['resident_per_shard']} (imbalance "
+              f"{rep['imbalance']:.2f}x), gather rows/shard "
+              f"{rep['gather_rows_per_shard']}, cross-shard row copies "
+              f"{rep['cross_shard_row_copies']} (GSPMD's count); bytes "
+              f"moved between shards {rep['moved_bytes']}")
 
     if args.metrics_out:
         svc.publish_metrics()

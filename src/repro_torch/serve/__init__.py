@@ -10,9 +10,10 @@ card's SGNS kernels, Procrustes alignment, chunked hot swap);
 ``serve.recovery`` makes the stack crash-safe (a checksummed write-ahead edge
 log and atomic snapshots in the JAX package's formats, replay that
 reproduces an uninterrupted run bit for bit); ``serve.faults`` is the fault
-injection harness that proves it. ``from_jax_state`` rebuilds the JAX
-package's serving state here, so both packages serve the same graph, table
-and cores."""
+injection harness that proves it. ``ShardPlan`` (``serve.shard``)
+row-shards the node-indexed device state over several devices, bit-identical
+to one. ``from_jax_state`` rebuilds the JAX package's serving state here, so
+both packages serve the same graph, table and cores."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,6 +31,7 @@ from .retrain import (
     procrustes_rotation,
 )
 from .service import EmbeddingService, ServiceStats
+from .shard import ShardPlan
 from .store import EmbeddingStore
 from .stream import DynamicGraph
 
@@ -53,6 +55,7 @@ __all__ = [
     "RecoveryManager",
     "SnapshotStore",
     "WriteAheadLog",
+    "ShardPlan",
     "from_jax_state",
 ]
 

@@ -121,6 +121,7 @@ from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs
 
 from . import faults
+from .shard import replicas, row_chunks, ship
 from .stream import DynamicGraph
 from .util import pow2
 
@@ -151,20 +152,42 @@ def _fused_descent(tiers, cand, seed, old, est_full, lo, hi, *,
     ``changed`` flag per sweep) and returns ``(new, max_gain, max_loss,
     ceiling_hit, floor_hit, sweeps, truncated)`` with ``new`` on the device
     and the rest host scalars.
+
+    Under a ``ShardPlan`` each tier's matrices are ``RowSharded`` and
+    ``est_full`` is ``Replicated``: every sweep launches the sweep once per
+    tier per shard, on that shard's device against its copy of the
+    estimate; the new estimates are gathered and written to every copy (the
+    all-gather), and ``changed`` is taken over all shards' rows. The
+    operator is per row, so the integers are the unsharded ones. The copies
+    count in ``plan.traffic["descent"]``.
     """
-    est = est_full.clone()
+    plan = getattr(est_full, "plan", None)
     cand = cand.long()
-    est[cand] = seed
+    est = {d: e.clone() for d, e in replicas(est_full).items()}
+    cands = {d: cand.to(d) for d in est}
+    for d, e in est.items():
+        e[cands[d]] = seed.to(d)
+    if plan is not None:
+        plan.note_fanout("descent", cand, seed)
     cur = seed
     changed, sweeps = True, 0
     while changed and sweeps < max_sweeps:
         new = torch.cat([
-            kops.h_index_sweep(est[idx], valid, part, impl=impl)
+            ship(kops.h_index_sweep(
+                est[ci.device][ci], cv,
+                ship(part[a:a + len(ci)], ci.device, plan, s, "descent"),
+                impl=impl,
+            ), cur.device, plan, s, "descent")
             for (idx, valid), part in zip(
                 tiers, torch.split(cur, [t[0].shape[0] for t in tiers])
             )
+            for s, ((a, ci), (_, cv)) in enumerate(
+                zip(row_chunks(idx), row_chunks(valid)))
         ])
-        est[cand] = new
+        for d, e in est.items():
+            e[cands[d]] = new.to(d)
+        if plan is not None:
+            plan.note_fanout("descent", new)
         changed = bool((new != cur).any())
         cur = new
         sweeps += 1
@@ -194,20 +217,33 @@ def _region_fixpoint(nbr, deg, core, ends, side_src, side_dst, lo, hi, cap,
     Stops early once the visited count exceeds ``cap`` (the caller then
     falls back to a full recompute, so a partial region is never used).
     Returns ``(visited, count)``.
+
+    Under a ``ShardPlan`` the mirror is ``RowSharded``: each shard expands
+    the frontier over its own rows on its device, and the discovered sets
+    are OR-ed into one mask on the primary device; the masks and the side
+    table stay there (replicated state, one copy). The copies count in
+    ``plan.traffic["region"]``.
     """
     eligible = (core >= lo) & (core <= hi)
     eligible[sentinel] = False  # padding never joins a region
     visited = ends.clone()
     frontier = ends
-    iota = torch.arange(nbr.shape[1], device=nbr.device)
+    plan = getattr(nbr, "plan", None)
+    shards = [(s, a, c, d, torch.arange(c.shape[1], device=c.device))
+              for s, ((a, c), (_, d)) in enumerate(zip(row_chunks(nbr),
+                                                       row_chunks(deg)))]
     count = int(visited.sum())
     while count <= cap:
-        rows = frontier.nonzero().flatten()
-        if not len(rows):
+        rows = [ship(frontier[a:a + len(nb)], nb.device, plan, s,
+                     "region").nonzero().flatten()
+                for s, a, nb, _, _ in shards]
+        if not any(len(r) for r in rows):
             break
-        live = iota[None, :] < deg[rows][:, None]
         nxt = torch.zeros_like(visited)
-        nxt[torch.where(live, nbr[rows], sentinel).flatten().long()] = True
+        for (s, _, nb, dg, iota), r in zip(shards, rows):
+            live = iota[None, :] < dg[r][:, None]
+            hit = torch.where(live, nb[r], sentinel).flatten().long()
+            nxt[ship(hit, nxt.device, plan, s, "region")] = True
         if len(side_src):
             hit = frontier[side_src]
             nxt[torch.where(hit, side_dst, sentinel)] = True
@@ -671,7 +707,7 @@ class IncrementalCore:
         n = g.n_nodes
         ell = g.ell()
         dev = ell.device
-        n1 = ell.neighbours.shape[0]  # node_cap + 1
+        n1 = ell.neighbours.shape[0]  # node_cap + 1, plus any shard padding
         core = torch.zeros(n1, dtype=torch.int32, device=dev)
         core[:n] = torch.tensor(self._core[:n], device=dev)
         ends_mask = torch.zeros(n1, dtype=torch.bool, device=dev)
@@ -842,6 +878,9 @@ class IncrementalCore:
         r_small, r_big, w_big, n_big, cells = self._tier_plan(
             n_rows, cand_deg
         )
+        plan = g.plan
+        if plan is not None:  # each tier splits evenly over the shards
+            r_small, r_big = plan.pad_rows(r_small), plan.pad_rows(r_big)
         keep = None
         if r_big:
             # hubs last; the stable partition keeps each tier's rows in
@@ -877,13 +916,16 @@ class IncrementalCore:
             idx, valid = _fit_width(idx, valid, w_big, node_cap)
             tiers = [_pad_rows(idx, valid, r_small, node_cap)]
         dev = g.device
+        if plan is None:
+            row = rep = lambda x: torch.tensor(x, device=dev)
+        else:  # candidate rows split over the shards, estimate replicated
+            row, rep = plan.place_rows, plan.replicate
         args = {
-            "tiers": [(torch.tensor(i, dtype=torch.long, device=dev),
-                       torch.tensor(v, device=dev)) for i, v in tiers],
+            "tiers": [(row(i.astype(np.int64)), row(v)) for i, v in tiers],
             "cand": torch.tensor(vec(cand, node_cap, np.int64), device=dev),
             "seed": torch.tensor(vec(seed, 0, np.int32), device=dev),
             "old": torch.tensor(vec(old_cand, 0, np.int32), device=dev),
-            "est_full": torch.tensor(est_full, device=dev),
+            "est_full": rep(est_full),
             "lo": int(lo), "hi": int(hi),
         }
         self._tick("candidates", "gather", t0)

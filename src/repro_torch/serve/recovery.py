@@ -375,11 +375,13 @@ def _port_backend(key: str, value):
 
 
 def restore_service(
-    arrays: Dict[str, np.ndarray], manifest: dict, *, device="cuda"
+    arrays: Dict[str, np.ndarray], manifest: dict, *, device="cuda",
+    plan=None,
 ):
-    """Snapshot payload (written by either package) -> a fresh
-    ``EmbeddingService`` on ``device``, bit-identical to the one
-    :func:`capture_state` saw."""
+    """Snapshot payload (written by either package, at any shard count) ->
+    a fresh ``EmbeddingService`` on ``device`` (row-sharded under ``plan``),
+    bit-identical to the one :func:`capture_state` saw: the payload is
+    placement-free."""
     from .kcore_inc import IncrementalCore
     from .service import EmbeddingService
     from .store import EmbeddingStore
@@ -387,8 +389,8 @@ def restore_service(
 
     g_state = {k[2:]: v for k, v in arrays.items() if k.startswith("g.")}
     s_state = {k[2:]: v for k, v in arrays.items() if k.startswith("s.")}
-    graph = DynamicGraph.from_state(g_state, device=device)
-    store = EmbeddingStore.from_state(s_state, device=device)
+    graph = DynamicGraph.from_state(g_state, plan=plan, device=device)
+    store = EmbeddingStore.from_state(s_state, plan=plan, device=device)
     ccfg = manifest["cores"]
     cores = IncrementalCore(
         graph,
@@ -542,13 +544,15 @@ class RecoveryManager:
         directory: str,
         *,
         device="cuda",
+        plan=None,
         configure: Optional[Callable] = None,
         snapshot_every: int = 64,
         keep: int = 2,
         fsync: bool = True,
     ):
         """Restore from ``directory`` -> ``(service, manager, report)``,
-        the service on ``device``.
+        the service on ``device`` (row-sharded under ``plan``, whatever
+        shard count wrote the snapshot).
 
         ``configure(service)`` runs after the snapshot restore but *before*
         the WAL replay — reattach a Retrainer there so auto-retrains that
@@ -563,7 +567,8 @@ class RecoveryManager:
                 f"({skipped} torn directories skipped)"
             )
         with obs.span("recovery.restore", wal_seq=manifest["wal_seq"]):
-            svc = restore_service(arrays, manifest, device=device)
+            svc = restore_service(arrays, manifest, device=device,
+                                  plan=plan)
         if configure is not None:
             configure(svc)
         mgr = cls(

@@ -40,6 +40,12 @@ a kernel that fails to build or launch, or any other device error,
 propagates to the caller. ``faults.InjectedCrash`` (simulated process
 death) is a ``BaseException`` and passes every handler.
 
+Under a :class:`~repro_torch.serve.shard.ShardPlan` (the store's and the
+graph's) the flush gathers the rows it reads from the owning shards into one
+compact table, and ``top_k_neighbors`` reduces a partial top-k on every
+shard's rows and stitches the lists on the host; both give the unsharded
+bits.
+
 A live SLO engine (``attach_slo``, ``obs.slo``) is fed at the JAX
 package's points: each ingested block's edges/s, each flush's seconds and
 whether it was degraded; the store's staleness is sampled when the health
@@ -69,6 +75,8 @@ from repro_torch.obs import trace as obs
 from . import faults
 from .kcore_inc import IncrementalCore
 from .recovery import KIND_INGEST, KIND_RETRACT
+from .shard import (RowSharded, map_rows, merge_topk, partial_topk,
+                    put_rows, take_rows)
 from .store import EmbeddingStore
 from .stream import DynamicGraph
 
@@ -412,6 +420,14 @@ class EmbeddingService:
         of a cold row (``capacity`` = no write-back), or None when nothing
         is written back; each input is a numpy array or a tensor. Returns
         ``(out (B, dim), resolved (B,))`` tensors.
+
+        Under a plan the sentinel id and the slot bound are data (the
+        mirror and the table carry shard-padding rows): the batch's mirror
+        rows and the table rows they name come from their owning shards
+        into one compact table on the primary device, the slots are
+        remapped into it, and the write-back goes to the owners. The ELL
+        mean's path depends on (N, L) alone, so the compact table gives the
+        bits of the whole one.
         """
         st = self.store
         dev, cap, sentinel = self.device, st.capacity, self.graph.node_cap
@@ -419,15 +435,23 @@ class EmbeddingService:
         slot_of = st.slot_table_dev()
         nodes_t = torch.as_tensor(nodes_c, device=dev)
         found_t = torch.as_tensor(found, device=dev)
-        idx = self.graph.ell().neighbours[nodes_t]  # (B, W) neighbour ids
+        # (B, W) neighbour ids
+        idx = take_rows(self.graph.ell().neighbours, nodes_t)
         slots = slot_of[idx.long()]  # (B, W) store slots (sentinel = cap)
         valid = (idx != sentinel) & (slots < cap)
-        cold = ops.ell_mean(slots, valid, table)
-        resolved = valid.any(dim=1)
         # spill-tier rows carry found=True with a sentinel slot (zero row)
         # and are overlaid host-side after the readback
         own = torch.where(found_t, slot_of[nodes_t], cap)
-        out = torch.where(found_t[:, None], table[own.long()], cold)
+        rows, src, src_own = table, slots, own
+        if isinstance(table, RowSharded):
+            used, inv = torch.unique(torch.cat([slots.flatten(), own]),
+                                     return_inverse=True)
+            rows = table.gather(used)
+            src = inv[: slots.numel()].reshape(slots.shape)
+            src_own = inv[slots.numel():]
+        cold = ops.ell_mean(src, valid, rows)
+        resolved = valid.any(dim=1)
+        out = torch.where(found_t[:, None], rows[src_own.long()], cold)
         if wb_slots is not None:
             # unresolved rows redirect to the zero sentinel row and write
             # zeros, so the sentinel stays zero; the write lands in the
@@ -436,7 +460,7 @@ class EmbeddingService:
             wb = torch.as_tensor(wb_slots, device=dev)
             do_wb = ~found_t & resolved & (wb < cap)
             wslots = torch.where(do_wb, wb, cap).long()
-            table.index_copy_(0, wslots, torch.where(do_wb[:, None], out, 0.0))
+            put_rows(table, wslots, torch.where(do_wb[:, None], out, 0.0))
         return out, resolved
 
     def _flush_batch(self, nodes: np.ndarray) -> np.ndarray:
@@ -655,7 +679,10 @@ class EmbeddingService:
 
         Returns ``(node_ids (Q, k) int64, scores (Q, k) float32)`` ordered
         by (score desc, node-slot asc); -1 / -inf pad when fewer than k
-        candidates are resident.
+        candidates are resident. Every shard (the whole table unsharded)
+        normalises its own rows and reduces a partial top-k over them
+        through the one kernel (``shard.partial_topk``), and the host
+        stitches the lists (``shard.merge_topk``; one list is only padded).
         """
         nodes = np.asarray(nodes, np.int64).reshape(-1)
         k = int(k)
@@ -667,16 +694,12 @@ class EmbeddingService:
             qv = self.embed(nodes)  # resolves cold starts + write-back
             st = self.store
             qn = ops.normalize_rows(torch.tensor(qv, device=self.device))
-            tn = ops.normalize_rows(st.table())
             # ask for k+1 candidates: the query's own row (when resident)
             # is dropped host-side, leaving a full k for everyone
             kk = k + 1
-            vals, idx = ops.top_k_scores(
-                qn, tn, kk,
-                valid=torch.tensor(st.row_valid(), device=self.device),
-            )
-            vals = vals.cpu().numpy()
-            idx = idx.cpu().numpy().astype(np.int64)
+            vals, idx = merge_topk(*partial_topk(
+                qn, map_rows(st.table(), ops.normalize_rows),
+                st.row_valid(), kk), kk)
             own = st.slots_of(nodes).astype(np.int64)  # capacity = absent
             keep = (idx >= 0) & (idx != own[:, None])
             order = np.argsort(~keep, axis=1, kind="stable")
@@ -838,6 +861,14 @@ class EmbeddingService:
         reg.gauge("store_staleness").set(
             self.store.staleness(self.cores.core)
         )
+        if self.store.plan is not None:
+            for s, rows in enumerate(self.store.shard_gather_rows):
+                reg.gauge("store_gather_rows", shard=s).set(int(rows))
+            reg.gauge("store_cross_shard_row_copies").set(
+                int(self.store.cross_shard_row_copies)
+            )
+            for op, nbytes in self.store.plan.traffic.items():
+                reg.gauge("shard_moved_bytes", op=op).set(int(nbytes))
         if self._slo is not None:
             self._slo.publish(reg)
 

@@ -12,6 +12,14 @@ The torch counterpart of ``repro.serve.store``. Two tiers:
 Writes land in the device table **in place** (``index_copy_``), where the
 JAX package's ``.at[].set`` built a new table per write.
 
+Under a :class:`~repro_torch.serve.shard.ShardPlan` the device table is
+**row-sharded** (a ``RowSharded``, padded to the plan's row multiple with
+zero rows no slot references): gathers collect each shard's rows onto the
+primary device, scatters stay shard-local. All host metadata (slot map, LRU
+clock, spill dict) keeps the exact single-device semantics, while per-shard
+balance and cross-shard gather traffic are tracked as in the JAX package,
+beside the bytes the port's own copies move (``ShardPlan.traffic``).
+
 Every row remembers the store ``version`` and the node's core number at write
 time. Core-number **drift** between write time and now is the staleness
 signal (paper §2.2: propagation-filled embeddings are valid while the node's
@@ -30,6 +38,7 @@ from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs
 
 from . import faults
+from .shard import put_rows, take_rows, to_host
 
 __all__ = ["EmbeddingStore"]
 
@@ -41,6 +50,7 @@ class EmbeddingStore:
         dim: int,
         node_cap: int,
         *,
+        plan=None,
         device="cuda",
     ):
         if capacity < 1:
@@ -48,10 +58,16 @@ class EmbeddingStore:
         self.capacity = int(capacity)
         self.dim = int(dim)
         self.node_cap = int(node_cap)
-        self.device = resolve_device(device)
-        self._rows = self.capacity + 1
-        self._table = torch.zeros((self._rows, self.dim), dtype=torch.float32,
-                                  device=self.device)
+        # a plan puts the table on its devices (``device`` is not read)
+        self.plan = plan if plan is not None and plan.enabled else None
+        self.device = (resolve_device(device) if self.plan is None
+                       else self.plan.primary)
+        self._set_table(np.zeros((self.capacity + 1, self.dim), np.float32))
+        if self.plan is not None:
+            # ownership histogram of gathered resident rows + total row
+            # copies the stitching all-gather moved across shards
+            self.shard_gather_rows = np.zeros(self.plan.n_shards, np.int64)
+            self.cross_shard_row_copies = 0
         # node id -> slot; sentinel value ``capacity`` means absent. The extra
         # entry (index node_cap) lets ELL sentinel ids flow through gathers.
         self._slot_of = np.full(self.node_cap + 1, self.capacity, np.int32)
@@ -66,6 +82,32 @@ class EmbeddingStore:
         self._free = list(range(self.capacity - 1, -1, -1))
         self._slot_dev: Optional[torch.Tensor] = None
         self._slot_dirty = True
+
+    def _set_table(self, table: np.ndarray) -> None:
+        """Upload a (capacity + 1, dim) host table; under a plan padded
+        with zero rows to the shard multiple and row-sharded."""
+        if self.plan is None:
+            self._rows = self.capacity + 1
+            self._table = torch.tensor(table, device=self.device)
+            return
+        self._rows = self.plan.pad_rows(self.capacity + 1)
+        pad = np.zeros((self._rows - len(table), self.dim), np.float32)
+        self._table = self.plan.place_rows(np.concatenate([table, pad]))
+
+    def _note_traffic(self, slots: np.ndarray) -> None:
+        """Count resident rows gathered by owning shard, and the copies
+        the stitching all-gather makes of each to the other shards."""
+        if self.plan is not None:
+            self.shard_gather_rows += self.plan.balance_of(slots, self._rows)
+            self.cross_shard_row_copies += len(slots) * (
+                self.plan.n_shards - 1
+            )
+
+    def _read(self, slots) -> np.ndarray:
+        """Host copy of the device table's rows ``slots``."""
+        rows = torch.as_tensor(np.asarray(slots, np.int64),
+                               device=self.device)
+        return take_rows(self._table, rows).cpu().numpy().copy()
 
     # ------------------------------------------------------------- queries
 
@@ -98,9 +140,11 @@ class EmbeddingStore:
             self._slot_dirty = False
         return self._slot_dev
 
-    def table(self) -> torch.Tensor:
+    def table(self):
         """(capacity + 1, dim) device table; row ``capacity`` is the zero
-        sentinel. Live: later writes land in this very tensor."""
+        sentinel. Live: later writes land in this very tensor. Under a plan
+        a ``RowSharded`` padded to the shard multiple (trailing rows zero,
+        never referenced)."""
         return self._table
 
     def node_of_slots(self, slots: np.ndarray) -> np.ndarray:
@@ -112,15 +156,15 @@ class EmbeddingStore:
         return out
 
     def row_valid(self) -> np.ndarray:
-        """(capacity + 1,) bool: table rows holding a live embedding right
-        now (the zero-sentinel row is always False)."""
+        """(rows,) bool: table rows holding a live embedding right now
+        (the zero-sentinel row and shard-padding rows are always False)."""
         valid = np.zeros(self._rows, bool)
         valid[: self.capacity] = self._node_at >= 0
         return valid
 
     def candidate_bias(self) -> np.ndarray:
-        """(capacity + 1,) float32 additive retrieval mask: 0 on live rows,
-        -inf on dead and sentinel rows — the top-k kernel adds it to scores
+        """(rows,) float32 additive retrieval mask: 0 on live rows, -inf
+        on dead, sentinel and padding rows — the top-k kernel adds it to scores
         so dead rows can never enter a result."""
         return np.where(self.row_valid(), 0.0, -np.inf).astype(np.float32)
 
@@ -139,8 +183,7 @@ class EmbeddingStore:
         # batch, device scatter pending) — spill the staged copy, not the row
         vec = staged.get(slot)
         if vec is None:
-            # a copy: on the CPU .numpy() would alias the live table row
-            vec = self._table[slot].cpu().numpy().copy()
+            vec = self._read([slot])[0]
         self._spill[node] = (
             np.asarray(vec),
             int(self._version_at[slot]),
@@ -206,11 +249,11 @@ class EmbeddingStore:
             self._last_used[s] = self._tick()
             staged[s] = vecs[i]
         # one in-place row scatter of the surviving slot->vector writes
-        # (``staged`` holds each slot once)
+        # (``staged`` holds each slot once); shard-local under a plan
         dev = self.device
         slots = torch.tensor(list(staged), dtype=torch.long, device=dev)
         rows = torch.tensor(np.stack(list(staged.values())), device=dev)
-        self._table.index_copy_(0, slots, rows)
+        put_rows(self._table, slots, rows)
         self._slot_dirty = True
         metrics().counter("store_rows_written_total").inc(len(staged))
 
@@ -282,6 +325,7 @@ class EmbeddingStore:
         with obs.span("store.gather", batch=len(slots), fused=1) as sp:
             if resident.any():
                 self._last_used[slots[resident]] = self._tick()
+            self._note_traffic(slots[resident])
             reg = metrics()
             reg.counter("store_gather_requests_total").inc(len(slots))
             reg.counter("store_gather_found_total").inc(
@@ -346,11 +390,8 @@ class EmbeddingStore:
         slots = np.full(len(nodes), self.capacity, np.int32)
         slots[in_map] = self._slot_of[nodes[in_map]]
         found = slots < self.capacity
-        if found.any():
-            # one device gather and one host copy for the batch
-            rows = torch.tensor(slots[found], dtype=torch.long,
-                                device=self.device)
-            vecs[found] = self._table[rows].cpu().numpy()
+        if found.any():  # one device gather and one host copy
+            vecs[found] = self._read(slots[found])
             vers[found] = self._version_at[slots[found]]
             cores[found] = self._core_at[slots[found]]
         if self._spill and not found.all():
@@ -384,8 +425,9 @@ class EmbeddingStore:
             found = slots < self.capacity
             if found.any():
                 self._last_used[slots[found]] = self._tick()
-            vecs = self._table[torch.tensor(slots, dtype=torch.long,
-                                            device=self.device)]
+            vecs = take_rows(self._table, torch.tensor(
+                slots, dtype=torch.long, device=self.device))
+            self._note_traffic(slots[found])
             spill_served = 0
             if self._spill and not found.all():
                 over = {}
@@ -437,11 +479,12 @@ class EmbeddingStore:
         """Both tiers plus all host metadata as host arrays.
 
         The same numpy layout as the JAX package's: the device table is
-        pulled down whole, the spill dict is flattened to parallel arrays,
-        and the free-slot stack keeps its order so slot assignment after a
-        restore is bit-identical.
+        pulled down to its logical ``capacity + 1`` rows (shard padding rows
+        are derived zeros, so the payload is placement-free), the spill dict
+        is flattened to parallel arrays, and the free-slot stack keeps its
+        order so slot assignment after a restore is bit-identical.
         """
-        table = self._table[: self.capacity + 1].cpu().numpy().copy()
+        table = to_host(self._table)[: self.capacity + 1].copy()
         spill_nodes = np.asarray(sorted(self._spill), np.int64)
         if len(spill_nodes):
             spill_vecs = np.stack(
@@ -478,15 +521,13 @@ class EmbeddingStore:
         }
 
     def load_state_dict(self, state) -> None:
-        """Overwrite this store with ``state`` (either package's layout)."""
+        """Overwrite this store with ``state`` (either package's layout,
+        taken at any shard count)."""
         self.capacity = int(state["capacity"])
         self.dim = int(state["dim"])
         self.node_cap = int(state["node_cap"])
-        self._rows = self.capacity + 1
-        self._table = torch.tensor(
-            np.asarray(state["table"], np.float32)[: self._rows],
-            device=self.device,
-        )
+        self._set_table(
+            np.asarray(state["table"], np.float32)[: self.capacity + 1])
         self._slot_of = np.array(state["slot_of"], np.int32)
         self._node_at = np.array(state["node_at"], np.int64)
         self._version_at = np.array(state["version_at"], np.int64)
@@ -509,10 +550,53 @@ class EmbeddingStore:
         self._slot_dirty = True
 
     @classmethod
-    def from_state(cls, state, *, device="cuda") -> "EmbeddingStore":
+    def from_state(cls, state, *, plan=None,
+                   device="cuda") -> "EmbeddingStore":
         store = cls(
             int(state["capacity"]), int(state["dim"]),
-            int(state["node_cap"]), device=device,
+            int(state["node_cap"]), plan=plan, device=device,
         )
         store.load_state_dict(state)
         return store
+
+    # ------------------------------------------------------------- sharding
+
+    def shard_balance(self) -> np.ndarray:
+        """(n_shards,) resident-row count per shard ([resident] unsharded)."""
+        live = np.where(self._node_at >= 0)[0]
+        if self.plan is None:
+            return np.asarray([len(live)], np.int64)
+        return self.plan.balance_of(live, self._rows)
+
+    def reset_shard_traffic(self) -> None:
+        """Zero the gather-traffic counters and the plan's byte tally
+        (benchmarks call after warmup)."""
+        if self.plan is not None:
+            self.shard_gather_rows[:] = 0
+            self.cross_shard_row_copies = 0
+            self.plan.traffic.clear()
+
+    def shard_report(self) -> dict:
+        """Per-shard balance + gather-traffic summary.
+
+        ``gather_rows_per_shard`` and ``cross_shard_row_copies`` are the
+        JAX package's accounting (resident rows gathered, and the copies a
+        GSPMD all-gather makes of each). ``moved_bytes`` is what the port's
+        copies moved: the plan's ``traffic`` (bytes between a shard past
+        the primary and the primary or the host, per operation, table,
+        mirror and descent alike) and its ``total``.
+        """
+        balance = self.shard_balance()
+        rep = {
+            "n_shards": 1 if self.plan is None else self.plan.n_shards,
+            "resident_per_shard": balance.tolist(),
+            "imbalance": float(balance.max() / max(balance.mean(), 1e-9))
+            if balance.size
+            else 0.0,
+        }
+        if self.plan is not None:
+            rep["gather_rows_per_shard"] = self.shard_gather_rows.tolist()
+            rep["cross_shard_row_copies"] = int(self.cross_shard_row_copies)
+            moved = dict(sorted(self.plan.traffic.items()))
+            rep["moved_bytes"] = {**moved, "total": sum(moved.values())}
+        return rep

@@ -27,6 +27,10 @@ Layout:
 ``compact()`` builds the re-packed table off to the side (host arrays +
 device upload) and swaps it in, so the first ``ell()`` after the swap
 returns the uploaded buffers without a full re-upload on the query path.
+
+Under a :class:`~repro_torch.serve.shard.ShardPlan` both mirror arrays are
+``RowSharded``, padded with sentinel rows (neighbours = ``node_cap``, degree
+0) to the plan's row multiple, and the pending scatter stays shard-local.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.csr import EllGraph, Graph
 from repro_torch.obs import metrics
 from repro_torch.obs import trace as obs
+
+from .shard import put_cells, put_rows
 
 __all__ = ["DynamicGraph"]
 
@@ -54,13 +60,17 @@ class DynamicGraph:
         width: int = 8,
         slack: float = 1.5,
         node_slack: float = 1.25,
+        plan=None,
         device="cuda",
     ):
         if slack < 1.0 or node_slack < 1.0:
             raise ValueError("slack factors must be >= 1")
         self.slack = float(slack)
         self.node_slack = float(node_slack)
-        self.device = resolve_device(device)
+        # a plan puts the mirror on its devices (``device`` is not read)
+        self.plan = plan if plan is not None and plan.enabled else None
+        self.device = (resolve_device(device) if self.plan is None
+                       else self.plan.primary)
         self.n_nodes = int(n_nodes)
         self.node_cap = max(int(np.ceil(self.n_nodes * self.node_slack)), 16)
         self.width = max(int(width), 1)
@@ -71,8 +81,8 @@ class DynamicGraph:
         self.compactions = 0
         self.edges_since_compact = 0
         # device mirror state
-        self._dev_nbr: Optional[torch.Tensor] = None
-        self._dev_deg: Optional[torch.Tensor] = None
+        self._dev_nbr = None  # a tensor, or RowSharded under a plan
+        self._dev_deg = None
         self._pending: List[Tuple[int, int, int]] = []  # (row, slot, value)
         self._dirty_full = True
         if edges is not None and len(edges):
@@ -391,12 +401,19 @@ class DynamicGraph:
 
     # --------------------------------------------------------- device mirror
 
-    def _upload_mirror(
-        self, nbr: np.ndarray, deg: np.ndarray
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Copy a full host mirror onto the device."""
-        return (torch.tensor(nbr, device=self.device),
-                torch.tensor(deg, device=self.device))
+    def _upload_mirror(self, nbr: np.ndarray, deg: np.ndarray):
+        """Copy a full host mirror onto the device; under a plan padded
+        with sentinel rows (neighbours = ``node_cap``, degree 0) so every
+        shard owns an equal chunk, and row-sharded. Consumers keep
+        addressing ids ``<= node_cap`` and never see the padding."""
+        if self.plan is None:
+            return (torch.tensor(nbr, device=self.device),
+                    torch.tensor(deg, device=self.device))
+        pad = self.plan.pad_rows(self.node_cap + 1) - (self.node_cap + 1)
+        nbr = np.concatenate(
+            [nbr, np.full((pad, nbr.shape[1]), self.node_cap, np.int32)])
+        deg = np.concatenate([deg, np.zeros(pad, np.int32)])
+        return self.plan.place_rows(nbr), self.plan.place_rows(deg)
 
     # ------------------------------------------------------------ snapshots
 
@@ -445,15 +462,17 @@ class DynamicGraph:
         }
 
     @classmethod
-    def from_state(cls, state, *, device="cuda") -> "DynamicGraph":
+    def from_state(cls, state, *, plan=None,
+                   device="cuda") -> "DynamicGraph":
         """Rebuild a graph bit-identical to the one that produced ``state``
         (the layout of either package's ``state_dict``), mirrored on
-        ``device``."""
+        ``device`` or row-sharded under ``plan``."""
         g = cls(
             0,
             width=int(state["width"]),
             slack=float(state["slack"]),
             node_slack=float(state["node_slack"]),
+            plan=plan,
             device=device,
         )
         g.n_nodes = int(state["n_nodes"])
@@ -480,7 +499,10 @@ class DynamicGraph:
 
         Pending slot writes since the last call are applied in place as one
         batched row/slot scatter; node growth triggers a full re-upload,
-        compaction never does (the compactor pre-uploads its buffer).
+        compaction never does (the compactor pre-uploads its buffer). Under
+        a plan the view's arrays are ``RowSharded`` and carry sentinel rows
+        past ``node_cap`` (the shard padding): consumers use ``node_cap`` as
+        the sentinel id, not ``neighbours.shape[0] - 1``.
         """
         if self._dirty_full or self._dev_nbr is None:
             self._dev_nbr, self._dev_deg = self._upload_mirror(
@@ -500,11 +522,11 @@ class DynamicGraph:
             rows = torch.tensor(upd[:, 0], device=self.device)
             slots = torch.tensor(upd[:, 1], device=self.device)
             vals = torch.tensor(upd[:, 2].astype(np.int32), device=self.device)
-            self._dev_nbr[rows, slots] = vals
+            put_cells(self._dev_nbr, rows, slots, vals)
             # degrees: only the touched rows, each with its final degree
-            self._dev_deg[rows] = torch.tensor(
-                self._deg[upd[:, 0]], device=self.device
-            )
+            # (a row written twice gets the same value both times)
+            put_rows(self._dev_deg, rows, torch.tensor(
+                self._deg[upd[:, 0]], device=self.device))
             self._pending.clear()
         return EllGraph(
             n_nodes=self.node_cap, neighbours=self._dev_nbr, degrees=self._dev_deg

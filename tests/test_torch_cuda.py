@@ -794,6 +794,46 @@ def test_hub_ingest_on_the_card_matches_the_oracle(cuda):
     assert inc.phase_impl["descend"] == "fused[cuda]"
 
 
+@pytest.mark.cuda
+def test_sharded_service_on_four_chunks_of_one_card(cuda):
+    """``ShardPlan`` with 4 shards on one card against one shard: stream,
+    flush and top-k bit-equal; per-shard launches counted (each top-k pass
+    a partial kernel per shard, each h-index sweep a launch per chunk)."""
+    from repro_torch.graph import generators
+    from repro_torch.launch.serve_embed import build_service
+    from repro_torch.serve import ShardPlan
+
+    plan = ShardPlan.build(4, devices=[cuda] * 4)
+    g = generators.barabasi_albert_varying(400, 5.0, seed=0)
+    svcs = [build_service(g, seed=0, batch=32, compact_every=128,
+                          shards=s, device=cuda) for s in (1, plan)]
+    stream = svcs[0][1]
+    svcs = [s[0] for s in svcs]
+    h = []
+    for svc in svcs:
+        before = hindex.launches
+        svc.stream_with_churn(stream, block_size=64, churn=0.2,
+                              rng=np.random.default_rng(11))
+        h.append(hindex.launches - before)
+    np.testing.assert_array_equal(svcs[0].cores.core, svcs[1].cores.core)
+    assert h[1] > 0 and h[1] % 4 == 0
+    q = np.random.default_rng(12).integers(0, svcs[0].graph.n_nodes, 32)
+    out, parts, ells = [], [], []
+    for svc in svcs:
+        e0, p0 = ellmean.launches, topk.partial_launches
+        emb = svc.embed(q)
+        ells.append(ellmean.launches - e0)
+        ids, sc = svc.top_k_neighbors(q, 10)
+        parts.append(topk.partial_launches - p0)
+        out.append((emb, svc.link_scores(np.stack([q, q[::-1]], 1)), ids,
+                    sc))
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    assert ells == [1, 1] and parts == [1, 4]
+    s1, s4 = (s.store.state_dict() for s in svcs)
+    assert all(np.array_equal(s1[k], s4[k]) for k in s1)
+
+
 # -------------------------------------------- retraining and crash safety --
 
 

@@ -237,7 +237,8 @@ def test_store_eviction_spill_and_state_match_jax():
 def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     """The plain run; ``--retrain`` (drift-triggered retrains, cores still
     exact); ``--wal-dir`` with an injected crash (a recovery report, 0
-    mismatches); and the two flags still refused."""
+    mismatches); and ``--jax-profile`` refused, as is a shard count that
+    is not a power of two (``--shards`` itself is ported)."""
     n = serve_embed.main(["--device", "cpu", "--dataset", "tiny",
                           "--requests", "32", "--block-size", "16",
                           "--churn", "0.1", "--topk", "4", "--verify",
@@ -263,8 +264,7 @@ def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     assert "core mismatches vs oracle: 0" in out
     assert "recovered after injected crash" in out
     for flags, says in ((["--jax-profile", "x"], "profiles with --profile"),
-                        (["--shards", "2"],
-                         "not implemented in the PyTorch port")):
+                        (["--shards", "3"], "power of two")):
         with pytest.raises(SystemExit):
             serve_embed.main(["--device", "cpu", "--dataset", "tiny", *flags])
         assert says in capsys.readouterr().err
