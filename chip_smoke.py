@@ -74,7 +74,21 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    service's ingest and query seconds and the ``shard_report()``.
    Where four cards are present, shard s lies on cuda:s.
    ``python3 chip_smoke.py --shard-only`` builds the kernels and runs this
-   path alone, and prints no result line;
+   path alone, and prints no result line. Then the seventh path,
+   "pipeline" (``pipeline_phase``): the resilience path's 16 blocks
+   through a ``pipeline=False`` twin, then, with the counts set to 0,
+   through a pipelined service (the default: each block's descent
+   enqueued in chunks by ``begin_update``, read back once a chunk by
+   ``finish_update``). Held: graph, store, cores, baseline and counters
+   bit-equal to the twin's after every 4th block (the captures land the
+   repair in flight), 0 core mismatches, h-index launches, at most 1 +
+   ceil(log2(max_sweeps)) host reads a descent. Printed: each service's
+   ingest and ``descend`` seconds, sweeps, sweeps enqueued and host reads
+   a descent, h-index launches, and the share of descents still running
+   when ``begin_update`` returned (a CUDA event queried at once).
+   ``--pipeline-only`` runs this path alone, and prints no result line.
+   The serving, resilience and shard paths ingest pipelined too (the
+   default); ``lockstep`` syncs each service before comparing;
 4. kernel parity and timing: each kernel against its plain PyTorch version
    on the same inputs, at the shapes the serving path gave it (taken from
    the live service; the h-index's two tiers also each on its own) and at
@@ -229,8 +243,8 @@ and records which of its two paths each shape takes.
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
-serving, the hub, the resilience, the shard, the offline, the four LM
-serving, the
+serving, the hub, the resilience, the shard, the pipeline, the offline,
+the four LM serving, the
 two step, the train and the dryrun path, each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -435,12 +449,17 @@ HUB_STREAM, HUB_BLOCK, HUB_CHURN = 2000, 250, 0.1
 RESIL_BLOCKS, RESIL_BLOCK, RESIL_CHURN = 16, 1024, 0.1
 RESIL_SNAPSHOT_EVERY = 4
 RESIL_CRASH = "ingest_apply:12:crash"
-RESIL_THRESHOLD = 0.01  # the twin retrains after ops 5 and 11
+# the twin retrains in the tails of ops 5 and 11, which pipelined ingest
+# runs at the start of ops 6 and 12 (``RetrainLog`` counts those)
+RESIL_THRESHOLD = 0.01
 RESIL_BUDGET = 2
 RESIL_HANG_TIMEOUT = 120.0  # s: the watchdog around flushes and retrains
 # the shard path: the serving configuration over the stream's first 16
 # blocks, row-sharded over 4 shards on the one card, beside its unsharded twin
 SHARD_N, SHARD_BLOCKS, SHARD_BLOCK, SHARD_CHURN = 4, 16, 1024, 0.1
+# the pipeline path: the resilience path's 16 blocks, a pipelined service
+# beside a serial twin, states compared after every PIPE_EVERY-th block
+PIPE_EVERY = 4
 
 
 def log(msg: str) -> None:
@@ -861,7 +880,9 @@ def serve_phase(torch, np, counters):
         f"{(n_in + n_out) / t_ingest:.0f} edges/s, blocks of 1024, churn "
         f"0.1; {svc.stats.compactions} compactions; decisions "
         f"{pol['decisions']}; {svc.cores.descends} fused descents, "
-        f"{svc.cores.sweeps} sweeps; core mismatches vs oracle: {mismatches}")
+        f"{svc.cores.sweeps} sweeps ({svc.cores.sweeps_enqueued} enqueued, "
+        f"{svc.cores.descent_reads} host reads; ingest pipelined: "
+        f"{svc.pipeline}); core mismatches vs oracle: {mismatches}")
     log("repair phases: " + "  ".join(
         f"{k} {v['seconds']:.3f}s[{v['impl']}]"
         for k, v in svc.cores.phase_report().items()))
@@ -1066,8 +1087,8 @@ def sweep_tally(torch, ops, ref, tally, n=5):
 
 def lockstep(np, svcs, stream, block_size, churn, seed, check=None):
     """Drive services through the same blocks and churn, checking that
-    their cores agree (and ``check(start)``, if given) after every
-    block."""
+    their cores agree (and ``check(start)``, if given) after every block;
+    each service's ``sync()`` lands its repair (and its tail) first."""
     rng = np.random.default_rng(seed)
     live = []
     for start in range(0, len(stream), block_size):
@@ -1084,6 +1105,8 @@ def lockstep(np, svcs, stream, block_size, churn, seed, check=None):
             for s in svcs:
                 s.retract_block(drop)
             live = [e for i, e in enumerate(live) if i not in gone]
+        for s in svcs:  # land each pipelined repair and its tail
+            s.sync()
         cores = [s.cores.core for s in svcs]
         expect(all(np.array_equal(cores[0], c) for c in cores),
                f"cores differ after the block at {start}")
@@ -1221,8 +1244,8 @@ def sweep_inputs(torch, np, svc):
     deg = svc.graph.degrees_of(cand)
     old = inc.core.astype(np.int64)
     seed = np.minimum(deg.astype(np.int64), old + 1024).astype(np.int32)
-    pending = inc._descend_dispatch(cand, seed, old.astype(np.int32), 0,
-                                    1 << 30, cand_deg=deg)
+    pending = inc._descend_upload(cand, seed, old.astype(np.int32), 0,
+                                  1 << 30, cand_deg=deg)
     a = pending["args"]
     est = a["est_full"].clone()
     est[a["cand"]] = a["seed"]
@@ -1273,7 +1296,9 @@ def _apply_op(svc, op):
 
 class RetrainLog:
     """Keeps the report of every retrain a service runs (auto retrains
-    return theirs to no one) and the op each fired after."""
+    return theirs to no one) and the op during which each ran (a block's
+    auto retrain runs in its tail: at the start of the next op when
+    ingest is pipelined)."""
 
     def __init__(self):
         self.reports = []
@@ -1351,7 +1376,7 @@ def resilience_phase(torch, np, counters):
     log(f"resilience twin: k0={k0}, {len(ops)} ops ({RESIL_BLOCKS} blocks of "
         f"{RESIL_BLOCK}, churn {RESIL_CHURN}) in {t_twin:.2f} s "
         f"(build {t_build:.1f} s), retrain threshold {RESIL_THRESHOLD}: "
-        f"retrains after ops {fired}")
+        f"retrains during ops {fired}")
     del twin
 
     # --- the path: crash, recover, resume, serve
@@ -1429,7 +1454,7 @@ def resilience_phase(torch, np, counters):
         f"; core mismatches vs oracle: {mismatches}")
     expect(any(op <= snap for op in fired)
            and any(snap < op <= report["wal_seq"] for op in fired),
-           f"resilience: twin retrains after ops {fired}, not on both sides "
+           f"resilience: twin retrains during ops {fired}, not on both sides "
            f"of the snapshot at {snap} before the crash at "
            f"{report['wal_seq']}")
     expect(restored["retrains"] >= 1 and refired >= 1,
@@ -1457,8 +1482,8 @@ def resilience_phase(torch, np, counters):
               "total")
     snaps = snap_hist.values()[snaps_before:]
     out = {
-        "threshold": RESIL_THRESHOLD, "twin_retrains_after_ops": fired,
-        "retrains": [{"after_op": op, "sgns_steps": r.sgns_steps,
+        "threshold": RESIL_THRESHOLD, "twin_retrains_during_ops": fired,
+        "retrains": [{"during_op": op, "sgns_steps": r.sgns_steps,
                       "n_walks": r.n_walks, "core_size": r.core_size,
                       "drifted": r.drifted, "warm_rows": r.warm_rows,
                       "anchors": r.anchors, "rows_swapped": r.rows_swapped,
@@ -1489,6 +1514,23 @@ def resilience_phase(torch, np, counters):
 
 
 # -------------------------------------------------------------- shard ----
+
+
+def peer_copy_blocks(torch, spin_s: float = 0.2) -> dict:
+    """Whether a copy from cuda:0 to cuda:1 (``.to(d)``, as the sharded
+    descent's copies are) holds the host: host seconds of the call queued
+    behind a spin kernel of ``spin_s`` on cuda:0, against the spin."""
+    x = torch.ones(1 << 20, device="cuda:0")
+    torch.cuda.synchronize("cuda:0")
+    torch.cuda._sleep(int(spin_s * SPIN_HZ))
+    t0 = time.perf_counter()
+    y = x.to("cuda:1")
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize("cuda:0")
+    torch.cuda.synchronize("cuda:1")
+    expect(bool((y == 1).all()), "peer copy lost its values")
+    return {"host_s": host_s, "spin_s": spin_s,
+            "blocks_host": host_s > spin_s / 2}
 
 
 class PathMeter:
@@ -1610,7 +1652,7 @@ def shard_phase(torch, np, ops, ref, F, counters):
     tally.active = False
     meters = [PathMeter(torch, counters), PathMeter(torch, counters, tally)]
     for m, svc in zip(meters, svcs):
-        m.wrap(svc, "ingest_block", "retract_block")
+        m.wrap(svc, "ingest_block", "retract_block", "sync")
     with tally:
         lockstep(np, svcs, stream, SHARD_BLOCK, SHARD_CHURN, 2,
                  check=same_state)
@@ -1688,6 +1730,8 @@ def shard_phase(torch, np, ops, ref, F, counters):
         "shard_report": report, "launches": counts,
         "twin_launches": meters[0].counts,
     }
+    if many:  # does a copy between cards hold the host (the descent's)?
+        out["peer_copy"] = peer_copy_blocks(torch)
     log("shard: " + json.dumps(out))
     log(f"shard: {SHARD_BLOCKS} blocks of {SHARD_BLOCK} in "
         f"{ingest_s[1]:.2f} s at {SHARD_N} shards vs {ingest_s[0]:.2f} s "
@@ -1710,6 +1754,181 @@ def shard_phase(torch, np, ops, ref, F, counters):
                                "shard chunk")
     del svcs, one, sh, back
     return counts, recs, out
+
+
+# ----------------------------------------------------------- pipeline ----
+
+
+def pipeline_phase(torch, np, counters):
+    """Pipelined ingest on the card (``EmbeddingService(pipeline=True)``,
+    ``IncrementalCore.begin_update`` / ``finish_update``): the serving
+    configuration (``github-like``, dim 128, batch 64) over the resilience
+    path's op list (the stream's first 16 blocks of 1024, 10% churn),
+    through a ``pipeline=False`` twin first and then, with every count set
+    to 0, through a pipelined service. Held: graph, store, cores, baseline
+    and counters (``capture_state``, which lands the repair in flight)
+    bit-equal to the twin's after every PIPE_EVERY-th block and at the end
+    (reading them earlier would settle each block and hide the overlap);
+    0 core mismatches against the peeling oracle; h-index launches on the
+    path; every descent at most 1 + ceil(log2(max_sweeps)) host reads.
+    Printed, for each service: ingest seconds (the ops and the final sync,
+    the captures left out), the ``descend`` phase's seconds (pipelined: the
+    host's enqueueing and the wait that was not overlapped), sweeps a
+    descent, sweeps enqueued and host reads a descent, h-index launches,
+    the host seconds in the descents' set-up, sweep enqueueing and reads
+    (``_Descent.__init__`` / ``sweep`` / ``read``, a read waiting for the
+    card); and the share of descents still running on the card when
+    ``begin_update`` returned (a CUDA event recorded after the last
+    enqueued sweep, queried at once; not held). Returns (launch counts,
+    numbers)."""
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import datasets
+    from repro_torch.kernels import hindex
+    from repro_torch.launch.serve_embed import build_service
+    from repro_torch.serve import kcore_inc
+    from repro_torch.serve.recovery import capture_state
+
+    g = datasets.load("github-like", seed=0)
+    host = {}  # host seconds by _Descent method, the running service's
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t, c = time.perf_counter(), time.process_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[name] = host.get(name, 0.0) + time.perf_counter() - t
+                host[name + ".cpu"] = (host.get(name + ".cpu", 0.0)
+                                       + time.process_time() - c)
+        return wrapped
+
+    def mallocs():
+        st = torch.cuda.memory_stats()
+        return st.get("segment.all.allocated", 0), st.get(
+            "num_alloc_retries", 0)
+
+    def run(pipeline, states):
+        host.clear()
+        t0 = time.perf_counter()
+        svc, stream, _, _ = build_service(
+            g, stream_frac=STREAM_FRAC, dim=128, batch=64,
+            pipeline=pipeline, device="cuda")
+        t_build = time.perf_counter() - t0
+        inc = svc.cores
+        reads, inflight = [], []
+        read = inc._descend_read
+
+        def counted_read(pending, **kw):
+            out = read(pending, **kw)
+            reads.append(pending["descent"].reads)
+            return out
+        inc._descend_read = counted_read
+        begin = inc.begin_update
+
+        def watched(*a, **kw):
+            ticket = begin(*a, **kw)
+            if not ticket.done:  # a descent left in flight
+                ev = torch.cuda.Event()
+                ev.record()
+                inflight.append(not ev.query())
+            return ticket
+        inc.begin_update = watched
+        ops = resilience_ops(np, stream)
+        torch.cuda.synchronize()
+        launches = hindex.launches
+        seg0, retry0 = mallocs()
+        t_ingest, n_blocks = 0.0, 0
+        for i, op in enumerate(ops):
+            t0 = time.perf_counter()
+            _apply_op(svc, op)
+            last = i + 1 == len(ops)
+            if last:
+                svc.sync()
+            t_ingest += time.perf_counter() - t0
+            n_blocks += op[0] == "retract"
+            if last or (op[0] == "retract" and n_blocks % PIPE_EVERY == 0):
+                states.append(capture_state(svc, 0))
+        launches = hindex.launches - launches
+        seg1, retry1 = mallocs()
+        host_s = dict(host)
+        oracle = core_numbers_host(svc.graph.snapshot())
+        mismatches = int((svc.cores.core[: len(oracle)] != oracle).sum())
+        d = max(inc.descends, 1)
+        return svc, {
+            "pipeline": pipeline, "build_s": t_build,
+            "ingest_s": t_ingest,
+            "descend_s": inc.phase_report().get(
+                "descend", {"seconds": 0.0})["seconds"],
+            "descends": inc.descends, "repeels": inc.repeels,
+            "sweeps": inc.sweeps, "sweeps_per_descent": inc.sweeps / d,
+            "enqueued_per_descent": inc.sweeps_enqueued / d,
+            "reads_per_descent": inc.descent_reads / d,
+            "max_reads_a_descent": max(reads, default=0),
+            "h_index_launches": launches, "host_s": host_s,
+            "cuda_mallocs": seg1 - seg0, "alloc_retries": retry1 - retry0,
+            "us_per_enqueued_sweep": 1e6 * host_s.get("sweep", 0.0)
+            / max(inc.sweeps_enqueued, 1),
+            "us_per_read": 1e6 * host_s.get("read", 0.0)
+            / max(inc.descent_reads, 1),
+            "inflight_at_return": (sum(inflight) / len(inflight)
+                                   if inflight else None),
+            "dispatched": len(inflight), "mismatches": mismatches,
+        }
+
+    cls = kcore_inc._Descent
+    methods = {k: getattr(cls, k) for k in ("__init__", "sweep", "read")}
+    for k, fn in methods.items():
+        setattr(cls, k, timed(k, fn))
+    try:
+        truth = []
+        twin, serial = run(False, truth)
+        del twin
+        counters.reset()
+        got = []
+        svc, piped = run(True, got)
+        counts = counters.read()
+    finally:
+        for k, fn in methods.items():
+            setattr(cls, k, fn)
+    bad = []
+    for at, ((want, wman), (have, hman)) in enumerate(zip(truth, got)):
+        keys = [k for k in sorted(set(want) | set(have))
+                if k not in want or k not in have
+                or not np.array_equal(want[k], have[k])]
+        if keys or wman["stats"] != hman["stats"]:
+            bad.append((at, keys, wman["stats"] == hman["stats"]))
+    cap = 1 + math.ceil(math.log2(svc.cores.max_sweeps))
+    out = {"serial": serial, "pipelined": piped,
+           "compared": len(got), "launches": counts,
+           "ingest_x": serial["ingest_s"] / max(piped["ingest_s"], 1e-9)}
+    log("pipeline: " + json.dumps(out))
+    log(f"pipeline: {RESIL_BLOCKS} blocks of {RESIL_BLOCK} (churn "
+        f"{RESIL_CHURN}) pipelined in "
+        f"{piped['ingest_s']:.2f} s (descend {piped['descend_s']:.3f} s "
+        f"not overlapped) vs {serial['ingest_s']:.2f} s serial (descend "
+        f"{serial['descend_s']:.3f} s); a descent: "
+        f"{piped['sweeps_per_descent']:.2f} sweeps, "
+        f"{piped['enqueued_per_descent']:.2f} enqueued, "
+        f"{piped['reads_per_descent']:.2f} host reads (max "
+        f"{piped['max_reads_a_descent']}; host us an enqueued sweep "
+        f"{piped['us_per_enqueued_sweep']:.1f}, a read "
+        f"{piped['us_per_read']:.1f}); h-index launches "
+        f"{piped['h_index_launches']} vs {serial['h_index_launches']}; "
+        f"descents still running at begin_update's return: "
+        f"{piped['inflight_at_return']} of {piped['dispatched']}; states "
+        f"compared {len(got)} times, differing: {bad}")
+    expect(len(got) == len(truth) == RESIL_BLOCKS // PIPE_EVERY,
+           f"pipeline: {len(got)} / {len(truth)} states captured")
+    expect(bad == [], f"pipeline: state differs from the serial twin: {bad}")
+    expect(piped["mismatches"] == serial["mismatches"] == 0,
+           f"pipeline: core mismatches {piped['mismatches']} / "
+           f"{serial['mismatches']}")
+    expect(piped["max_reads_a_descent"] <= cap,
+           f"pipeline: a descent took {piped['max_reads_a_descent']} host "
+           f"reads, above 1 + ceil(log2(max_sweeps)) = {cap}")
+    expect(counts["h_index"] > 0 and piped["dispatched"] > 0,
+           "pipeline: no descent ran on the card")
+    return counts, out
 
 
 # ------------------------------------------------------------ offline ----
@@ -3343,6 +3562,11 @@ def main() -> int:
         shard_phase(torch, np, ops, ref, F, counters)
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, shard path only")
         return 0
+    if sys.argv[1:] == ["--pipeline-only"]:
+        pipeline_phase(torch, np, counters)
+        log(f"smoke: {time.perf_counter() - t_start:.1f} s, pipeline path "
+            f"only")
+        return 0
     with SweepTally(ops) as tally:  # the serving phase only
         svc, serve_counts = serve_phase(torch, np, counters)
     obs_checks(torch, np, svc)
@@ -3361,6 +3585,7 @@ def main() -> int:
                                              counters)
     for name, rec in shard_rec.items():
         large_rec[name].append(rec)
+    pipe_counts, _ = pipeline_phase(torch, np, counters)
     large_rec["ell_mean"] += propagation_shapes(torch, np, ops, ref, F,
                                                 split)
     train = check_sgns(torch, ref, sgns, 8192, 5, 150, torch.float32,
@@ -3422,12 +3647,13 @@ def main() -> int:
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, shard_counts,
-             offline_counts, *lm_counts.values(), train_counts,
+             pipe_counts, offline_counts, *lm_counts.values(), train_counts,
              dryrun_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
                    "shard": shard_counts[name],
+                   "pipeline": pipe_counts[name],
                    "offline": offline_counts[name],
                    **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name],

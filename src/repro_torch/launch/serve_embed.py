@@ -36,9 +36,12 @@ and prints the per-shard balance and gather traffic; N must be a power of
 two and at most the cards present. The report also gives the bytes the
 shards' copies moved, per operation (``ShardPlan.traffic``).
 
+Ingest is pipelined by default (``EmbeddingService(pipeline=True)``: a
+block's descent is enqueued on the device and read back only when the next
+block, a query or ``sync()`` needs it, the host staging the next block in
+between); ``--no-pipeline`` ingests serially, with the same results.
+
 Refused with an error: ``--jax-profile`` (use ``--profile``).
-``--no-pipeline`` is accepted and changes nothing: the port ingests every
-block serially.
 """
 from __future__ import annotations
 
@@ -134,6 +137,7 @@ def build_service(
     crossover_margin: float = 1.0,
     cold_cells_per_arc: float = 32.0,
     hang_timeout: Optional[float] = None,
+    pipeline: bool = True,
     device="cuda",
 ):
     """Returns (service, stream_edges, base_core, k0), on ``device``.
@@ -156,7 +160,9 @@ def build_service(
     ``retrain_budget`` allows, refreshes the k0-core embeddings in place.
     ``repair_policy`` selects the block-repair decision rule (``adaptive``
     measured crossover / ``region`` legacy static trigger / ``fallback``
-    always re-peel). Ingest is serial: there is no pipelined variant.
+    always re-peel) and ``pipeline`` overlaps block staging with the
+    in-flight descent (``False``: serial ingest) — both exist so A/B runs
+    can reach every old behaviour.
     ``hang_timeout`` (seconds) arms the service's ``HangWatchdog`` around
     its blocking device reads and retrains; a section that outlasts it is
     counted in ``stats.hangs``.
@@ -212,7 +218,8 @@ def build_service(
     inc.mark_refresh()
     svc = EmbeddingService(
         base, inc, store, batch=batch, compact_every=compact_every, k0=k0,
-        retrain_threshold=retrain_threshold, hang_timeout=hang_timeout,
+        retrain_threshold=retrain_threshold, pipeline=pipeline,
+        hang_timeout=hang_timeout,
     )
     if retrain:
         attach_retrainer(svc, seed=seed, prop_iters=prop_iters,
@@ -277,8 +284,7 @@ def main(argv=None):
                     help="cold-start shape heuristic: descend while padded "
                          "cells <= this many per affected-shell arc")
     ap.add_argument("--no-pipeline", action="store_true",
-                    help="serial block ingest: accepted for the JAX "
-                         "launcher's sake, the port's only ingest path")
+                    help="disable pipelined block ingest (serial staging)")
     ap.add_argument("--verify", action="store_true",
                     help="assert incremental cores match the oracle at the end")
     ap.add_argument("--score-frac", type=float, default=0.3,
@@ -345,6 +351,7 @@ def main(argv=None):
         repair_policy=args.repair_policy,
         crossover_margin=args.crossover_margin,
         cold_cells_per_arc=args.cold_cells_per_arc,
+        pipeline=not args.no_pipeline,
         device=args.device,
     )
     print(f"[serve-embed] base: {svc.graph.n_edges} edges, k0={k0}, "
@@ -421,9 +428,11 @@ def main(argv=None):
         for k, v in svc.cores.phase_report().items()
     )
     if phases:
+        inc = svc.cores
         print(f"[serve-embed] repair phases: {phases} "
-              f"({svc.cores.descends} fused descents, "
-              f"{svc.cores.sweeps} sweeps)")
+              f"({inc.descends} fused descents, {inc.sweeps} sweeps; "
+              f"{inc.sweeps_enqueued} enqueued, {inc.descent_reads} host "
+              f"reads; ingest {'pipelined' if svc.pipeline else 'serial'})")
     pol = svc.cores.policy_report()
     print(f"[serve-embed] repair policy[{pol['mode']}]: "
           f"decisions {pol['decisions']} (cold {pol['cold_decisions']}), "

@@ -51,10 +51,16 @@ Block repair (``on_edge_block`` / ``on_remove`` / ``on_update``):
   widens ``hi`` until certified; deletions-only blocks can never hit the
   ceiling. Exactness argument in ``core_numbers_shell_peel``'s docstring.
 
-Every repair is synchronous: the JAX package's split into
-``begin_update``/``finish_update`` tickets (so the service could stage the
-next block while a descent was in flight) is not ported, because here the
-descent loop reads a flag back every sweep and nothing would overlap.
+* **Pipelined handoff**: ``begin_update`` runs region discovery + the policy
+  decision and *enqueues* the descent's first chunk of sweeps on the device
+  without reading anything back; ``finish_update`` reads the chunk's
+  result once (enqueuing longer chunks until the fixed point, see below),
+  runs any window widenings, and commits. ``on_update`` is simply the two
+  back-to-back; the serving layer calls them split so block N+1's host-side
+  dedup/WAL append overlaps block N's descent on the device. Every other
+  public entry point settles an in-flight ticket first, so results are
+  bit-identical to the serial path.
+
 A descent dispatch that raises the fault harness's ``InjectedFault`` is
 retried ``dispatch_retries`` times with backoff, then the block is repaired
 by the exact host peel (``dispatch_failures`` / ``dispatch_recoveries``
@@ -80,11 +86,24 @@ makes the JAX package's CPU choices (``"np"`` / ``"count"`` /
 * **Candidate matrices** come from one vectorized gather
   (``DynamicGraph.gather_rows``), trimmed to the candidates' true max degree
   and split into a narrow and a hub tier.
-* **The h-index descent** (``_fused_descent``) seeds, sweeps to the fixed
-  point and computes the adaptive-window boundary statistics on the device;
-  each sweep applies ``kernels.ops.h_index_sweep`` per tier (the CUDA kernel
-  on the card, the sort-free counting search on the CPU) and the host reads
-  one ``changed`` flag back per sweep.
+* **The h-index descent** (``_Descent``) seeds, sweeps to the fixed point
+  and computes the adaptive-window boundary statistics on the device; each
+  sweep applies ``kernels.ops.h_index_sweep`` per tier (the CUDA kernel on
+  the card, the sort-free counting search on the CPU). Sweeps are enqueued
+  in **chunks** with no host read between them; a device counter adds up
+  the sweeps that changed an estimate, and one host read per chunk brings
+  back that count, the last sweep's flag, the boundary statistics and the
+  estimates. Chunks double until a sweep changes nothing or ``max_sweeps``
+  have run; the first chunk is the sweep count of the last descent of the
+  same kind (a block with insertions, a deletions-only block, an all-node
+  re-peel) rounded up to a power of two, at least 4: an insert block's descent takes several times the sweeps of
+  the deletions that follow it, so one history for both overshoots. The
+  operator is monotone, so a sweep that changes nothing is a fixed point
+  and the sweeps after it change nothing either: the result, ``sweeps``
+  (``min(max_sweeps, changed sweeps + 1)``, the JAX package's count) and
+  truncation (the sweep at ``max_sweeps`` still changed) do not depend on
+  the chunking. ``sweeps_enqueued`` and ``descent_reads`` count the sweeps
+  the device ran and the host reads, beside ``sweeps``.
 * **The re-peel** is the same descent seeded over *all* nodes on CUDA; on
   the CPU it is the shell-incremental or vectorized rounds peel fed straight
   from the graph's arc arrays.
@@ -136,22 +155,24 @@ _W_SMALL = 32
 _COUNT_BUCKETS = 4.0 ** np.arange(12)
 
 
-def _fused_descent(tiers, cand, seed, old, est_full, lo, hi, *,
-                   impl: str, max_sweeps: int):
-    """The whole h-index descent on the candidates' device.
+class _Descent:
+    """One h-index descent on the candidates' device, enqueued in chunks.
 
     ``tiers``: list of ``(idx, valid)`` candidate neighbour matrices (global
     node ids, padding = sentinel) whose rows, concatenated, line up with
     ``cand`` (R,) candidate ids (padded rows point at the sentinel, whose
     estimate stays 0); ``seed``: (R,) upper bound on the new cores;
     ``old``: (R,) old cores (0 on padded rows); ``est_full``:
-    (node_cap + 1,) frozen boundary = current cores. One tier is the plain
-    ELL matrix; two are the narrow + hub split, each sweep applying the
-    same row operator to both against the shared estimate, so the fixpoint
-    trajectory is the same. Sweeps to the fixed point (one host read of the
-    ``changed`` flag per sweep) and returns ``(new, max_gain, max_loss,
-    ceiling_hit, floor_hit, sweeps, truncated)`` with ``new`` on the device
-    and the rest host scalars.
+    (node_cap + 1,) frozen boundary = current cores, left as it is (the
+    descent sweeps a copy). One tier is the plain ELL matrix; two are the
+    narrow + hub split, each sweep applying the same row operator to both
+    against the shared estimate, so the fixpoint trajectory is the same.
+
+    :meth:`sweep` enqueues sweeps and reads nothing back: the ``changed``
+    flag of each stays on the device, where ``n_changed`` adds them up.
+    :meth:`read` is the one host read of a chunk: the changed-sweep count,
+    the last sweep's flag, the adaptive-window boundary statistics of the
+    current estimates, and the estimates themselves.
 
     Under a ``ShardPlan`` each tier's matrices are ``RowSharded`` and
     ``est_full`` is ``Replicated``: every sweep launches the sweep once per
@@ -159,50 +180,73 @@ def _fused_descent(tiers, cand, seed, old, est_full, lo, hi, *,
     estimate; the new estimates are gathered and written to every copy (the
     all-gather), and ``changed`` is taken over all shards' rows. The
     operator is per row, so the integers are the unsharded ones. The copies
-    count in ``plan.traffic["descent"]``.
+    count in ``plan.traffic["descent"]``, the sweeps past the fixed point
+    included.
     """
-    plan = getattr(est_full, "plan", None)
-    cand = cand.long()
-    est = {d: e.clone() for d, e in replicas(est_full).items()}
-    cands = {d: cand.to(d) for d in est}
-    for d, e in est.items():
-        e[cands[d]] = seed.to(d)
-    if plan is not None:
-        plan.note_fanout("descent", cand, seed)
-    cur = seed
-    changed, sweeps = True, 0
-    while changed and sweeps < max_sweeps:
-        new = torch.cat([
-            ship(kops.h_index_sweep(
-                est[ci.device][ci], cv,
-                ship(part[a:a + len(ci)], ci.device, plan, s, "descent"),
-                impl=impl,
-            ), cur.device, plan, s, "descent")
-            for (idx, valid), part in zip(
-                tiers, torch.split(cur, [t[0].shape[0] for t in tiers])
-            )
-            for s, ((a, ci), (_, cv)) in enumerate(
-                zip(row_chunks(idx), row_chunks(valid)))
-        ])
-        for d, e in est.items():
-            e[cands[d]] = new.to(d)
+
+    def __init__(self, tiers, cand, seed, old, est_full, lo, hi, *,
+                 impl: str):
+        self.plan = plan = getattr(est_full, "plan", None)
+        self.tiers, self.impl = tiers, impl
+        self.old, self.lo, self.hi = old, lo, hi
+        cand = cand.long()
+        self.est = {d: e.clone() for d, e in replicas(est_full).items()}
+        self.cands = {d: cand.to(d) for d in self.est}
+        for d, e in self.est.items():
+            e[self.cands[d]] = seed.to(d)
         if plan is not None:
-            plan.note_fanout("descent", new)
-        changed = bool((new != cur).any())
-        cur = new
-        sweeps += 1
-    stats = torch.stack([
-        (cur - old).clamp_min(0).amax(),
-        (old - cur).clamp_min(0).amax(),
-        # only *changed* nodes at/past the boundary suggest a truncated
-        # cascade; an unchanged high-core endpoint legitimately sits above
-        ((cur > hi) & (cur > old)).any().to(cur.dtype),
-        ((cur < lo) & (cur < old)).any().to(cur.dtype),
-    ]).tolist()
-    # ``changed`` still true at exit means the sweep cap truncated the
-    # descent — the estimates are NOT a fixed point and must not be committed
-    return (cur, stats[0], stats[1], bool(stats[2]), bool(stats[3]),
-            sweeps, changed)
+            plan.note_fanout("descent", cand, seed)
+        self.cur = seed
+        self.n_changed = torch.zeros((), dtype=torch.int32,
+                                     device=seed.device)
+        self.last = torch.ones((), dtype=torch.bool, device=seed.device)
+        self.enqueued = 0  # sweeps enqueued
+        self.reads = 0  # host reads
+
+    def sweep(self, n: int) -> None:
+        """Enqueue ``n`` more sweeps."""
+        plan, est, cur = self.plan, self.est, self.cur
+        for _ in range(n):
+            new = torch.cat([
+                ship(kops.h_index_sweep(
+                    est[ci.device][ci], cv,
+                    ship(part[a:a + len(ci)], ci.device, plan, s, "descent"),
+                    impl=self.impl,
+                ), cur.device, plan, s, "descent")
+                for (idx, valid), part in zip(
+                    self.tiers,
+                    torch.split(cur, [t[0].shape[0] for t in self.tiers]))
+                for s, ((a, ci), (_, cv)) in enumerate(
+                    zip(row_chunks(idx), row_chunks(valid)))
+            ])
+            for d, e in est.items():
+                e[self.cands[d]] = new.to(d)
+            if plan is not None:
+                plan.note_fanout("descent", new)
+            self.last = (new != cur).any()
+            self.n_changed += self.last
+            cur = new
+        self.cur = cur
+        self.enqueued += n
+
+    def read(self):
+        """The one host read of a chunk: ``((n_changed, last_changed,
+        max_gain, max_loss, ceiling_hit, floor_hit), estimates)`` as host
+        integers and an int32 array."""
+        cur, old = self.cur, self.old
+        head = torch.stack([
+            self.n_changed, self.last.to(torch.int32),
+            (cur - old).clamp_min(0).amax(),
+            (old - cur).clamp_min(0).amax(),
+            # only *changed* nodes at/past the boundary suggest a truncated
+            # cascade; an unchanged high-core endpoint legitimately sits
+            # above the window
+            ((cur > self.hi) & (cur > old)).any().to(torch.int32),
+            ((cur < self.lo) & (cur < old)).any().to(torch.int32),
+        ])
+        host = torch.cat([head, cur]).cpu().numpy()
+        self.reads += 1
+        return tuple(int(x) for x in host[:6]), host[6:]
 
 
 def _region_fixpoint(nbr, deg, core, ends, side_src, side_dst, lo, hi, cap,
@@ -466,6 +510,29 @@ class RepairPolicy:
         }
 
 
+class _RepairTicket:
+    """Handle for one block repair started by ``begin_update``.
+
+    ``done`` tickets already committed (synchronous paths); live tickets
+    hold the in-flight descent plus everything ``finish_update`` needs to
+    validate the window and commit.
+    """
+
+    __slots__ = ("done", "changed", "pending", "ctx", "margin", "lo", "hi",
+                 "cand")
+
+    def __init__(self, *, changed=None, pending=None, ctx=None, margin=0,
+                 lo=0, hi=0, cand=None):
+        self.done = changed is not None
+        self.changed = int(changed or 0)
+        self.pending = pending
+        self.ctx = ctx
+        self.margin = margin
+        self.lo = lo
+        self.hi = hi
+        self.cand = cand
+
+
 class IncrementalCore:
     def __init__(
         self,
@@ -511,8 +578,14 @@ class IncrementalCore:
             cold_cells_per_arc=cold_cells_per_arc,
         )
         self.repairs = 0
-        self.sweeps = 0
+        self.sweeps = 0  # the JAX package's count: sweeps to the fixed point
+        self.sweeps_enqueued = 0  # sweeps the device ran (chunks in full)
+        self.descent_reads = 0  # host reads of the device descents
         self.descends = 0
+        # test seam: a fixed length for every descent's first chunk of
+        # sweeps in place of the history rule (_descend_dispatch)
+        self._first_chunk: Optional[int] = None
+        self._last_sweeps: dict = {}  # descent kind -> its last sweep count
         # bounded retry around the descent dispatch; exhaustion falls back
         # to the exact host peel (never an inexact answer). Only the fault
         # harness's InjectedFault is retried: a kernel that fails to build
@@ -527,6 +600,7 @@ class IncrementalCore:
         self.shell_repeels = 0  # re-peels that stayed shell-incremental
         self.shell_widens = 0  # ceiling hits that widened the peel window
         self._shell_depths: list = []  # (hi, peeled_nodes, n) per shell peel
+        self._inflight: Optional[_RepairTicket] = None
         self.phase_seconds: dict = {}
         self.phase_impl: dict = {}
 
@@ -621,7 +695,12 @@ class IncrementalCore:
 
     @property
     def core(self) -> np.ndarray:
-        """(n_nodes,) int32 current core numbers (live view, do not mutate)."""
+        """(n_nodes,) int32 current core numbers (live view, do not mutate).
+
+        Settles any in-flight pipelined repair first — readers always see
+        committed levels.
+        """
+        self._settle()
         return self._core[: self.g.n_nodes]
 
     @property
@@ -787,7 +866,7 @@ class IncrementalCore:
             }
             pending = self._descend_dispatch(
                 np.arange(n, dtype=np.int64), seed, old, 0, 1 << 30,
-                cand_deg=deg,
+                cand_deg=deg, kind="repeel",
             )
             res = self._descend_read(pending)
             for k, b in before.items():
@@ -862,17 +941,16 @@ class IncrementalCore:
             return r_pad, 0, w_pad, 0, cells
         return r_small, r_big, w_pad, n_big, split_cells
 
-    def _descend_dispatch(self, cand, seed, old_cand, lo, hi, *, cand_deg):
+    def _descend_upload(self, cand, seed, old_cand, lo, hi, *, cand_deg):
         """Gather/pad the candidate matrix and upload it to the device.
 
-        Returns the pending descent (device tensors plus readback
-        bookkeeping); ``_descend_read`` runs it. The split lets the kernel
-        check of ``chip_smoke.py`` take the sweep's inputs at the serving
-        path's shapes without running the descent.
+        Returns the pending descent's inputs (device tensors, ``args``)
+        plus readback bookkeeping, with nothing enqueued yet. The split
+        lets the kernel check of ``chip_smoke.py`` take the sweep's inputs
+        at the serving path's shapes without running the descent.
         """
         g = self.g
         node_cap = g.node_cap
-        faults.check("device_dispatch")
         t0 = time.perf_counter()
         n_rows = len(cand)
         r_small, r_big, w_big, n_big, cells = self._tier_plan(
@@ -929,31 +1007,86 @@ class IncrementalCore:
             "lo": int(lo), "hi": int(hi),
         }
         self._tick("candidates", "gather", t0)
-        return {"args": args, "n_rows": n_rows, "t0": time.perf_counter(),
-                "cells": cells, "cand": cand_out, "keep": keep}
+        return {"args": args, "n_rows": n_rows, "cells": cells,
+                "cand": cand_out, "keep": keep}
 
-    def _descend_read(self, pending):
-        """Run a pending descent on the device and pull the result back.
+    def _descend_dispatch(self, cand, seed, old_cand, lo, hi, *, cand_deg,
+                          kind=None):
+        """Upload the candidate matrix and *enqueue* the descent's first
+        chunk of sweeps (``_descend_upload``, ``_Descent``).
 
-        Returns ``(new, max_gain, max_loss, ceiling_hit, floor_hit)`` or
-        None when the sweep cap truncated the descent.
+        Returns the pending descent without reading anything back: the host
+        is free until ``_descend_read`` — the pipelined ingest stages the
+        next block's dedup/WAL append in that gap. The first chunk has the
+        sweep count of the last descent of the same ``kind`` ("insert",
+        "delete", "repeel") rounded up to a power of two, at least 4 (at most
+        ``max_sweeps``).
         """
-        new, gain, loss, ceiling, floor, sweeps, truncated = _fused_descent(
-            **pending["args"], impl=self._kernel_mode(),
-            max_sweeps=self.max_sweeps,
-        )
-        new = new.cpu().numpy().astype(np.int32)
+        faults.check("device_dispatch")
+        pending = self._descend_upload(cand, seed, old_cand, lo, hi,
+                                       cand_deg=cand_deg)
+        pending["t0"] = time.perf_counter()
+        descent = _Descent(**pending["args"], impl=self._kernel_mode())
+        first = self._first_chunk
+        if first is None:
+            first = max(pow2(self._last_sweeps.get(kind, 0)), 4)
+        pending["kind"] = kind
+        pending["chunk"] = min(max(int(first), 1), self.max_sweeps)
+        descent.sweep(max(pending["chunk"], 0))
+        pending["descent"] = descent
+        pending["t_sent"] = time.perf_counter()
+        return pending
+
+    def _descend_read(self, pending, *, full_interval: bool = True):
+        """Read a pending descent back, enqueuing more sweeps until it ends.
+
+        One host read per chunk: while the last sweep still changed an
+        estimate and fewer than ``max_sweeps`` sweeps have run, the next
+        chunk (twice the last one, clipped at ``max_sweeps``) is enqueued
+        and read. ``full_interval=True`` charges the descend phase from the
+        dispatch (the serial semantics); ``False`` charges the host's own
+        time on the descent only: the first chunk's enqueueing and the time
+        spent here, as two spans — in pipelined mode the descent's
+        *non-overlapped* cost, which is both what the phase report should
+        show and the right quantity for the policy's crossover (overlapped
+        device time is free wall-clock). Returns ``(new, max_gain,
+        max_loss, ceiling_hit, floor_hit)`` or None when the sweep cap
+        truncated the descent.
+        """
+        t_read = time.perf_counter()
+        descent, chunk = pending["descent"], pending["chunk"]
+        while True:
+            (n_changed, last, gain, loss, ceiling, floor), new = \
+                descent.read()
+            if not last or descent.enqueued >= self.max_sweeps:
+                break
+            chunk = min(2 * chunk, self.max_sweeps - descent.enqueued)
+            descent.sweep(chunk)
         keep = pending["keep"]
         new = new[: pending["n_rows"]] if keep is None else new[keep]
-        self.sweeps += int(sweeps)
+        # the changed sweeps are a prefix (a sweep that changes nothing is a
+        # fixed point), so the sweeps a stopping loop runs are the changed
+        # ones + the one that found the fixed point, capped at max_sweeps
+        sweeps = min(self.max_sweeps, n_changed + 1)
+        self._last_sweeps[pending["kind"]] = sweeps
+        self.sweeps += sweeps
+        self.sweeps_enqueued += descent.enqueued
+        self.descent_reads += descent.reads
         self.descends += 1
         metrics().counter("repair_descends_total").inc()
+        mode = f"fused[{self._kernel_mode()}]"
         t0, t1 = pending["t0"], time.perf_counter()
-        self._tick("descend", f"fused[{self._kernel_mode()}]", t0, t1)
-        self.policy.observe("descend", pending["cells"], t1 - t0)
-        if truncated:  # max_sweeps cap hit before the fixed point
+        if full_interval:
+            self._tick("descend", mode, t0, t1)
+            cost = t1 - t0
+        else:
+            self._tick("descend", mode, t0, pending["t_sent"])
+            self._tick("descend", mode, t_read, t1)
+            cost = pending["t_sent"] - t0 + t1 - t_read
+        self.policy.observe("descend", pending["cells"], cost)
+        if last:  # max_sweeps cap hit before the fixed point
             return None
-        return new, int(gain), int(loss), bool(ceiling), bool(floor)
+        return new, gain, loss, bool(ceiling), bool(floor)
 
     def _descend(self, cand: np.ndarray, seed: np.ndarray) -> np.ndarray:
         """Reference host descent: per-iteration sort-based sweeps over a
@@ -986,13 +1119,13 @@ class IncrementalCore:
                 return new
             est[cand] = new
 
-    def _finish_repeel(self, ctx: dict, hi: int) -> int:
+    def _finish_repeel(self, ctx: dict, hi: int) -> _RepairTicket:
         changed = self._repeel(ctx["old"], ctx["m_ins"], hi=hi)
         self.repairs += 1
-        return changed
+        return _RepairTicket(changed=changed)
 
     def _dispatch_with_retry(self, cand, seed, old_cand, lo, hi, *,
-                             cand_deg):
+                             cand_deg, kind=None):
         """Bounded retry-with-backoff around the descent dispatch.
 
         Retries an ``InjectedFault`` only, and re-raises the last one after
@@ -1002,7 +1135,8 @@ class IncrementalCore:
         for attempt in range(self.dispatch_retries + 1):
             try:
                 return self._descend_dispatch(
-                    cand, seed, old_cand, lo, hi, cand_deg=cand_deg
+                    cand, seed, old_cand, lo, hi, cand_deg=cand_deg,
+                    kind=kind,
                 )
             except faults.InjectedFault:
                 self.dispatch_failures += 1
@@ -1011,7 +1145,7 @@ class IncrementalCore:
                     raise
                 time.sleep(self.retry_backoff * (2 ** attempt))
 
-    def _recover_ref(self, ctx: dict, hi: int) -> int:
+    def _recover_ref(self, ctx: dict, hi: int) -> _RepairTicket:
         """The dispatch kept failing: force the exact host ``"peel"`` path
         for this block so cores stay exact while the device path recovers.
 
@@ -1026,18 +1160,17 @@ class IncrementalCore:
         finally:
             self.repeel_impl = saved
 
-    def _commit(self, ctx: dict, cand, new) -> int:
+    def _commit(self, ctx: dict, cand, new) -> _RepairTicket:
         old = ctx["old"]
         self.repairs += 1
         self._core[cand] = new
         self.promoted += int((new > old[cand]).sum())
         self.demoted += int((new < old[cand]).sum())
-        return int((new != old[cand]).sum())
+        return _RepairTicket(changed=int((new != old[cand]).sum()))
 
     def _resolve(self, ctx: dict, margin: int, lo: int, hi: int, cand,
-                 res) -> int:
-        """Validate one descent result against the window; commit or widen.
-        Returns the number of nodes whose core number changed."""
+                 res) -> _RepairTicket:
+        """Validate one descent result against the window; commit or widen."""
         if res is None:  # sweep cap hit: recover via exact recompute
             return self._finish_repeel(ctx, hi)
         new, max_gain, max_loss, ceil_hit, floor_hit = res
@@ -1051,15 +1184,29 @@ class IncrementalCore:
         ):
             return self._commit(ctx, cand, new)
         # a change at the boundary may be a truncated cascade: re-run wider
-        return self._advance(ctx, 2 * margin + max_gain + max_loss + 1)
+        # (synchronously — widenings are rare and already mid-repair)
+        return self._land(
+            self._advance(ctx, 2 * margin + max_gain + max_loss + 1)
+        )
 
-    def _advance(self, ctx: dict, margin: int) -> int:
+    def _land(self, ticket: _RepairTicket, *,
+              full_interval: bool = True) -> _RepairTicket:
+        """Read a live ticket's descent back, then validate and commit or
+        widen (``_resolve``); a done ticket is returned as it is."""
+        if ticket.done:
+            return ticket
+        res = self._descend_read(ticket.pending, full_interval=full_interval)
+        return self._resolve(ticket.ctx, ticket.margin, ticket.lo, ticket.hi,
+                             ticket.cand, res)
+
+    def _advance(self, ctx: dict, margin: int) -> _RepairTicket:
         """One window attempt: region discovery, policy decision, repair.
 
         Adaptive window: the half-width grows until the computed level
         changes sit strictly inside it (a change at the boundary may be a
         truncated cascade). A single mutation cannot cascade, so it never
-        widens. Returns the number of nodes whose core number changed.
+        widens. A device descent is returned in flight (a live ticket for
+        ``_land``), not read back here.
         """
         m_ins, m_del, m = ctx["m_ins"], ctx["m_del"], ctx["m"]
         old, n = ctx["old"], ctx["n"]
@@ -1125,14 +1272,15 @@ class IncrementalCore:
                 return self._finish_repeel(ctx, hi)
             try:
                 pending = self._dispatch_with_retry(
-                    cand, seed, old[cand], lo, hi, cand_deg=cand_deg
+                    cand, seed, old[cand], lo, hi, cand_deg=cand_deg,
+                    kind="insert" if m_ins else "delete",
                 )
             except faults.InjectedFault:
                 return self._recover_ref(ctx, hi)
             # the dispatch may tier-reorder the rows: resolve/commit against
             # the ordering the result actually maps to
-            res = self._descend_read(pending)
-            return self._resolve(ctx, margin, lo, hi, pending["cand"], res)
+            return _RepairTicket(pending=pending, ctx=ctx, margin=margin,
+                                 lo=lo, hi=hi, cand=pending["cand"])
 
         t0 = time.perf_counter()
         new = self._descend(cand, seed)
@@ -1150,13 +1298,18 @@ class IncrementalCore:
             (new, max_gain, max_loss, ceil_hit, floor_hit),
         )
 
-    def on_update(self, added=None, removed=None) -> int:
-        """Repair after a mixed block of graph mutations has been applied.
+    def begin_update(self, added=None, removed=None) -> _RepairTicket:
+        """Start a block repair; ``finish_update`` completes it.
 
-        ``added``/``removed`` are the (m, 2) edge arrays the graph actually
-        accepted (the return values of ``add_edges``/``remove_edges``).
-        Returns the number of nodes whose core number changed.
+        The returned ticket is either already committed (fallback re-peel,
+        host impl, empty block) or holds an *in-flight* descent: its first
+        chunk of sweeps is enqueued on the device and nothing has been read
+        back. In the latter case the caller may overlap host work (the
+        pipelined ingest stages the next block's dedup here) before
+        ``finish_update`` reads the result back — but must not mutate the
+        graph until then.
         """
+        self._settle()
         faults.check("repair")
         added = (
             np.asarray(added, np.int64).reshape(-1, 2)
@@ -1169,7 +1322,7 @@ class IncrementalCore:
         m_ins, m_del = len(added), len(removed)
         m = m_ins + m_del
         if m == 0:
-            return 0
+            return _RepairTicket(changed=0)
         self._ensure_size()
         n = self.g.n_nodes
         old = self._core[:n].copy()
@@ -1196,7 +1349,43 @@ class IncrementalCore:
             ctx["side_dst"] = np.concatenate(
                 [ov_dst, removed[:, 1], removed[:, 0]]
             )
-        return self._advance(ctx, 0 if m == 1 else self.margin0)
+        ticket = self._advance(ctx, 0 if m == 1 else self.margin0)
+        if not ticket.done:
+            self._inflight = ticket
+        return ticket
+
+    def finish_update(self, ticket: Optional[_RepairTicket] = None) -> int:
+        """Complete a repair started by ``begin_update``.
+
+        Reads the in-flight descent back (charging only the non-overlapped
+        wait to the descend phase), validates the window, widens/commits.
+        Returns the number of nodes whose core number changed. Faults are
+        handled at the dispatch (``_dispatch_with_retry``): the read has no
+        fault point, since the port's launches raise when they are made.
+        """
+        if ticket is None:
+            ticket = self._inflight
+        if ticket is None:
+            return 0
+        if ticket is self._inflight:
+            self._inflight = None
+        return self._land(ticket, full_interval=False).changed
+
+    def _settle(self) -> None:
+        """Finish any in-flight ticket (public entry points call this so an
+        overlapped repair is never observable)."""
+        if self._inflight is not None:
+            self.finish_update(self._inflight)
+
+    def on_update(self, added=None, removed=None) -> int:
+        """Repair after a mixed block of graph mutations has been applied.
+
+        ``added``/``removed`` are the (m, 2) edge arrays the graph actually
+        accepted (the return values of ``add_edges``/``remove_edges``).
+        Returns the number of nodes whose core number changed. Synchronous:
+        ``begin_update`` + ``finish_update`` back to back.
+        """
+        return self.finish_update(self.begin_update(added, removed))
 
     def on_edge_block(self, edges) -> int:
         """Repair after ``g.add_edges(edges)`` accepted ``edges`` (one union
@@ -1228,6 +1417,7 @@ class IncrementalCore:
         Called after compaction as a safety net — block maintenance is exact,
         so a nonzero return indicates a bug upstream.
         """
+        self._settle()
         self._ensure_size()
         oracle = core_numbers_host(self.g.snapshot())
         n = self.g.n_nodes
@@ -1243,6 +1433,7 @@ class IncrementalCore:
         Newly appeared nodes count (their baseline level is 0); so do nodes
         demoted by deletions — drift is direction-agnostic.
         """
+        self._settle()
         self._ensure_size()
         n = self.g.n_nodes
         return int(np.sum(self._core[:n] != self._baseline[:n]))
@@ -1254,6 +1445,7 @@ class IncrementalCore:
         size). Counts departures (deletion-driven demotion out of the core)
         as well as arrivals.
         """
+        self._settle()
         self._ensure_size()
         n = self.g.n_nodes
         now = self._core[:n] >= k0
@@ -1262,5 +1454,6 @@ class IncrementalCore:
 
     def mark_refresh(self) -> None:
         """Record current levels as the embedding-table baseline."""
+        self._settle()
         self._ensure_size()
         self._baseline = self._core.copy()

@@ -30,8 +30,8 @@ the edges back through the service's own ``ingest_block``/``retract_block``
 to a process that never crashed: same adjacency bytes, same core numbers,
 same store table/slot assignment/version counters (retrains included: the
 replay re-fires the auto-retrains, whose SGNS steps repeat their bits).
-Snapshots call ``service.sync()`` first, a device synchronize at the block
-boundary.
+Snapshots call ``service.sync()`` first — that lands the pipelined repair
+and its deferred tail at a block boundary, then synchronizes the device.
 
 :class:`RecoveryManager` wires both layers into a live service: logging
 before every mutation, snapshotting on a block-count (and optional
@@ -303,12 +303,13 @@ _STATS_FIELDS = (
 def capture_state(svc, wal_seq: int) -> Tuple[Dict[str, np.ndarray], dict]:
     """Live service -> ``(arrays, manifest)`` for :class:`SnapshotStore`.
 
-    Calls ``svc.sync()`` first (a device synchronize at the block boundary);
-    every array is a host copy (the store's device table included), so the
-    result can be handed to another thread. The manifest has the JAX
-    package's keys; ``write_back``, ``impl`` and ``pipeline`` are written
-    as the port runs (cold starts always written back, the default kernel
-    dispatch, serial ingest).
+    Calls ``svc.sync()`` first: the pipelined repair tail lands at this
+    block boundary exactly as it would at the next block's start, so the
+    capture point never changes the stream's final state. Every array is a
+    host copy (the store's device table included), so the result can be
+    handed to another thread. The manifest has the JAX package's keys;
+    ``write_back`` and ``impl`` are written as the port runs (cold starts
+    always written back, the default kernel dispatch).
     """
     svc.sync()
     arrays: Dict[str, np.ndarray] = {}
@@ -330,7 +331,7 @@ def capture_state(svc, wal_seq: int) -> Tuple[Dict[str, np.ndarray], dict]:
             "k0": None if svc.k0 is None else int(svc.k0),
             "retrain_threshold": svc.retrain_threshold,
             "impl": "auto",
-            "pipeline": False,
+            "pipeline": bool(svc.pipeline),
         },
         "cores": {
             "repeel_frac": cores.repeel_frac,
@@ -365,11 +366,12 @@ def _port_backend(key: str, value):
     knows and otherwise become None (the device's default: the CUDA kernel
     and device regions on the card, the counting search and numpy regions
     on the CPU). The service's ``impl`` (the JAX package's kernel dispatch
-    for flushes and top-k) and ``pipeline`` (pipelined ingest) have no
-    counterpart and are not read: the port dispatches by device and ingests
-    serially. All of these choose how, never what: every backend gives the
-    same cores and tables. (``write_back`` is not read either: the port
-    always writes resolved cold starts back, the JAX package's default.)
+    for flushes and top-k) has no counterpart and is not read: the port
+    dispatches by device. All of these choose how, never what: every
+    backend gives the same cores and tables. (``write_back`` is not read
+    either: the port always writes resolved cold starts back, the JAX
+    package's default. ``service.pipeline`` is read as it is by
+    :func:`restore_service`.)
     """
     return value if value in _PORT_BACKENDS[key] else None
 
@@ -415,6 +417,7 @@ def restore_service(
         compact_every=scfg["compact_every"],
         k0=scfg["k0"],
         retrain_threshold=scfg["retrain_threshold"],
+        pipeline=scfg["pipeline"],
     )
     for k, v in manifest.get("stats", {}).items():
         if hasattr(svc.stats, k):

@@ -21,6 +21,15 @@ The service also owns ingestion policy: streamed edges arrive in **blocks**
 through ``ingest_block`` (``DynamicGraph.add_edges`` + one
 ``IncrementalCore`` repair for the whole block) and are retracted through
 ``retract_block`` (``remove_edges`` + repair), with periodic compaction.
+Ingest is **pipelined** by default (``pipeline=True``, as in the JAX
+package): a block's repair is started (``IncrementalCore.begin_update``:
+its descent's first chunk of sweeps enqueued on the device, nothing read
+back) and landed at the next sync point (``_sync_ingest``: the next
+block's start, a flush, ``sync()``), together with the block's deferred
+tail (compaction check, auto retrain). Meanwhile the host validates,
+WAL-logs and stages (``DynamicGraph.stage_block``) the next block. Serial
+ingest (``pipeline=False``) runs the same steps and lands each block before
+returning, so the results are bit-identical.
 ``retrain_pressure`` (k0-core membership drift since the last refresh)
 gates when retraining is due, and ``maybe_retrain`` acts on it: with a
 :class:`~repro_torch.serve.retrain.Retrainer` attached (``set_retrainer``),
@@ -51,12 +60,6 @@ package's points: each ingested block's edges/s, each flush's seconds and
 whether it was degraded; the store's staleness is sampled when the health
 is read. ``dispatch_cost_report`` measures one fused flush with
 ``obs.compiled_cost``.
-
-Not in this port: pipelined ingest (staging block N+1 while block N's
-descent is in flight): the descent here reads a flag back every sweep, so
-the card would sit idle while the host staged, and every block is repaired
-before the next one is taken; ``sync()`` is a device synchronize at a block
-boundary.
 """
 from __future__ import annotations
 
@@ -135,6 +138,7 @@ class EmbeddingService:
         compact_every: int = 1024,
         k0: Optional[int] = None,
         retrain_threshold: float = 0.1,
+        pipeline: bool = True,
         hang_timeout: Optional[float] = None,
         flush_retries: int = 1,
         retry_backoff: float = 0.05,
@@ -151,6 +155,12 @@ class EmbeddingService:
         self.compact_every = int(compact_every)
         self.k0 = k0
         self.retrain_threshold = float(retrain_threshold)
+        # pipelined ingest: stage block N+1 (host dedup/canonicalise) while
+        # block N's descent is enqueued on the device and unread, then land
+        # the repair + deferred per-block tail at the next sync point;
+        # pipeline=False lands every block before ingest_block returns.
+        self.pipeline = bool(pipeline)
+        self._tail_due = False
         self.stats = ServiceStats()
         # retraining loop: a Retrainer (serve.retrain) attached via
         # set_retrainer; auto mode re-checks drift after every block
@@ -261,18 +271,40 @@ class EmbeddingService:
             self.stats.compactions += 1
             metrics().counter("serve_compactions_total").inc()
 
+    def _sync_ingest(self) -> None:
+        """Land the in-flight repair and run the deferred per-block tail.
+
+        Pipelined ingest defers the post-repair tail (compaction check, auto
+        retrain) to the next sync point. Running it here — after the repair
+        landed and *before* any new mutation — keeps the graph state at tail
+        time identical to the serial path, which is what makes pipelining
+        bit-exact. The flag flips before the tail runs so a retrain-triggered
+        flush re-entering this method is a no-op.
+        """
+        self.cores.finish_update()
+        if self._tail_due:
+            self._tail_due = False
+            self._maybe_compact()
+            if self.auto_retrain:
+                self.maybe_retrain()
+
     def sync(self) -> None:
-        """Block boundary: wait for the device's queued work. Ingest is
-        serial here, so every block's repair has already landed."""
+        """Explicit flush boundary: land pipelined ingest fully, then wait
+        for the device's queued work."""
+        self._sync_ingest()
         synchronize(self.device)
 
     def ingest_block(self, edges: np.ndarray) -> np.ndarray:
-        """Stream an edge block: one block insert + one block core repair.
+        """Stream an edge block: one staged insert + one block core repair.
 
         Returns the (m', 2) edges accepted (self-loops, duplicates, and
         edges already present are dropped by the graph). With a recovery
         manager attached the block is logged durably first; with auto
-        retraining on, drift is re-checked after the repair.
+        retraining on, drift is re-checked after the repair. With
+        ``pipeline`` on, this block's staging overlaps the previous block's
+        descent on the device, and the repair readback + per-block tail are
+        deferred to the next ingest/retract/flush/``sync()``; without it they
+        run before this call returns.
         """
         edges = self._validate_block(edges)
         t_slo = time.perf_counter() if self._slo is not None else 0.0
@@ -280,19 +312,24 @@ class EmbeddingService:
             if self._recovery is not None:  # durable *before* any mutation
                 self._recovery.log_block(KIND_INGEST, edges)
             faults.check("ingest_apply")
-            accepted = self.graph.add_edges(edges)
+            # host-only staging while block N-1's descent is unread
+            staged = self.graph.stage_block(edges)
+            self._sync_ingest()
+            accepted = self.graph.add_edges(staged, staged=True)
             if len(accepted):
-                self.cores.on_edge_block(accepted)
+                self.cores.begin_update(added=accepted)
+            self._tail_due = True
             sp.set(accepted=len(accepted))
             self.stats.edges_ingested += len(accepted)
             self.stats.ingest_blocks += 1
             metrics().counter("serve_edges_ingested_total").inc(len(accepted))
-            self._maybe_compact()
-            if self.auto_retrain:
-                self.maybe_retrain()
+            if not self.pipeline:
+                self._sync_ingest()
         if self._slo is not None and len(accepted):
             # the block's edges/s from before its WAL append to after its
-            # repair (and any compaction or retrain it triggered)
+            # repair (and any compaction or retrain it triggered); pipelined
+            # blocks measure staging + the previous block's landing — the
+            # rate traffic actually experiences at this boundary
             self._slo.observe(
                 "ingest_rate",
                 len(accepted) / max(time.perf_counter() - t_slo, 1e-9),
@@ -306,22 +343,25 @@ class EmbeddingService:
 
         Unknown edges are skipped; returns the number actually removed.
         Demotions feed the same drift/staleness signals as promotions.
-        Logged and followed by the auto-retrain check like ``ingest_block``.
+        Logged, pipelined and followed by the auto-retrain check like
+        ``ingest_block``.
         """
         edges = self._validate_block(edges)
         with obs.span("serve.retract", block=len(edges)) as sp:
             if self._recovery is not None:  # durable *before* any mutation
                 self._recovery.log_block(KIND_RETRACT, edges)
             faults.check("ingest_apply")
-            removed = self.graph.remove_edges(edges)
+            staged = self.graph.stage_block(edges)
+            self._sync_ingest()
+            removed = self.graph.remove_edges(staged, staged=True)
             if len(removed):
-                self.cores.on_remove(removed)
+                self.cores.begin_update(removed=removed)
+            self._tail_due = True
             sp.set(removed=len(removed))
             self.stats.edges_removed += len(removed)
             metrics().counter("serve_edges_removed_total").inc(len(removed))
-            self._maybe_compact()
-            if self.auto_retrain:
-                self.maybe_retrain()
+            if not self.pipeline:
+                self._sync_ingest()
         if self._recovery is not None:
             self._recovery.after_block()
         return len(removed)
@@ -342,7 +382,7 @@ class EmbeddingService:
             len(self.ingest_block(edges[s : s + block_size]))
             for s in range(0, len(edges), block_size)
         )
-        self.sync()
+        self.sync()  # land the last block's in-flight repair + deferred tail
         return n
 
     def stream_with_churn(
@@ -375,7 +415,7 @@ class EmbeddingService:
                 gone = set(pick.tolist())
                 n_out += self.retract_block(np.array([live[i] for i in pick]))
                 live = [e for i, e in enumerate(live) if i not in gone]
-        self.sync()
+        self.sync()  # land the last block's in-flight repair + deferred tail
         return n_in, n_out
 
     # ------------------------------------------------------------- queries
@@ -618,6 +658,7 @@ class EmbeddingService:
 
     def flush(self) -> np.ndarray:
         """Drain the pending queue in static batches; returns (Q, dim)."""
+        self._sync_ingest()  # queries must see fully-landed cores/compaction
         queue = (
             np.concatenate(self._pending)
             if self._pending

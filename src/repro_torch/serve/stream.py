@@ -213,6 +213,17 @@ class DynamicGraph:
         hi = np.maximum(edges[:, 0], edges[:, 1])
         return np.unique(np.stack([lo, hi], axis=1), axis=0)
 
+    def stage_block(self, edges) -> np.ndarray:
+        """Graph-independent half of a block mutation: canonicalise + dedup.
+
+        Pure host preprocessing — it reads no graph state — so a pipelined
+        caller can stage block N+1 while block N's descent is still running
+        on the device, then hand the result back via
+        ``add_edges(..., staged=True)`` (or ``remove_edges``). Staging then
+        applying is bit-identical to the plain call.
+        """
+        return self._canonical_block(edges)
+
     def _present_mask(self, edges: np.ndarray) -> np.ndarray:
         """Vectorized membership of canonical ``edges`` in the current graph."""
         u = np.minimum(edges[:, 0], self.node_cap)
@@ -240,7 +251,7 @@ class DynamicGraph:
         self._dirty_full = True
         self._pending.clear()
 
-    def add_edges(self, edges) -> np.ndarray:
+    def add_edges(self, edges, *, staged: bool = False) -> np.ndarray:
         """Vectorized block insert; returns the (m', 2) accepted edges.
 
         The block is canonicalised and deduped (within itself and against the
@@ -248,10 +259,12 @@ class DynamicGraph:
         are applied with a single grouped scatter: slots are assigned per row
         by intra-block rank, arcs that do not fit the table width go to the
         overflow lists. Self-loops and duplicates are dropped (not errors);
-        negative ids raise.
+        negative ids raise. ``staged=True`` marks ``edges`` as the output of
+        :meth:`stage_block` and skips re-canonicalisation.
         """
         with obs.span("graph.add_edges") as sp:
-            edges = self._canonical_block(edges)
+            edges = (np.asarray(edges, np.int64).reshape(-1, 2) if staged
+                     else self._canonical_block(edges))
             if not len(edges):
                 return _EMPTY_EDGES
             hi_max = int(edges[:, 1].max())
@@ -321,16 +334,18 @@ class DynamicGraph:
         if not self._dirty_full:
             self._pending.extend(writes)
 
-    def remove_edges(self, edges) -> np.ndarray:
+    def remove_edges(self, edges, *, staged: bool = False) -> np.ndarray:
         """Vectorized block delete; returns the (m', 2) edges actually removed.
 
         The block is canonicalised/deduped and filtered to edges that exist
         (one vectorized membership pass); each surviving edge drops both arcs
         via swap-with-last, and the touched slots join the same pending-write
         scatter the insert path uses. Unknown edges are skipped, not errors.
+        ``staged=True`` accepts :meth:`stage_block` output unchanged.
         """
         with obs.span("graph.remove_edges") as sp:
-            edges = self._canonical_block(edges)
+            edges = (np.asarray(edges, np.int64).reshape(-1, 2) if staged
+                     else self._canonical_block(edges))
             if not len(edges):
                 return _EMPTY_EDGES
             edges = edges[self._present_mask(edges)]

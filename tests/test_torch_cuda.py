@@ -11,7 +11,8 @@ Tolerances: the SGNS loss and gradients 1e-5 in fp32 and 2e-2 in bf16
 also against the fp64 formulas, and against the plain versions scaled by
 their largest magnitude, as their fp32 sums of 2,048 terms drift), the ELL
 mean 1e-5 in fp32 and 2e-2 in bf16 (summation order), the h-index exact
-(at every width, hub rows included), the top-k scores at 1e-5 with ids
+(at every width, hub rows included; the chunked descent on the card against
+the CPU's counting search), the top-k scores at 1e-5 with ids
 equal off near-ties
 (fp32 dot products of width d summed in another order), flash-decode 2e-5
 with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
@@ -792,6 +793,49 @@ def test_hub_ingest_on_the_card_matches_the_oracle(cuda):
                                       core_numbers_host(dyn.snapshot()))
     assert hindex.hub_launches > before and inc.repeels == 0
     assert inc.phase_impl["descend"] == "fused[cuda]"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["github-like", "hub"])
+def test_chunked_descent_on_the_card_matches_the_cpu(cuda, graph):
+    """The all-node descent (the card's re-peel) enqueued in chunks on the
+    card against the counting search on the CPU, at the serving tiers'
+    shapes (github-like: R=65,536 W=32 + R=4,096 W=2,048) and with a hub
+    row of W = 65,536: equal cores (the peeling oracle's) and ``sweeps``,
+    with first chunks of 1 sweep and of the history rule, each descent at
+    most 1 + ceil(log2(max_sweeps)) host reads."""
+    import math
+
+    from repro_torch.core.kcore import core_numbers_host
+    from repro_torch.graph import datasets, generators
+    from repro_torch.serve import DynamicGraph, IncrementalCore
+
+    if graph == "hub":
+        g, _ = generators.hub_with_cliques(34000, 10, 28, 2000, seed=0)
+    else:
+        g = datasets.load("github-like", seed=0)
+    n = g.n_nodes
+    want = core_numbers_host(g)
+    runs = []
+    for dev, first in (("cpu", None), (cuda, None), (cuda, 1)):
+        d = DynamicGraph(n, g.edge_list(), width=16, device=dev)
+        inc = IncrementalCore(d, np.zeros(n, np.int32))
+        inc._first_chunk = first
+        deg = d.degrees_of(np.arange(n))
+        for _ in range(2):  # the second descent's first chunk from history
+            pending = inc._descend_dispatch(
+                np.arange(n, dtype=np.int64), deg, np.zeros(n, np.int32),
+                0, 1 << 30, cand_deg=deg)
+            res = inc._descend_read(pending)
+            out = np.zeros(n, np.int32)
+            out[pending["cand"]] = res[0]
+            np.testing.assert_array_equal(out, want)
+        widths = [t[0].shape[1] for t in pending["args"]["tiers"]]
+        assert widths[-1] == (65536 if graph == "hub" else 2048)
+        assert inc.descent_reads <= 2 * (1 + math.ceil(math.log2(512)))
+        runs.append((inc.sweeps, inc.sweeps_enqueued, inc.descent_reads))
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    assert runs[2][2] > runs[1][2] >= 2  # chunks from 1 take more reads
 
 
 @pytest.mark.cuda

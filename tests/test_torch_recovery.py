@@ -463,12 +463,12 @@ def _sweep_attach(svc):
     svc.set_retrainer(Retrainer(svc, cfg), auto=True, budget=2)
 
 
-def _sweep_service():
+def _sweep_service(pipeline=True):
     n, m, seed = SWEEP_GRAPH
     g = generators.barabasi_albert_varying(n, m, seed=seed)
     svc, stream, _, _ = serve_embed.build_service(
         g, seed=seed, batch=16, dim=16, stream_frac=0.3, compact_every=256,
-        capacity=SWEEP_CAPACITY, device="cpu")
+        capacity=SWEEP_CAPACITY, device="cpu", pipeline=pipeline)
     _sweep_attach(svc)
     return svc, stream
 
@@ -507,8 +507,21 @@ def test_sweep_twin_reaches_every_point(sweep_twin):
 @pytest.mark.parametrize("point", faults.POINTS)
 def test_crash_at_every_point_recovers_bit_identical(tmp_path, point,
                                                      sweep_twin):
+    _crash_and_recover(tmp_path, point, sweep_twin, pipeline=True)
+
+
+@pytest.mark.parametrize("point", faults.POINTS)
+def test_serial_ingest_crash_at_every_point_recovers_bit_identical(
+        tmp_path, point, sweep_twin):
+    """The same sweep with ``pipeline=False``: serial ingest lands every
+    block before the next op, and its snapshots restore it serial. The twin
+    is the pipelined one, whose results serial ingest equals bit for bit."""
+    _crash_and_recover(tmp_path, point, sweep_twin, pipeline=False)
+
+
+def _crash_and_recover(tmp_path, point, sweep_twin, *, pipeline):
     ops, (truth, truth_stats), _, _ = sweep_twin
-    svc, _ = _sweep_service()
+    svc, _ = _sweep_service(pipeline)
     mgr = RecoveryManager(svc, str(tmp_path), snapshot_every=SNAPSHOT_EVERY,
                           fsync=False)
     faults.install(FaultPlan.parse(f"{point}:{CRASH_AT[point]}:crash"))
@@ -524,6 +537,7 @@ def test_crash_at_every_point_recovers_bit_identical(tmp_path, point,
         fsync=False, configure=_sweep_attach)
     # ops map 1:1 onto WAL records: resume right after the durable tail;
     # the query phase is not logged, so it runs again whole
+    assert svc.pipeline is pipeline
     _apply(svc, ops, start=report["wal_seq"])
     _queries(svc)
     got, stats = _state(svc)

@@ -99,13 +99,20 @@ def assert_queries_agree(svc, jsvc, seed):
         np.subtract(_counts(svc), _counts(jsvc)), before)
 
 
-@pytest.mark.parametrize("seed,jax_pipeline", [(0, True), (1, False)])
-def test_service_matches_jax_package(seed, jax_pipeline):
-    """The port's serial ingest against the JAX package's pipelined and
-    serial ingest (which are bit-identical to each other)."""
+@pytest.mark.parametrize("seed,jax_pipeline,pipeline", [
+    pytest.param(0, True, False, id="0-True"),
+    pytest.param(1, False, False, id="1-False"),
+    pytest.param(0, True, True, id="0-True-pipelined"),
+    pytest.param(1, False, True, id="1-False-pipelined"),
+])
+def test_service_matches_jax_package(seed, jax_pipeline, pipeline):
+    """The port's serial and pipelined ingest against the JAX package's
+    pipelined and serial ingest (all bit-identical to each other)."""
     g = generators.barabasi_albert_varying(300, 4.0, seed=seed)
     kw = dict(stream_frac=0.3, dim=16, batch=16, seed=seed)
-    svc, stream, core, k0 = serve_embed.build_service(g, device="cpu", **kw)
+    svc, stream, core, k0 = serve_embed.build_service(
+        g, pipeline=pipeline, device="cpu", **kw)
+    assert svc.pipeline == pipeline
     jsvc, jstream, jcore, jk0 = jlaunch.build_service(
         g, pipeline=jax_pipeline, **kw)
     np.testing.assert_array_equal(stream, jstream)
@@ -235,17 +242,23 @@ def test_store_eviction_spill_and_state_match_jax():
 
 
 def test_launcher_runs_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
-    """The plain run; ``--retrain`` (drift-triggered retrains, cores still
-    exact); ``--wal-dir`` with an injected crash (a recovery report, 0
+    """The plain run, serial (``--no-pipeline``) and pipelined (the
+    default); ``--retrain`` (drift-triggered retrains, cores still exact);
+    ``--wal-dir`` with an injected crash (a recovery report, 0
     mismatches); and ``--jax-profile`` refused, as is a shard count that
     is not a power of two (``--shards`` itself is ported)."""
-    n = serve_embed.main(["--device", "cpu", "--dataset", "tiny",
-                          "--requests", "32", "--block-size", "16",
-                          "--churn", "0.1", "--topk", "4", "--verify",
-                          "--batch", "16", "--no-pipeline"])
+    plain = ["--device", "cpu", "--dataset", "tiny", "--requests", "32",
+             "--block-size", "16", "--churn", "0.1", "--topk", "4",
+             "--verify", "--batch", "16"]
+    n = serve_embed.main([*plain, "--no-pipeline"])
     assert n > 0
     out = capsys.readouterr().out
     assert "core mismatches vs oracle: 0" in out and "top-4" in out
+    assert "ingest serial" in out
+    assert serve_embed.main(plain) == n
+    out = capsys.readouterr().out
+    assert "core mismatches vs oracle: 0" in out and "top-4" in out
+    assert "ingest pipelined" in out
     stream = ["--device", "cpu", "--dataset", "tiny", "--requests", "32",
               "--block-size", "8", "--stream-frac", "0.5", "--churn", "0.25",
               "--batch", "16", "--dim", "16", "--verify"]

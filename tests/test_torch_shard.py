@@ -11,9 +11,9 @@ plan's arithmetic and ``merge_topk`` exactly, cores exactly, embeddings and
 link scores within 1e-5 (fp32 means summed in another order), snapshot
 payloads crossing between the packages byte for byte.
 
-Not carried over: ``tests/multidevice/test_pipeline_parity.py`` (the port
-has no pipelined ingest). The JAX package's top-k shard-invariance test
-fails there (its sharded leg scores with an einsum + sort, its unsharded
+``tests/multidevice/test_pipeline_parity.py`` has its twin in
+``tests/test_torch_pipelined_ingest.py``. The JAX package's top-k
+shard-invariance test fails there (its sharded leg scores with an einsum + sort, its unsharded
 one with the Pallas path); the port scores every leg with the one kernel,
 and its invariance test below holds the scores bit-equal.
 """
