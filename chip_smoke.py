@@ -167,8 +167,8 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    cross K/V equal bit for bit; the
    routing flips of an unforced plain step and the greedy tokens'
    agreement over 8 teacher-forced steps (reported); ``torch.profiler``
-   over 20 decode steps (device time by kernel class, launches per step,
-   busy share; reported);
+   over ``LM_PROFILE_STEPS`` decode steps (device time by kernel class,
+   launches per step, busy share; reported);
 10. small LM references: each path's model at the reduced preset (fp32;
    qwen3-4b with G = 4) served on the card and on the CPU with the same
    weights and schedule: token streams equal, logits within 1e-4; the
@@ -202,7 +202,36 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    launcher at the reduced preset on the card:
    resumed from a checkpoint against an uninterrupted run (steps 8-11
    within 1e-6; the restore allocates at most one leaf on the card),
-   ``--compress-grads`` (falling) and ``--accum 2`` (finite);
+   ``--compress-grads`` (falling) and ``--accum 2`` (finite). Then the
+   other families (``train_families_phase``, ``TRAIN_FAMILIES``), each at
+   its config's full width in bf16, 12 steps, its depth cut only where
+   AdamW's state for the whole depth does not fit the card:
+   "train-moe" moonshot-v1-16b-a3b (6 of 48 layers, AdamW, the aux losses
+   in the loss), "train-ssm" mamba2-2.7b (all 64), "train-hybrid"
+   zamba2-7b (36 of 81: 6 shared-block calls), "train-adafactor"
+   grok-1-314b (1 of 64 layers, its 8 experts of 32,768, adafactor), all
+   four through ``launch/train.main`` (the cut config bound into it), 4 x
+   1,024 tokens; "train-encdec" seamless-m4t-large-v2 (24 + 24 layers, 4
+   x 1,024 tokens after 256 frames) and "train-vl" qwen2-vl-7b (12 of 28
+   layers, 2 x 2,048: 1,024 patch embeddings, then text, M-RoPE positions,
+   the mask 0 on the patches) through ``models.steps.make_train_step``,
+   as the launchers refuse both; each under the launcher's schedule, its
+   peak rate the default 3e-4 but where the widest diverge from this init
+   (zamba2 1e-4, qwen2-vl 3e-5, grok-1 1e-5). Held as the train path's (the counts 0:
+   none of the port's kernels lies on a training path), and the MoE's aux
+   losses finite in every step's metrics; printed the same, with the
+   params (and the MoE's active ones) and each path's seconds. Then each
+   family at the reduced preset, fp32, one step on the card and on the CPU
+   from the same params, held to ``TOL_TRAIN_*`` as the qwen3-4b step is
+   (grok's adafactor on its analogous mask: ``held_entries``), and
+   ``checkpoint_full``: seamless-m4t-large-v2 at full width and depth after
+   2 steps, its params and AdamW state (13.7 GB) saved under ``build/``
+   (the free disk printed first), step 3 from the live state, step 2
+   restored into the live tensors and step 3 again: the restored tree and
+   both step-3 losses bit-equal, save and restore seconds and GB/s
+   printed, the directory deleted. ``python3 chip_smoke.py --train-only``
+   builds the kernels and runs these three phases alone, and prints no
+   result line;
 13. the dry run of the production single-pod mesh, the "dryrun" path
    (``dryrun_phase``): (a) ``python -m repro_torch.launch.dryrun --mesh
    single --device cuda`` over every arch at ``DRYRUN_SHAPES`` and the
@@ -245,7 +274,8 @@ The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
 serving, the hub, the resilience, the shard, the pipeline, the offline,
 the four LM serving, the
-two step, the train and the dryrun path, each path's count beside it; the h-index's hub kernel also as
+two step, the train, the six training families' and the dryrun path, each
+path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -351,6 +381,10 @@ LM_DECODED = 8 * 128
 LM_STEPS = 128
 SNAP_STEP = 64  # the step after the swap: the cache the parity phases take
 LM_LOGIT_TOL = 5e-2  # x max|logit|: bf16 rounding of the attention output
+# decode steps a serving path's profile window holds (20 until the training
+# families came: reading a window's host and device events back took 25-64
+# s a path, 230 s of the smoke's 1,200)
+LM_PROFILE_STEPS = 5
 # flash-decode against its plain version, (rtol, atol) by the queries' type.
 # Both accumulate in fp32 and round once to q's type, so in bf16 they differ
 # by at most one ulp (< 2**-7 x |out|, < 7.8e-4 below 0.1), well under 1e-2
@@ -375,6 +409,32 @@ TOL_TRAIN_PARAM = (1e-3, 2.0)
 # rows of tokens absent from the batch (tied, so their gradient is a
 # softmax tail of ~1/V) mostly fall below 1e-6 (73% covered on the H100)
 TRAIN_MASK_SHARE = 0.5
+# LM training of the other families, each at its config's full width in
+# bf16, the depth cut only where AdamW's state for the whole depth does not
+# fit the card (the cut keeps the params at or under qwen3-4b's 4.02 B):
+# path -> (arch, layers kept (None: all), rows, tokens a row, peak rate of
+# the launcher's warmup-cosine: its default 3e-4 where the losses fall in 12
+# steps; the widest models diverge there from this init, and take a rate
+# about as much smaller as their widest product is wider: zamba2's d_ff
+# 14,336 1e-4, qwen2-vl's 18,944 3e-5, grok-1's experts' 32,768 1e-5).
+# The first four train through launch/train (``LAUNCHED_FAMILIES``), the
+# last two through models.steps (both launchers refuse them); grok-1-314b
+# trains with its config's adafactor, the rest with AdamW
+TRAIN_FAMILIES = {
+    "train-moe": ("moonshot-v1-16b-a3b", 6, 4, 1024, 3e-4),  # 3.76 B
+    "train-ssm": ("mamba2-2.7b", None, 4, 1024, 3e-4),  # 3.00 B
+    "train-hybrid": ("zamba2-7b", 36, 4, 1024, 1e-4),  # 3.28 B, 6 calls
+    "train-adafactor": ("grok-1-314b", 1, 4, 1024, 1e-5),  # 5.73 B
+    "train-encdec": ("seamless-m4t-large-v2", None, 4, 1024, 3e-4),  # 1.37 B
+    "train-vl": ("qwen2-vl-7b", 12, 2, 2048, 3e-5),  # 3.89 B, 1,024 patches
+}
+LAUNCHED_FAMILIES = ("train-moe", "train-ssm", "train-hybrid",
+                     "train-adafactor")
+TRAIN_STEPS_FAMILY = 12
+TRAIN_FAMILY_PROFILE = (9, 12)  # the steps run under torch.profiler
+GROK_WIDTHS = dict(d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+                   d_ff=32768, vocab_size=131072, param_dtype="bfloat16",
+                   moe=(8, 2, 32768))
 # flash-decode at made-up shapes, bf16: (label, B, H, Hkv, Dh, S, softcap,
 # window, int8 cache); the last is the one before it with an int8 cache
 DECODE_SHAPES = [
@@ -462,8 +522,12 @@ SHARD_N, SHARD_BLOCKS, SHARD_BLOCK, SHARD_CHURN = 4, 16, 1024, 0.1
 PIPE_EVERY = 4
 
 
+T0 = time.perf_counter()  # the smoke's start: every log line's clock
+
+
 def log(msg: str) -> None:
-    print(f"[chip-smoke] {msg}", flush=True)
+    print(f"[chip-smoke {time.perf_counter() - T0:7.1f} s] {msg}",
+          flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -2803,7 +2867,7 @@ def device_time(prof) -> dict:
     return dev
 
 
-def lm_profile(torch, cfg, params, snap, steps=20):
+def lm_profile(torch, cfg, params, snap, steps=LM_PROFILE_STEPS):
     """Device time by kernel class over ``steps`` decode steps from the live
     cache (after as many unprofiled ones), launches per step and the busy
     share (reported, not held)."""
@@ -2867,60 +2931,162 @@ def lm_profile(torch, cfg, params, snap, steps=20):
 # ---------------------------------------------------------- LM training ----
 
 
-def train_phase(torch, np, counters):
-    """LM training at qwen3-4b's full width and depth on the card, through
-    ``repro_torch.launch.train.main`` (``TRAIN_FLAGS``: bf16 params, AdamW
-    with fp32 moments, 20 steps of 4 x 1024 tokens, the weights from a
-    seeded generator on the card; no checkpoint: one at this width writes
-    48 GB). A wrapper bound into the launcher's ``make_train_step``
-    synchronises around every step and runs steps ``TRAIN_PROFILE`` under
-    ``torch.profiler``. Held: 20 finite losses, the first within 1.5 nats
-    of ln V, the mean of the last five below the mean of the first five
-    (the JAX package's own check), peak memory below the card's, and no
-    kernel of the port launched (training runs none). Printed: step ms
-    (median of the unprofiled steps after the first two), tokens/s, model
-    FLOP/s (6 N per token plus PaLM's attention term 12 L H Dh S, against
-    the bf16 dense peak), peak GB, device-busy ms per step. Returns the
-    launch counts."""
-    from torch.profiler import ProfilerActivity, profile
+class TrainMeter:
+    """Wraps a train step (``wrap``): synchronises around every call and
+    keeps its seconds and its scalar metrics, notes every param leaf's size
+    at the first call, and runs the calls ``window`` = (first, end) under
+    ``torch.profiler``, the device's activity alone (a step of mamba2-2.7b's
+    64 layers launches ~27,000 kernels; host events would multiply the
+    trace to read back)."""
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train as lm_train
-    from repro_torch.train.tree import leaves
+    def __init__(self, torch, window):
+        self.torch, self.window = torch, window
+        self.times, self.metrics, self.seen = [], [], {}
 
-    cfg = get_config("qwen3-4b")
-    make = lm_train.make_train_step
-    times, seen = [], {}
+    def wrap(self, step):
+        from torch.profiler import ProfilerActivity, profile
 
-    def timed(*a, **kw):
-        step = make(*a, **kw)
+        from repro_torch.train.tree import leaf_paths
+
+        torch, seen = self.torch, self.seen
 
         def run(params, state, batch):
-            i = len(times)
+            i = len(self.times)
             if i == 0:
-                seen["n_params"] = sum(t.numel() for t in leaves(params))
+                seen["numel"] = {n: t.numel() for n, t in leaf_paths(params)}
                 seen["dtype"] = str(params["embed"]["embedding"].dtype)
-            if i == TRAIN_PROFILE[0]:
-                seen["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                   ProfilerActivity.CUDA])
+            if i == self.window[0]:
+                seen["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 seen["prof"].__enter__()
                 seen["t_prof"] = time.perf_counter()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(params, state, batch)
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if i == TRAIN_PROFILE[1] - 1:
+            self.times.append(time.perf_counter() - t0)
+            if i == self.window[1] - 1:
                 seen["prof"].__exit__(None, None, None)
                 seen["wall"] = time.perf_counter() - seen["t_prof"]
+            self.metrics.append({k: float(v) for k, v in out[2].items()})
             return out
 
         return run
 
+    def report(self, np, tokens, flops) -> dict:
+        """Step ms (the median of the unprofiled steps after the first two),
+        tokens/s, model FLOP/s and its share of the bf16 dense peak, and the
+        profile window's device time: busy ms a step and its share of the
+        window's wall time, launches and ms a step by ``train_class``, the
+        top 10 kernels."""
+        p0, p1 = self.window
+        step_s = float(np.median(self.times[2:p0]))
+        dev = device_time(self.seen["prof"])
+        n_prof, wall = p1 - p0, self.seen["wall"]
+        busy_ms = sum(us for _, us in dev.values()) / 1e3 / n_prof
+        classes = {}
+        for name, (n, us) in dev.items():
+            cn, cus = classes.get(train_class(name), (0, 0.0))
+            classes[train_class(name)] = (cn + n, cus + us)
+        top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+        if not dev:
+            log("train profile: the profiler saw no device time (not "
+                "measured)")
+        return {
+            "step_ms_each": [t * 1e3 for t in self.times],
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "model_tflop_per_step": flops / 1e12,
+            "model_tflop_per_s": flops / step_s / 1e12,
+            "bf16_peak_share": flops / step_s / PEAK_BF16,
+            "profile_steps": list(range(p0, p1)),
+            "profiled_ms_per_step": wall * 1e3 / n_prof,
+            "device_busy_ms_per_step": busy_ms if dev else None,
+            "device_busy_share": busy_ms * n_prof / (wall * 1e3)
+            if dev else None,
+            "busy_of_unprofiled_step": busy_ms / (step_s * 1e3)
+            if dev else None,
+            "launches_per_step": sum(n for n, _ in dev.values()) / n_prof,
+            "by_class_ms_per_step": {c: us / 1e3 / n_prof
+                                     for c, (_, us) in classes.items()},
+            "launches_by_class_per_step": {c: n / n_prof
+                                           for c, (n, _) in classes.items()},
+            "top_kernels": [{"name": k[:90], "calls": n,
+                             "ms_per_step": us / 1e3 / n_prof}
+                            for k, (n, us) in top],
+        }
+
+
+def train_flops(cfg, numel, rows, seq, frames=0) -> float:
+    """Model FLOPs of one training step of ``rows`` x ``seq`` tokens: 6 x
+    the params each token passes through (every leaf of ``numel``, {leaf
+    path: size}; the MoE's experts at top-k of E; the encoder-decoder's
+    encoder once a frame, ``frames`` a row) plus PaLM's attention term, 12
+    L H Dh x the positions attended, a token of each attention layer (the
+    hybrid's shared-block calls, its window; encdec's cross-attention over
+    the frames and the encoder's over its own); the SSD's chunked products
+    are not counted."""
+    n = sum(numel.values())
+    if cfg.moe is not None:
+        m = cfg.moe
+        n -= sum(v for k, v in numel.items() if "/moe/w_" in k) \
+            * (m.n_experts - m.top_k) / m.n_experts
+    enc = sum(v for k, v in numel.items()
+              if k.startswith(("encoder/", "enc_norm/")))
+    tokens, hd = rows * seq, cfg.n_heads * cfg.head_dim
+    flops = 6 * ((n - enc) * tokens + enc * rows * frames)
+    if cfg.family in ("dense", "moe", "encdec"):
+        flops += 12 * cfg.n_layers * hd * (seq + frames) * tokens
+    if cfg.family == "encdec":
+        flops += 12 * cfg.n_encoder_layers * hd * frames * rows * frames
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.shared_every
+        flops += 12 * groups * hd * min(seq, cfg.sliding_window or seq) \
+            * tokens
+    return flops
+
+
+def hold_training(np, label, losses, steps, vocab, peak, total, counts):
+    """The training checks: ``steps`` finite losses, the first within 1.5
+    nats of ln V, the mean of the last five below the mean of the first
+    five (the JAX package's own check), peak memory below the card's, and
+    no kernel of the port launched (training runs none)."""
+    expect(len(losses) == steps and all(math.isfinite(x) for x in losses),
+           f"{label}: losses {losses}")
+    expect(abs(losses[0] - math.log(vocab)) < 1.5,
+           f"{label}: first loss {losses[0]} is not near ln V = "
+           f"{math.log(vocab):.2f}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    expect(last < first, f"{label}: losses do not fall ({first} -> {last})")
+    expect(peak < total, f"{label}: peak {peak} B over the card's {total}")
+    for name, n in counts.items():
+        expect(n == 0, f"{name} launched {n} times on the {label} path")
+    return float(first), float(last)
+
+
+def train_phase(torch, np, counters):
+    """LM training at qwen3-4b's full width and depth on the card, through
+    ``repro_torch.launch.train.main`` (``TRAIN_FLAGS``: bf16 params, AdamW
+    with fp32 moments, 20 steps of 4 x 1024 tokens, the weights from a
+    seeded generator on the card; no checkpoint here: ``checkpoint_full``
+    writes one of seamless-m4t-large-v2). A ``TrainMeter`` bound into the
+    launcher's ``make_train_step`` synchronises around every step and runs
+    steps ``TRAIN_PROFILE`` under ``torch.profiler``. Held
+    (``hold_training``): 20 finite losses, the first within 1.5 nats of ln
+    V, the mean of the last five below the mean of the first five, peak
+    memory below the card's, and no kernel of the port launched. Printed:
+    step ms (median of the unprofiled steps after the first two), tokens/s,
+    model FLOP/s (``train_flops``: 6 N per token plus PaLM's attention term
+    12 L H Dh S, against the bf16 dense peak), peak GB, device-busy ms per
+    step. Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lm_train
+
+    cfg = get_config("qwen3-4b")
+    make = lm_train.make_train_step
+    meter = TrainMeter(torch, TRAIN_PROFILE)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
-    lm_train.make_train_step = timed
+    lm_train.make_train_step = lambda *a, **kw: meter.wrap(make(*a, **kw))
     try:
         losses = lm_train.main(TRAIN_FLAGS)
     finally:
@@ -2931,132 +3097,155 @@ def train_phase(torch, np, counters):
     torch.cuda.empty_cache()
     n_steps, B, S = (int(TRAIN_FLAGS[TRAIN_FLAGS.index(f) + 1])
                      for f in ("--steps", "--batch", "--seq"))
-    expect(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
-           f"train: losses {losses}")
-    expect(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5,
-           f"train: first loss {losses[0]} is not near ln V = "
-           f"{math.log(cfg.vocab_size):.2f}")
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    expect(last < first, f"train: losses do not fall ({first} -> {last})")
-    expect(peak < total, f"train: peak {peak} B over the card's {total}")
-    for name, n in counts.items():
-        expect(n == 0, f"{name} launched {n} times on the training path")
-    step_s = float(np.median(times[2:TRAIN_PROFILE[0]]))
-    tokens = B * S
-    flops = tokens * (6 * seen["n_params"] + 12 * cfg.n_layers * cfg.n_heads
-                      * cfg.head_dim * S)
-    dev = device_time(seen["prof"])
-    n_prof = TRAIN_PROFILE[1] - TRAIN_PROFILE[0]
-    busy_ms = sum(us for _, us in dev.values()) / 1e3 / n_prof
-    classes = {}
-    for name, (n, us) in dev.items():
-        cn, cus = classes.get(train_class(name), (0, 0.0))
-        classes[train_class(name)] = (cn + n, cus + us)
-    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+    first, last = hold_training(np, "train", losses, n_steps,
+                                cfg.vocab_size, peak, total, counts)
+    numel = meter.seen["numel"]
     rec = {
-        "arch": cfg.name, "params": seen["n_params"], "dtype": seen["dtype"],
-        "steps": n_steps, "batch": B, "seq": S,
-        "losses_first_last": [losses[0], losses[-1]],
-        "mean_first5_last5": [float(first), float(last)],
-        "step_ms_each": [t * 1e3 for t in times],
-        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
-        "model_tflop_per_step": flops / 1e12,
-        "model_tflop_per_s": flops / step_s / 1e12,
-        "bf16_peak_share": flops / step_s / PEAK_BF16,
+        "arch": cfg.name, "params": sum(numel.values()),
+        "dtype": meter.seen["dtype"], "steps": n_steps, "batch": B,
+        "seq": S, "losses_first_last": [losses[0], losses[-1]],
+        "mean_first5_last5": [first, last],
+        **meter.report(np, B * S, train_flops(cfg, numel, B, S)),
         "peak_allocated_gb": peak / 1e9, "card_gb": total / 1e9,
-        "profile_steps": list(range(*TRAIN_PROFILE)),
-        "profiled_ms_per_step": seen["wall"] * 1e3 / n_prof,
-        "device_busy_ms_per_step": busy_ms if dev else None,
-        "device_busy_share": busy_ms * n_prof / (seen["wall"] * 1e3)
-        if dev else None,
-        "busy_of_unprofiled_step": busy_ms / (step_s * 1e3) if dev else None,
-        "launches_per_step": sum(n for n, _ in dev.values()) / n_prof,
-        "by_class_ms_per_step": {c: us / 1e3 / n_prof
-                                 for c, (_, us) in classes.items()},
-        "launches_by_class_per_step": {c: n / n_prof
-                                       for c, (n, _) in classes.items()},
-        "top_kernels": [{"name": k[:90], "calls": n,
-                         "ms_per_step": us / 1e3 / n_prof}
-                        for k, (n, us) in top],
     }
-    if not dev:
-        log("train profile: the profiler saw no device time (not measured)")
     log("train phase: " + json.dumps(rec))
     return counts
 
 
-def train_reference_phase(torch, np, dev="cuda"):
-    """qwen3-4b's widths at 2 layers, fp32 (TF32 off), one AdamW step of
-    ``make_train_step`` on the card and on the CPU from the same params (one
-    generator, copied to both) on the same batch of 1 x 256 tokens. Held
-    (``TOL_TRAIN_*``): loss and grad_norm within 1e-5 relative; mu and nu
-    within 1e-4 x their leaf's max |value|; every parameter within 1e-3 x
-    the rate where sqrt(v_hat) > 100 eps (at least half of each leaf) and
-    2 x the rate everywhere, and within 1e-3 x its leaf's max |value|."""
-    import dataclasses
+def held_entries(torch, optimizer, state, grads, count):
+    """Per param leaf, (mask, unmoved) bool tensors of a reference step's
+    state after ``count`` steps. mask: where the update is insensitive to
+    the rounding of the gradient it divides. AdamW's m_hat / (sqrt(v_hat)
+    + eps) is about sign(g) where sqrt(v_hat) >> eps and turns a near-eps
+    gradient's rounding into a step of up to the rate: sqrt(v_hat) > 100
+    eps. Adafactor, the analogous mask (no looser): an unfactored leaf's
+    g / sqrt(v), v = beta v + (1 - beta)(g^2 + eps), has sqrt(eps) = 1e-15
+    where Adam has eps, so sqrt(v) > 100 sqrt(eps); a factored leaf divides
+    by sqrt(r_i c_j / mean(r)), its moments built of the same g^2 + eps:
+    sqrt(r_i c_j / mean(r)) > 100 sqrt(eps). unmoved: where the update is
+    exactly 0 (AdamW: mu = 0, every gradient so far 0; adafactor: this
+    step's gradient 0), whose params must not move at all."""
+    from repro_torch.train.tree import leaves, leaves_up_to
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLMData
+    if optimizer == "adamw":
+        c2 = 1 - 0.999 ** count  # adamw's default b2
+        return ([torch.sqrt(v / c2) > 100 * 1e-8 for v in leaves(state[0].nu)],
+                [m == 0 for m in leaves(state[0].mu)])
+    floor, mask = 100 * 1e-15, []
+    for vr, vc in zip(leaves(state.vr), leaves_up_to(state.vr, state.vc)):
+        if isinstance(vc, tuple):
+            mask.append(torch.sqrt(vr) > floor)
+            continue
+        r = vr / vr.mean(-1, keepdim=True).clamp_min(1e-30)
+        mask.append(torch.sqrt(r[..., :, None] * vc[..., None, :]) > floor)
+    return mask, [g == 0 for g in leaves(grads)]
+
+
+def step_card_vs_cpu(torch, cfg, batch, sched, label, dev="cuda"):
+    """One step of ``make_train_step`` with the config's optimizer under
+    ``sched``, fp32 (TF32 off), on the card and on the CPU from the same
+    params (one CPU generator, seed 0, copied to both) on the same batch
+    (CPU tensors). Held (``TOL_TRAIN_*``): every metric (loss, xent,
+    grad_norm, the MoE's aux losses) within 1e-5 relative; the optimizer's
+    moments within 1e-4 x their leaf's max |value|; the params bit-equal
+    where the update is exactly 0 and within 1e-3 x the rate on
+    ``held_entries``' mask and there (at least ``TRAIN_MASK_SHARE`` of each
+    leaf), within 2 x the rate everywhere, and within 1e-3 x their leaf's
+    max |value| (a leaf that starts at 0, whose max |value| after a step
+    is about the rate, on the mask: elsewhere it is held to 2 x the
+    rate)."""
     from repro_torch.models.steps import make_train_step
     from repro_torch.models.transformer import init_model
     from repro_torch.train import optim
     from repro_torch.train.tree import leaf_paths, leaves
 
-    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=2,
-                              param_dtype="float32", compute_dtype="float32")
     params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = SyntheticLMData(cfg.vocab_size, 1, 256, seed=0).batch_at(0)
-    sched = optim.warmup_cosine(3e-4, 10, 20)
-    lr, b2, eps = sched(0), 0.999, 1e-8  # adamw's defaults
+    # leaves that start at 0 (zamba2's LoRA B): their magnitude after one
+    # step is the step itself, so their max |value| bound reads the mask
+    zero = [bool((t == 0).all()) for t in leaves(params)]
     out = {}
     for where in (dev, "cpu"):  # the CPU's step updates ``params`` itself
+        got = {}
+
+        def keep(g):  # the gradients the optimizer receives, unchanged
+            got["grads"] = g
+            return g
+
         p = _tree_to(params, where)
         opt = optim.make_optimizer(cfg.optimizer, sched)
-        step = make_train_step(cfg, opt)
-        tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        step = make_train_step(cfg, opt, grad_transform=keep)
+        tb = {k: v.to(where) for k, v in batch.items()}
         t0 = time.perf_counter()
         p, state, m = step(p, opt.init(p), tb)
-        loss, norm = float(m["loss"]), float(m["grad_norm"])
-        out[where] = (p, state, loss, norm, time.perf_counter() - t0)
-    (pg, sg, lg, ng, tg), (pc, sc, lc, nc, tc) = out[dev], out["cpu"]
+        metrics = {k: float(v) for k, v in m.items()}
+        out[where] = (p, state, metrics, got.pop("grads"),
+                      time.perf_counter() - t0)
+    (pg, sg, mg, _, tg), (pc, sc, mc, gc, tc) = out[dev], out["cpu"]
+    lr = sched(0)
+    expect(set(mg) == set(mc), f"{label}: metrics {sorted(mg)} / "
+           f"{sorted(mc)}")
+    met = max((abs(mg[k] - mc[k]) / abs(mc[k]), k) for k in mc)
     mom = (0.0, "")
     for (name, a), (_, b) in zip(leaf_paths(sg), leaf_paths(sc)):
         if isinstance(a, int):
-            expect(a == b, f"train: {name} is {a} on the card, {b} on the CPU")
+            expect(a == b, f"{label}: {name} is {a} on the card, {b} on "
+                   "the CPU")
             continue
-        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
-        mom = max(mom, (err, name))
+        err = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+        mom = max(mom, (err, name))  # a leaf of zeros (LoRA A's mu) gives 0
+    mask, unmoved = held_entries(torch, cfg.optimizer, sc, gc, 1)
     ok_err, all_err, share = (0.0, ""), (0.0, ""), (1.0, "")
-    rel = (0.0, "")  # the bound against each leaf's own magnitude too
-    for (name, a), (_, b), v in zip(leaf_paths(pg), leaf_paths(pc),
-                                    leaves(sc[0].nu)):
+    rel, still = (0.0, ""), 0  # the bound against each leaf's own max too
+    for (name, a), b, ok, z, z0 in zip(leaf_paths(pg), leaves(pc), mask,
+                                       unmoved, zero):
         d = (a.cpu() - b).abs()
-        rel = max(rel, (float(d.max()) / float(b.abs().max()), name))
-        ok = torch.sqrt(v / (1 - b2)) > 100 * eps  # v_hat after one step
+        expect(bool((d[z] == 0).all()), f"{label}: {name} moved where its "
+               "update is 0")
+        still += int(z.sum())
+        ok = ok | z
+        rel = max(rel, (float((d[ok] if z0 else d).max())
+                        / max(float(b.abs().max()), 1e-30), name))
         share = min(share, (float(ok.float().mean()), name))
         ok_err = max(ok_err, (float(d[ok].max()) / lr, name))
         all_err = max(all_err, (float(d.max()) / lr, name))
-    log(f"train reference: qwen3-4b widths, 2 layers, fp32, 1 x 256 tokens, "
-        f"one AdamW step at rate {lr:.6g}: loss {lg!r} (card) / {lc!r} "
-        f"(CPU), rel {abs(lg - lc) / abs(lc):.3g}; grad_norm {ng!r} / {nc!r}, "
-        f"rel {abs(ng - nc) / abs(nc):.3g}; moments within {mom[0]:.3g} x "
-        f"max|value| ({mom[1]}); params within {ok_err[0]:.3g} x the rate "
-        f"where sqrt(v_hat) > 100 eps ({ok_err[1]}; that mask covers at "
-        f"least {share[0]:.4f} of a leaf, {share[1]}), {all_err[0]:.3g} x "
+    log(f"train reference: {label}, one {cfg.optimizer} step at rate "
+        f"{lr:.6g}: loss {mg['loss']!r} (card) / {mc['loss']!r} (CPU), "
+        f"metrics within {met[0]:.3g} rel ({met[1]}); moments within "
+        f"{mom[0]:.3g} x max|value| ({mom[1]}); params within "
+        f"{ok_err[0]:.3g} x the rate on the mask and the {still} entries "
+        f"whose update is 0 (bit-equal there; that covers at least "
+        f"{share[0]:.4f} of a leaf, {share[1]}), {all_err[0]:.3g} x "
         f"everywhere ({all_err[1]}), {rel[0]:.3g} x max|value| ({rel[1]}); "
-        f"{tg:.2f} s on the card (first call), "
-        f"{tc:.2f} s on the CPU")
-    expect(abs(lg - lc) <= TOL_TRAIN_METRIC * abs(lc), "train: loss differs")
-    expect(abs(ng - nc) <= TOL_TRAIN_METRIC * abs(nc),
-           "train: grad_norm differs")
-    expect(mom[0] <= TOL_TRAIN_MOMENT, f"train: moment {mom[1]} differs by "
-           f"{mom[0]} x its max |value|")
-    expect(share[0] > TRAIN_MASK_SHARE, f"train: sqrt(v_hat) > 100 eps on "
-           f"only {share[0]} of {share[1]}")
+        f"{tg:.2f} s on the card (first call), {tc:.2f} s on the CPU")
+    expect(met[0] <= TOL_TRAIN_METRIC, f"{label}: {met[1]} differs")
+    expect(mom[0] <= TOL_TRAIN_MOMENT, f"{label}: moment {mom[1]} differs "
+           f"by {mom[0]} x its max |value|")
+    expect(share[0] > TRAIN_MASK_SHARE, f"{label}: the mask covers only "
+           f"{share[0]} of {share[1]}")
     expect(ok_err[0] <= TOL_TRAIN_PARAM[0] and all_err[0] <= TOL_TRAIN_PARAM[1],
-           f"train: params differ by {ok_err} / {all_err} x the rate")
-    expect(rel[0] <= 1e-3, f"train: {rel[1]} differs by {rel[0]} x its max "
-           "|value|")
+           f"{label}: params differ by {ok_err} / {all_err} x the rate")
+    expect(rel[0] <= 1e-3, f"{label}: {rel[1]} differs by {rel[0]} x its "
+           "max |value|")
+
+
+def train_reference_phase(torch, np, dev="cuda"):
+    """qwen3-4b's widths at 2 layers, fp32, one AdamW step on 1 x 256
+    tokens at the launcher's schedule, card against CPU
+    (``step_card_vs_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train import optim
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    batch = SyntheticLMData(cfg.vocab_size, 1, 256, seed=0).batch_at(0)
+    step_card_vs_cpu(torch, cfg, {k: torch.from_numpy(v)
+                                  for k, v in batch.items()},
+                     optim.warmup_cosine(3e-4, 10, 20),
+                     "qwen3-4b widths, 2 layers, fp32, 1 x 256 tokens", dev)
 
 
 def train_reduced_phase(torch, np, dev="cuda"):
@@ -3130,6 +3319,266 @@ def train_reduced_phase(torch, np, dev="cuda"):
         f"{seen['tree']} B, largest leaf {seen['leaf']} B); "
         f"--compress-grads {comp[0]:.4f} -> "
         f"{comp[-1]:.4f}; --accum 2 {acc}")
+
+
+def train_widths(arch) -> dict:
+    """The config fields that make ``arch`` full width (``LM_PATHS``,
+    ``STEP_PATHS`` or ``GROK_WIDTHS``), its depth left out."""
+    for table in (LM_PATHS, STEP_PATHS):
+        for name, want, *_ in table.values():
+            if name == arch:
+                return {k: v for k, v in want.items() if k != "n_layers"}
+    return GROK_WIDTHS
+
+
+def train_batch(torch, cfg, data, step, dev):
+    """``data.batch_at(step)`` (tokens, targets, mask) on ``dev`` and the
+    family's inputs (``step_batch``, seeded by the step): encdec S / 4
+    frames; vision the patch embeddings of a sqrt(n_vision_patches)-wide
+    grid in the first slots, their M-RoPE positions and the mask 0 there."""
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(step).items()}
+    if cfg.family != "encdec" and cfg.frontend != "vision":
+        return batch
+    rows, seq = batch["tokens"].shape
+    side = max(seq // 4, 8) if cfg.family == "encdec" \
+        else math.isqrt(cfg.n_vision_patches)
+    extra = step_batch(torch, cfg, rows, seq, side, dev, seed=step)
+    del extra["tokens"]
+    batch.update(extra)
+    if cfg.frontend == "vision":
+        batch["mask"][:, :side * side] = 0.0
+    return batch
+
+
+def family_steps(torch, cfg, rows, seq, lr, meter, steps, dev="cuda"):
+    """``make_train_step`` driven as the launcher drives it, for the
+    families it refuses: params from a seeded generator on the card, the
+    config's optimizer under the launcher's schedule (warmup-cosine to
+    ``lr``, 10 warm-up steps of max(steps, 20)), the synthetic batches of
+    seed 0 with the family's inputs (``train_batch``) -> the losses."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import optim
+
+    params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = optim.make_optimizer(cfg.optimizer,
+                               optim.warmup_cosine(lr, 10, max(steps, 20)))
+    state = opt.init(params)
+    step = meter.wrap(make_train_step(cfg, opt))
+    data = SyntheticLMData(cfg.vocab_size, rows, seq, seed=0)
+    losses = []
+    for s in range(steps):
+        params, state, m = step(params, state,
+                                train_batch(torch, cfg, data, s, dev))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def train_family_phase(torch, np, counters, path):
+    """One of ``TRAIN_FAMILIES`` at its config's full width, bf16, its depth
+    cut where AdamW's state for the whole depth does not fit the card:
+    ``TRAIN_STEPS_FAMILY`` steps, the launcher's for the decoder-only
+    families (``launch/train.main --preset full``, the cut config bound
+    into it for its ``get_config``), ``family_steps`` for the two it
+    refuses. A ``TrainMeter`` wraps the step (profile window
+    ``TRAIN_FAMILY_PROFILE``); counts set to 0 before, read after. Held
+    (``hold_training``): finite, falling losses, the first within 1.5 nats
+    of ln V, peak memory below the card's, no kernel of the port launched;
+    the MoE's load-balance and router z-losses finite in every step's
+    metrics. Printed: params (and the MoE's active ones), step ms, tokens/s,
+    model FLOP/s (``train_flops``) against the bf16 peak, peak GB, the
+    profile's busy share and kernel classes, the path's seconds. Returns
+    (the launch counts, the record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lm_train
+
+    t0 = time.perf_counter()
+    arch, layers, rows, seq, lr = TRAIN_FAMILIES[path]
+    whole = get_config(arch)
+    cfg = whole if layers is None else dataclasses.replace(whole,
+                                                           n_layers=layers)
+    expect(_full_width(cfg, train_widths(arch)),
+           f"{path}: {arch} is not at its full width")
+    meter = TrainMeter(torch, TRAIN_FAMILY_PROFILE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    if path in LAUNCHED_FAMILIES:
+        make, get = lm_train.make_train_step, lm_train.get_config
+        lm_train.make_train_step = lambda *a, **kw: meter.wrap(make(*a, **kw))
+        lm_train.get_config = lambda name: cfg
+        try:
+            losses = lm_train.main([
+                "--arch", arch, "--preset", "full", "--steps",
+                str(TRAIN_STEPS_FAMILY), "--batch", str(rows), "--seq",
+                str(seq), "--lr", str(lr), "--device", "cuda"])
+        finally:
+            lm_train.make_train_step, lm_train.get_config = make, get
+    else:
+        losses = family_steps(torch, cfg, rows, seq, lr, meter,
+                              TRAIN_STEPS_FAMILY)
+    counts = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    aux = {key: [m.get(key, math.nan) for m in meter.metrics]
+           for key in ("grad_norm", "load_balance_loss", "router_z_loss")
+           if key == "grad_norm" or cfg.moe is not None}
+    numel = meter.seen["numel"]
+    frames = seq // 4 if cfg.family == "encdec" else 0
+    flops = train_flops(cfg, numel, rows, seq, frames)
+    active = sum(numel.values())
+    if cfg.moe is not None:
+        m = cfg.moe
+        active -= sum(v for k, v in numel.items() if "/moe/w_" in k) \
+            * (m.n_experts - m.top_k) / m.n_experts
+    rec = {
+        "path": path, "arch": arch, "layers": cfg.n_layers,
+        "of_layers": whole.n_layers, "optimizer": cfg.optimizer, "lr": lr,
+        "params": sum(numel.values()), "active_params": active,
+        "dtype": meter.seen["dtype"], "steps": TRAIN_STEPS_FAMILY,
+        "batch": rows, "seq": seq, "frames": frames,
+        "losses": losses, **aux, **meter.report(np, rows * seq, flops),
+        "peak_allocated_gb": peak / 1e9, "card_gb": total / 1e9,
+        "path_s": time.perf_counter() - t0,
+    }
+    log(f"train family {path}: " + json.dumps(rec))  # before the checks
+    rec["mean_first5_last5"] = hold_training(
+        np, path, losses, TRAIN_STEPS_FAMILY, cfg.vocab_size, peak, total,
+        counts)
+    for key in ("load_balance_loss", "router_z_loss"):
+        if key in aux:
+            expect(all(math.isfinite(x) for x in aux[key]),
+                   f"{path}: {key} {aux[key]}")
+    return counts, rec
+
+
+def train_families_phase(torch, np, counters):
+    """Every path of ``TRAIN_FAMILIES`` (``train_family_phase``) -> ({path:
+    its launch counts}, {path: its record})."""
+    counts, recs = {}, {}
+    for path in TRAIN_FAMILIES:
+        counts[path], recs[path] = train_family_phase(torch, np, counters,
+                                                      path)
+    return counts, recs
+
+
+def train_families_reference(torch, np, dev="cuda"):
+    """Each family of ``TRAIN_FAMILIES`` at the reduced preset, fp32 (TF32
+    off): one step of ``make_train_step`` on the card and on the CPU from
+    the same params on 2 x 64 tokens (``train_batch`` of seed 2, the
+    family's inputs), under the launcher's schedule, held as
+    ``train_reference_phase`` holds qwen3-4b (``step_card_vs_cpu``;
+    grok-1-314b's adafactor on its analogous mask)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.train import optim
+
+    for path, (arch, *_) in TRAIN_FAMILIES.items():
+        cfg = get_config(arch).reduced()
+        data = SyntheticLMData(cfg.vocab_size, 2, 64, seed=2)
+        step_card_vs_cpu(torch, cfg, train_batch(torch, cfg, data, 0, "cpu"),
+                         optim.warmup_cosine(3e-4, 10, 20),
+                         f"{path} reduced {arch}, 2 x 64 tokens", dev)
+
+
+def checkpoint_full_phase(torch, np, dev="cuda"):
+    """A full-width checkpoint round trip: seamless-m4t-large-v2 at its full
+    width and depth (bf16 params, AdamW's fp32 moments), 2 steps of 4 x
+    1,024 tokens (``train_batch``), then ``CheckpointManager.save`` of
+    params and optimizer state into a fresh directory under ``build/``
+    (the free disk printed first; less than the tree's bytes fails), step
+    3 from the live state, ``restore`` of step 2 into the live tensors and
+    step 3 again. Held: every restored leaf bit-equal to the step-2 state
+    (a copy kept on the card), the counts equal, both step-3 losses
+    bit-equal. Printed: the tree's GB, save and restore seconds and GB/s.
+    The directory is deleted after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.train import optim
+    from repro_torch.train.tree import leaf_paths, leaves, tree_map
+
+    t_phase = time.perf_counter()
+    arch, want = STEP_PATHS["encdec"][:2]
+    cfg = get_config(arch)
+    expect(_full_width(cfg, want),
+           f"checkpoint: {arch} is not at its full width and depth")
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build_dir).free
+    log(f"checkpoint full: {free / 1e9:.2f} GB free on the disk of "
+        f"{build_dir}")
+    params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = optim.make_optimizer(cfg.optimizer, optim.warmup_cosine(3e-4, 10,
+                                                                  20))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLMData(cfg.vocab_size, 4, 1024, seed=0)
+    for s in range(2):
+        params, state, _ = step(params, state,
+                                train_batch(torch, cfg, data, s, dev))
+    tree = {"params": params, "opt": state}
+    tensors = [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    expect(free > nbytes, f"checkpoint: {free} B free, the tree holds "
+           f"{nbytes} B")
+    kept = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                    else t, tree)
+    ckpt = tempfile.mkdtemp(prefix="ckpt_full_", dir=build_dir)
+    try:
+        mgr = CheckpointManager(ckpt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, tree)
+        save_s = time.perf_counter() - t0
+        written = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                      if f.is_file())
+        batch = train_batch(torch, cfg, data, 2, dev)
+        _, _, m = step(params, state, batch)
+        live = float(m["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = mgr.restore(2, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    bad = []
+    for (name, a), b in zip(leaf_paths(back), leaves(kept)):
+        if isinstance(a, torch.Tensor):
+            words = {2: torch.int16, 4: torch.int32}[a.element_size()]
+            same = torch.equal(a.view(words), b.view(words))
+        else:
+            same = a == b
+        if not same:
+            bad.append(name)
+    expect(not bad, f"checkpoint: {len(bad)} leaves differ after the "
+           f"restore: {bad[:5]}")
+    _, _, m = step(back["params"], back["opt"], batch)
+    again = float(m["loss"])
+    del kept, tree, back, params, state
+    torch.cuda.empty_cache()
+    expect(math.isfinite(live) and live == again,
+           f"checkpoint: step 3 gives {live!r} from the live state, "
+           f"{again!r} from the restored one")
+    rec = {"arch": arch, "leaves": len(tensors), "tree_gb": nbytes / 1e9,
+           "written_gb": written / 1e9, "disk_free_gb": free / 1e9,
+           "save_s": save_s, "save_gb_per_s": nbytes / 1e9 / save_s,
+           "restore_s": restore_s,
+           "restore_gb_per_s": nbytes / 1e9 / restore_s,
+           "step3_loss": live, "phase_s": time.perf_counter() - t_phase}
+    log("checkpoint full: " + json.dumps(rec))
+    return rec
 
 
 def check_decode(torch, F, ops, ref, sets, label, softcap=0.0, window=0,
@@ -3567,6 +4016,13 @@ def main() -> int:
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, pipeline path "
             f"only")
         return 0
+    if sys.argv[1:] == ["--train-only"]:
+        train_families_phase(torch, np, counters)
+        train_families_reference(torch, np)
+        checkpoint_full_phase(torch, np)
+        log(f"smoke: {time.perf_counter() - t_start:.1f} s, training paths "
+            f"only")
+        return 0
     with SweepTally(ops) as tally:  # the serving phase only
         svc, serve_counts = serve_phase(torch, np, counters)
     obs_checks(torch, np, svc)
@@ -3633,6 +4089,9 @@ def main() -> int:
     train_counts = train_phase(torch, np, counters)
     train_reference_phase(torch, np)
     train_reduced_phase(torch, np)
+    family_counts, _ = train_families_phase(torch, np, counters)
+    train_families_reference(torch, np)
+    checkpoint_full_phase(torch, np)
     dryrun_counts = {key: 0 for key in counters.table}
     dryrun_counts.update(dryrun_phase(torch))
     large_rec["decode_attention"].append(
@@ -3648,7 +4107,7 @@ def main() -> int:
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, shard_counts,
              pipe_counts, offline_counts, *lm_counts.values(), train_counts,
-             dryrun_counts)
+             *family_counts.values(), dryrun_counts)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
@@ -3657,6 +4116,7 @@ def main() -> int:
                    "offline": offline_counts[name],
                    **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name],
+                   **{path: c[name] for path, c in family_counts.items()},
                    "dryrun": dryrun_counts[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {

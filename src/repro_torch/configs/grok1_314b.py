@@ -3,9 +3,11 @@
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072
 [hf:xai-org/grok-1; unverified]
 
-The JAX package's copy; the port runs it at the reduced preset only: its
+The JAX package's copy; the port serves it at the reduced preset only: its
 314 B parameters (628 GB in bf16) do not fit one 80 GB card, and the port
-has no sharded placement (``ROADMAP.md``).
+has no sharded placement (``ROADMAP.md``). One layer of it (its 8 experts
+of 32,768 at full width, 5.73 B parameters) trains on one card with its
+adafactor (``chip_smoke.py``'s "train-adafactor" path).
 """
 from repro_torch.models.config import ModelConfig, MoEConfig
 

@@ -16,14 +16,19 @@ Each transform has two forms over the same per-leaf arithmetic:
     moments in place, one leaf at a time. At qwen3-4b's full width the
     bf16 params and grads and the fp32 moments hold 48 GB; trees of new
     moments and updates would add as much again. Here the largest transient
-    is a few fp32 copies of one leaf (the embedding: 389 M x 4 B);
+    is a few fp32 copies of one leaf, and an elementwise transform (every
+    one but adafactor) takes a leaf above ``SLICE_BYTES`` of fp32 in slices
+    along its leading axis (``rows``), with the same bits: zamba2-7b's
+    stacked ``in_proj`` at 36 layers is 2.0 G entries, 8 GB a copy;
   * ``update(grads, state, params) -> (updates, state)``, the JAX
     package's functional form, which copies the state first and leaves the
     one passed in as it was: the reference the parity tests hold ``step``
     and the JAX package against.
 Both are built from ``begin(state, grads) -> (ctx, state)``, once a step
-(counts, rates, the global norm), and ``leaf(ctx, i, u, p) -> u``, once a
-leaf; ``chain`` composes those. A transform that reads the whole gradient
+(counts, rates, the global norm), and ``leaf(ctx, i, u, p, rows=None) ->
+u``, once a leaf (``rows``: a slice of its leading axis, which ``u`` and
+``p`` already are, and of which the leaf's state is read); ``chain``
+composes those. A transform that reads the whole gradient
 (``clip_by_global_norm``) must therefore come first in a chain.
 
 ``adam`` is the Adam of SGNS training and the link-prediction fit: state
@@ -53,6 +58,7 @@ __all__ = [
 
 Schedule = Callable[[int], float]
 F32 = np.float32
+SLICE_BYTES = 1 << 30  # fp32 bytes of a leaf above which ``step`` slices it
 
 
 class GradientTransform(NamedTuple):
@@ -60,7 +66,9 @@ class GradientTransform(NamedTuple):
     update: Callable  # (grads, state, params=None) -> (updates, state)
     step: Callable  # (grads, state, params) -> state; params in place
     begin: Callable  # (state, grads tree or None) -> (ctx, state)
-    leaf: Callable  # (ctx, i, update leaf, param leaf or None) -> update
+    # (ctx, i, update leaf, param leaf or None, rows=None) -> update
+    leaf: Callable
+    elementwise: bool = False  # each entry's update reads its entry alone
 
 
 class AdamState(NamedTuple):
@@ -80,7 +88,24 @@ def _clone(state):
                     else x, state)
 
 
-def _transform(init, begin, leaf) -> GradientTransform:
+def _row_slices(t: torch.Tensor):
+    """Slices of t's leading axis holding at most ``SLICE_BYTES`` of fp32
+    each (one row if a row holds more); [None] for a leaf below it, and for
+    a DTensor (``launch/train --mesh``: each rank updates its own shard)."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if t.dim() == 0 or t.numel() * 4 <= SLICE_BYTES or is_dtensor(t):
+        return [None]
+    n = max(1, SLICE_BYTES // max(t[0].numel() * 4, 1))
+    return [slice(k, k + n) for k in range(0, t.shape[0], n)]
+
+
+def _at(t, rows):
+    """A state leaf, or its rows."""
+    return t if rows is None else t[rows]
+
+
+def _transform(init, begin, leaf, elementwise=False) -> GradientTransform:
     def update(grads, state, params=None):
         gs = leaves(grads)
         ps = leaves(params) if params is not None else [None] * len(gs)
@@ -92,10 +117,15 @@ def _transform(init, begin, leaf) -> GradientTransform:
     def step(grads, state, params):
         ctx, state = begin(state, grads)
         for i, (g, p) in enumerate(zip(leaves(grads), leaves(params))):
-            p.add_(leaf(ctx, i, g, p).to(p.dtype))
+            for rows in _row_slices(g) if elementwise else [None]:
+                if rows is None:
+                    p.add_(leaf(ctx, i, g, p).to(p.dtype))
+                else:
+                    pr = p[rows]
+                    pr.add_(leaf(ctx, i, g[rows], pr, rows).to(p.dtype))
         return state
 
-    return GradientTransform(init, update, step, begin, leaf)
+    return GradientTransform(init, update, step, begin, leaf, elementwise)
 
 
 def _zeros32(p):
@@ -127,27 +157,29 @@ def chain(*transforms: GradientTransform) -> GradientTransform:
             new.append(s)
         return ctxs, tuple(new)
 
-    def leaf(ctxs, i, u, p):
+    def leaf(ctxs, i, u, p, rows=None):
         for t, c in zip(transforms, ctxs):
-            u = t.leaf(c, i, u, p)
+            u = t.leaf(c, i, u, p, rows)
         return u
 
-    return _transform(init, begin, leaf)
+    return _transform(init, begin, leaf,
+                      all(t.elementwise for t in transforms))
 
 
 def _stateless(leaf) -> GradientTransform:
-    return _transform(lambda p: (), lambda s, g: (None, s), leaf)
+    return _transform(lambda p: (), lambda s, g: (None, s), leaf, True)
 
 
 def scale(factor: float) -> GradientTransform:
-    return _stateless(lambda ctx, i, u, p: u * factor)
+    return _stateless(lambda ctx, i, u, p, rows=None: u * factor)
 
 
 def scale_by_schedule(schedule: Schedule) -> GradientTransform:
     def begin(count, grads):
         return float(schedule(count)), count + 1
 
-    return _transform(lambda p: 0, begin, lambda s, i, u, p: u * s)
+    return _transform(lambda p: 0, begin,
+                      lambda s, i, u, p, rows=None: u * s, True)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransform:
@@ -158,11 +190,12 @@ def clip_by_global_norm(max_norm: float) -> GradientTransform:
         norm = global_norm(grads)
         return torch.clamp(max_norm / (norm + 1e-9), max=1.0), state
 
-    return _transform(lambda p: (), begin, lambda f, i, u, p: u * f)
+    return _transform(lambda p: (), begin,
+                      lambda f, i, u, p, rows=None: u * f, True)
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransform:
-    def leaf(ctx, i, u, p):
+    def leaf(ctx, i, u, p, rows=None):
         if weight_decay == 0.0 or p is None:
             return u
         return u + weight_decay * p.to(u.dtype)
@@ -187,14 +220,15 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         ctx = (c1, c2, leaves(state.mu), leaves(state.nu))
         return ctx, AdamState(count, state.mu, state.nu)
 
-    def leaf(ctx, i, u, p):
+    def leaf(ctx, i, u, p, rows=None):
         c1, c2, mu, nu = ctx
         g = u.float()
-        m = mu[i].mul_(b1).add_((1 - b1) * g)  # b1 * m + (1 - b1) * g
-        v = nu[i].mul_(b2).add_((1 - b2) * g * g)
+        # b1 * m + (1 - b1) * g
+        m = _at(mu[i], rows).mul_(b1).add_((1 - b1) * g)
+        v = _at(nu[i], rows).mul_(b2).add_((1 - b2) * g * g)
         return (m / c1).div_(torch.sqrt(v / c2).add_(eps))
 
-    return _transform(init, begin, leaf)
+    return _transform(init, begin, leaf, True)
 
 
 def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> GradientTransform:
@@ -209,14 +243,14 @@ def sgd(lr: Union[float, Schedule], momentum: float = 0.0) -> GradientTransform:
         new = count + 1 if momentum == 0.0 else (count + 1, vel)
         return (rate, None if vel is None else leaves(vel)), new
 
-    def leaf(ctx, i, u, p):
+    def leaf(ctx, i, u, p, rows=None):
         rate, vel = ctx
         g = u.float()
         if vel is not None:
-            g = vel[i].mul_(momentum).add_(g)
+            g = _at(vel[i], rows).mul_(momentum).add_(g)
         return -rate * g
 
-    return _transform(init, begin, leaf)
+    return _transform(init, begin, leaf, True)
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -225,7 +259,8 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
     ``AdamState`` alone (SGNS training and the link-prediction fit)."""
     inner = scale_by_adam(b1, b2, eps)
     return _transform(inner.init, inner.begin,
-                      lambda ctx, i, u, p: inner.leaf(ctx, i, u, p) * -lr)
+                      lambda ctx, i, u, p, rows=None:
+                      inner.leaf(ctx, i, u, p, rows) * -lr, True)
 
 
 def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
@@ -271,17 +306,22 @@ def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
                leaves_up_to(grads, state.vr), leaves_up_to(grads, state.vc))
         return ctx, AdafactorState(count, state.vr, state.vc)
 
-    def leaf(ctx, i, u, p):
+    def leaf(ctx, i, u, p, rows=None):  # whole leaves only: not elementwise
+        # each fp32 temporary is dropped once read: at grok-1-314b's expert
+        # leaf (8 x 6144 x 32768) one is 6.4 GB, and at most three live
         beta, one_minus, rate, vr, vc = ctx
         g = u.float()
         g2 = g * g + eps
         if factored(g):
             r_mom = vr[i].mul_(beta).add_(one_minus * g2.mean(-1))
             c_mom = vc[i].mul_(beta).add_(one_minus * g2.mean(-2))
+            del g2
             r = r_mom / r_mom.mean(-1, keepdim=True).clamp_min(1e-30)
             u = g / (torch.sqrt(r)[..., None] * torch.sqrt(c_mom)[..., None, :])
         else:
             u = g / torch.sqrt(vr[i].mul_(beta).add_(one_minus * g2))
+            del g2
+        del g
         rms = torch.sqrt(u.square().mean() + 1e-30)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         if weight_decay and p is not None:
