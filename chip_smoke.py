@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA GPUs.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA device and ``nvcc``; it imports nothing of JAX or of the
+It needs one CUDA device (four for the four-card runs of the mesh path,
+phase 14) and ``nvcc``; it imports nothing of JAX or of the
 JAX package. Phases, each unguarded (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -253,14 +254,49 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    ``DRYRUN_SGNS_SHAPE``), the measured peak below the card's memory;
    printed: step ms (median of 5 after 2 warm-ups), the measured peak
    beside the tracker's temp and argument bytes, TFLOP, launches. These
-   launches are the path's counts in the kernels line. (c) qwen3-4b at
-   full width on a real 1x1 mesh (NCCL, a world of one): a prefill of 8 x
-   1,024 and 8 greedy steps through ``distribute_tree`` and the sharded
-   flash-decode, held bit-equal to the same steps with no mesh (36 x 8
-   launches), the group destroyed after. Then flash-decode and both SGNS
+   launches are the path's counts in the kernels line. Then flash-decode
+   and both SGNS
    kernels at (b)'s per-device shapes, against their plain versions, with
    their bounds (and the SDPA time for flash-decode): rows of the kernels
-   line's ``large``.
+   line's ``large``;
+14. the "mesh" path (``mesh_phase``). In the whole smoke, and under
+   ``--mesh-only`` with fewer than four cards (``mesh_1x1_phase``):
+   ``launch/serve`` at qwen3-4b's full width and depth (``MESH_ONE_FLAGS``:
+   8 steps, four rows swapped in) as a plain process, then in this
+   process under ``WORLD_SIZE=1`` as a launcher sets it (a real (1, 1)
+   mesh, NCCL, a world of one: params, prompts, tokens and the cache
+   DTensors, flash-decode through its sharded path): every step's logits
+   bit-equal, tokens equal, 36 x 8 flash-decode launches at the whole
+   batch; the mesh run's launches are the path's counts. ``python3
+   chip_smoke.py --mesh-only`` builds the kernels and runs this path
+   alone, and prints no result line; with four cards or more it runs the
+   four-card runs instead (``mesh_four``; the whole smoke's 1,200 s hold
+   no room for them): the LM launchers under ``torchrun`` (``python -m
+   torch.distributed.run --standalone``), one process a card, NCCL, in one
+   subprocess of this script (``--mesh-rank``) whose ranks run the
+   launchers in turn and write their records (launch counts set to 0 just
+   before each launcher's run, peak memory, what the launcher returned) to
+   ``build/mesh/``; any failure fails the smoke. The one-card references
+   (the lm path's serve, the train path's first three steps) run first on
+   cuda:0. (a) ``launch/serve`` on the (4, 1) data mesh with the lm path's
+   flags (2 slots a card): 1,024 tokens in 128 steps on every rank, 36
+   flash-decode launches a step on each at its local shape B=2 H=32 Hkv=8
+   Dh=128 S=1088, no NaN, the one-card run's schedule, and each request's
+   stream equal to its one-card stream but where its first differing
+   token is a near-tie of that run (its top two logits within 5e-2 x max
+   |logit|) or its first token, decoded from the differing token the
+   slot's previous request ended on (both counted and printed); tokens/s,
+   ms a step and peak GB each rank; (b) ``launch/train --mesh 2x2`` at
+   qwen3-4b's full width and depth with the train path's flags for
+   ``MESH_TRAIN_STEPS`` steps: step 1's loss and grad norm within
+   ``TOL_MESH_STEP`` of one card's, the losses of steps 2 and 3 (after
+   the sharded AdamW updates) within ``TOL_MESH_LOSS``, the losses held as
+   the train path's (the first five's mean against the last five's); (c)
+   ``--mesh 1x4`` at zamba2-7b's full width and all 81 layers, AdamW at
+   1e-4: held likewise, each rank's peak below its card's; printed: ms a
+   step, tokens/s, peak GB, the params' and AdamW state's resident GB a
+   rank against ``MESH_STATE_GB`` and the leaves no mesh axis splits; then
+   flash-decode at (a)'s per-rank shape against its plain version.
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
@@ -274,8 +310,8 @@ The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
 serving, the hub, the resilience, the shard, the pipeline, the offline,
 the four LM serving, the
-two step, the train, the six training families' and the dryrun path, each
-path's count beside it; the h-index's hub kernel also as
+two step, the train, the six training families', the dryrun and the mesh
+path (every rank of every run), each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -319,6 +355,17 @@ def lm_flags(arch):
     return ["--arch", arch, "--preset", "full", "--slots", "8", "--requests",
             "12", "--prompt-len", "1024", "--max-new", "64", "--seed", "0",
             "--device", "cuda"]
+
+
+def _flag(flags, name, value):
+    """``flags`` with ``name``'s value replaced (or appended)."""
+    flags = list(flags)
+    if name in flags:
+        flags[flags.index(name) + 1] = value
+    else:
+        flags += [name, value]
+    return flags
+
 
 
 # The LM serving paths, each at its config's full width and depth on the
@@ -469,8 +516,43 @@ DRYRUN_SGNS_SHAPE = (4096, 5, 128, "float32")
 # qwen3-4b decode_32k on one rank: 8 of the 128 rows, 2 of the 32 query
 # heads and the one KV head they share, the 32,768 positions gathered
 DRYRUN_DECODE_SHAPE = (8, 2, 1, 128, 32768, "bfloat16")
-# the 1x1 mesh: qwen3-4b at full width, rows x prompt, then greedy steps
-MESH_ROWS, MESH_PROMPT, MESH_STEPS = 8, 1024, 8
+# the "mesh" path (``mesh_phase``). Under --mesh-only with MESH_CARDS cards
+# or more: the LM launchers under torchrun, one process a card. Otherwise
+# (and always in the whole smoke, whose 1,200 s hold no room for the
+# four-card runs' ~185 s): the serve launcher in this process on a 1x1
+# mesh at the lm path's flags but 4 new tokens (8 steps, four rows swapped
+# in at step 4), against the plain launcher
+MESH_CARDS = 4
+MESH_TIMEOUT = 600  # s a torchrun may take (the four-card one: three runs)
+MESH_ONE_FLAGS = _flag(lm_flags("qwen3-4b"), "--max-new", "4")
+# each rank's flash-decode on the (4, 1) serve: 2 of the 8 slots, every
+# head, the cache's 1,088 positions (B, H, Hkv, Dh, S, cache dtype)
+MESH_SERVE_SHAPE = (2, 32, 8, 128, 1088, "bfloat16")
+# training on the mesh: the train path's flags (4 x 1,024, bf16, AdamW)
+# with --mesh and the rate, 12 steps (the schedule's 20 as the train
+# path's: its first 12 steps), held as the first five steps' mean against
+# the last five's (qwen3-4b at 3e-4 is still in its warmup's spikes at
+# step 10: 11.21 -> 11.75 over 10 steps on 2x2). zamba2-7b at all 81
+# layers: 6.96 B params x 12 bytes (bf16 params and grads, fp32 moments)
+# over 4 cards is MESH_STATE_GB a card
+MESH_TRAIN_STEPS = 12
+MESH_TRAIN = {"train-2x2": ("qwen3-4b", "2x2", 3e-4),
+              "train-hybrid-1x4": ("zamba2-7b", "1x4", 1e-4)}
+MESH_STATE_GB = 20.9
+# step 1's loss and grad norm on 2x2 against one card, relative: the same
+# params and batch, so only the order of the sums differs. Measured 7.9e-6
+# and 2.7e-3 (4 x H100): the loss is fp32 over bf16 activations whose
+# products split two ways; the grad norm is of bf16 gradients, each a sum
+# over the data ranks and the model-split products rounded to bf16 (2^-8)
+TOL_MESH_STEP = (1e-4, 1e-2)
+# the losses of steps 2 to MESH_HELD_STEPS, after one and two sharded AdamW
+# updates, against one card's, relative. Measured 4.6e-5 and 1.1e-4 (4 x
+# H100): step 1's rounding, grown by the updates (an Adam step moves an
+# entry by about the rate whatever its gradient's size). Two 2x2 runs gave
+# bit-equal losses. 1e-3 is ~0.012 nats, under 1% of the 1.8 nats the
+# first update moves the loss, so a wrong sharded update shows
+MESH_HELD_STEPS = 3
+TOL_MESH_LOSS = 1e-3
 
 SOURCES = {
     "ell_mean": ("src/repro_torch/csrc/ellmean.cu",
@@ -553,6 +635,25 @@ class Counters:
     def read(self) -> dict:
         return {name: getattr(mod, attr)
                 for name, (mod, attr) in self.table.items()}
+
+
+def kernel_counters() -> Counters:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import ellmean, flash_decode, hindex, sgns, topk
+
+    return Counters({
+        "ell_mean": (ellmean, "launches"), "h_index": (hindex, "launches"),
+        "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
+        "sgns_bwd": (sgns, "bwd_launches"),
+        "decode_attention": (flash_decode, "launches"),
+        # each kernel of the top-k's pass, and the h-index's two kernels
+        "top_k.partial": (topk, "partial_launches"),
+        "top_k.merge": (topk, "merge_launches"),
+        "h_index.narrow": (hindex, "narrow_launches"),
+        "h_index.wide": (hindex, "wide_launches"),
+        "h_index.hub": (hindex, "hub_launches"),
+        "h_index_hub": (hindex, "hub_launches"),  # its own record too
+    })
 
 
 class SweepTally:
@@ -3754,12 +3855,10 @@ def _dryrun_dir():
 
 def dryrun_phase(torch):
     """The dry run of the production single-pod mesh: (a) the sweep, (b)
-    the real per-device cells, (c) a 1x1 mesh against no mesh. Returns the
-    real cells' launch counts by kernel."""
+    the real per-device cells. Returns the real cells' launch counts by
+    kernel."""
     dryrun_sweep()
-    counts = dryrun_real(torch)
-    mesh_1x1_phase(torch)
-    return counts
+    return dryrun_real(torch)
 
 
 def dryrun_sweep():
@@ -3871,76 +3970,6 @@ def dryrun_real(torch):
     return counts
 
 
-def mesh_1x1_phase(torch):
-    """(c) qwen3-4b at full width (bf16, seeded weights on the card): a
-    prefill of ``MESH_ROWS`` x ``MESH_PROMPT`` and ``MESH_STEPS`` greedy
-    decode steps with no mesh, then on a real 1x1 mesh (NCCL, a world of
-    one: params and tokens DTensors through ``distribute_tree``,
-    flash-decode through its ``local_map`` path): the logits of every step
-    bit-equal, as one rank moves no data."""
-    import torch.distributed as dist
-
-    from repro_torch.configs import get_config, sharding_overrides
-    from repro_torch.distributed.sharding import (distribute_tree,
-                                                  sharding_scope)
-    from repro_torch.kernels import flash_decode
-    from repro_torch.launch.mesh import init_world, make_mesh
-    from repro_torch.models.steps import make_decode_step, make_prefill_step
-    from repro_torch.models.transformer import init_model, model_specs
-
-    t0 = time.perf_counter()
-    cfg = get_config("qwen3-4b")
-    params = init_model(cfg, torch.Generator("cuda").manual_seed(7), "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (MESH_ROWS, MESH_PROMPT),
-                           generator=torch.Generator("cuda").manual_seed(8),
-                           device="cuda", dtype=torch.int32)
-
-    def full(x):
-        return x.full_tensor() if hasattr(x, "full_tensor") else x
-
-    def run(p, place):
-        logits, cache = make_prefill_step(
-            cfg, max_len=MESH_PROMPT + MESH_STEPS)(p, {"tokens": place(
-                tokens)})
-        outs, decode = [full(logits)], make_decode_step(cfg)
-        for _ in range(MESH_STEPS):
-            tok = outs[-1][:, -1].argmax(-1)[:, None].to(torch.int32)
-            logits, cache = decode(p, cache, place(tok))
-            outs.append(full(logits))
-        return outs
-
-    plain = run(params, lambda x: x)
-    expect(not dist.is_initialized(), "a process group before the 1x1 mesh")
-    init_world(device="cuda")
-    try:
-        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
-        before = flash_decode.launches
-        with sharding_scope(mesh, **sharding_overrides(cfg.name)):
-            meshed = run(distribute_tree(params, model_specs(cfg),
-                                         src_data_rank=None),
-                         lambda x: distribute_tree(
-                             x, ("batch",) + (None,) * (x.dim() - 1),
-                             src_data_rank=None))
-        launched = flash_decode.launches - before
-    finally:
-        dist.destroy_process_group()
-    torch.cuda.synchronize()
-    equal = [bool(torch.equal(a, b)) for a, b in zip(plain, meshed)]
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(plain, meshed))
-    expect(all(equal), f"1x1 mesh: logits not bit-equal to no mesh "
-           f"({equal}, max abs diff {err})")
-    expect(launched == cfg.n_layers * MESH_STEPS,
-           f"1x1 mesh: {launched} flash-decode launches, want "
-           f"{cfg.n_layers * MESH_STEPS}")
-    log(f"1x1 mesh (NCCL, world 1): qwen3-4b full width, {MESH_ROWS} x "
-        f"{MESH_PROMPT} prefill + {MESH_STEPS} steps: logits bit-equal to "
-        f"no mesh at all {len(equal)} steps; {launched} flash-decode "
-        f"launches on the mesh; {time.perf_counter() - t0:.1f} s")
-    del params, plain, meshed
-    torch.cuda.empty_cache()
-
-
 def dryrun_decode_shape(torch, F, ops, ref, dev="cuda"):
     """flash-decode at the per-device shape the dry run's real decode cell
     launched it at (``DRYRUN_DECODE_SHAPE``): qwen3-4b decode_32k on the
@@ -3958,6 +3987,514 @@ def dryrun_decode_shape(torch, F, ops, ref, dev="cuda"):
     rec = check_decode(torch, F, ops, ref, sets, "dryrun qwen3-4b "
                        "decode_32k per device", iters=10)
     del sets, k, v
+    return rec
+
+
+# ---------------------------------------------------------------- mesh ----
+
+
+def mesh_rank_main(argv) -> int:
+    """``chip_smoke.py --mesh-rank OUT PLAN``: one rank of a ``torchrun``
+    of the "mesh" path (``mesh_start``). Starts the world (so that the
+    launchers keep it), then runs each entry of the JSON list PLAN in turn:
+    ``{"tag", "kind": "serve" | "train", "flags"}``, the launcher with
+    those flags, every kernel count set to 0 just before it and the peak
+    memory reset; writes this rank's records {tag: record (the counts, the
+    peak, what the launcher returned)} to ``OUT.<rank>.json``."""
+    import torch
+
+    from repro_torch.launch.mesh import init_world
+
+    out, plan = argv
+    counters = kernel_counters()
+    init_world(device="cuda")
+    rank = torch.distributed.get_rank()
+    recs = {}
+    try:
+        for entry in json.loads(Path(plan).read_text()):
+            run = {"serve": mesh_serve_rank,
+                   "train": mesh_train_rank}[entry["kind"]]
+            t0 = time.perf_counter()
+            rec = run(torch, counters, entry["flags"])
+            torch.cuda.empty_cache()
+            rec.update(rank=rank, world=torch.distributed.get_world_size(),
+                       launches=counters.read(), run_s=time.perf_counter()
+                       - t0, peak_bytes=torch.cuda.max_memory_allocated(),
+                       card_bytes=torch.cuda.get_device_properties(
+                           torch.cuda.current_device()).total_memory)
+            recs[entry["tag"]] = rec
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(f"{out}.{rank}.json").write_text(json.dumps(recs))
+    return 0
+
+
+def mesh_serve_rank(torch, counters, flags, logits_out=None):
+    """``launch/serve`` as its ``main`` runs it (``setup``: under a
+    launcher the (world, 1) mesh; ``serve``; ``close``), the shapes of
+    every flash-decode launch noted, each step's whole logits appended to
+    ``logits_out`` if given -> the rank's record."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch import serve as lm
+
+    shapes, kernel = set(), fd.decode_attention_cuda
+
+    def noting(q, k, *a, **kw):  # (B, H, Hkv, Dh, S, cache dtype)
+        shapes.add((*q.shape[:2], *k.shape[2:], k.shape[1],
+                    str(k.dtype).split(".")[-1]))
+        return kernel(q, k, *a, **kw)
+
+    t0 = time.perf_counter()
+    args, cfg, params, requests = lm.setup(flags)
+    init_s = time.perf_counter() - t0
+    bad = torch.zeros((), dtype=torch.bool, device=args.device)
+
+    def on_step(step, cache, logits):
+        loc = logits.to_local() if is_dtensor(logits) else logits
+        bad.logical_or_(~torch.isfinite(loc).all())
+        if logits_out is not None:
+            logits_out.append(logits.full_tensor() if is_dtensor(logits)
+                              else logits)
+
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    fd.decode_attention_cuda = noting
+    try:
+        res = lm.serve(cfg, params, requests, slots=args.slots,
+                       max_new=args.max_new, device=args.device,
+                       on_step=on_step)
+    finally:
+        fd.decode_attention_cuda = kernel
+        lm.close(args)
+    steps = res.step_tokens.shape[0]
+    swap_s = sum(res.swap_seconds)
+    return {"mesh": args.mesh is not None, "n_decoded": res.n_decoded,
+            "served": res.served, "streams": res.streams,
+            "step_tokens": res.step_tokens.tolist(), "steps": steps,
+            "init_s": init_s, "prefill_ms": res.prefill_seconds * 1e3,
+            "swap_ms": [t * 1e3 for t in res.swap_seconds],
+            "decode_s": res.decode_seconds,
+            "tokens_per_s": res.n_decoded / res.decode_seconds,
+            "ms_per_step": (res.decode_seconds - swap_s) * 1e3 / steps,
+            "schedule": res.schedule, "shapes": sorted(shapes),
+            "bad": bool(bad)}
+
+
+def mesh_train_rank(torch, counters, flags):
+    """``launch/train.main(FLAGS)`` with its step wrapped: synchronised
+    around every call, the seconds, loss and grad norm kept; at the first
+    call the rank's resident bytes of params and optimizer state (local
+    shards) and the leaves of more than 1 M entries that no mesh axis
+    splits -> the rank's record."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.launch import train as lm_train
+    from repro_torch.train.tree import leaf_paths, leaves
+
+    make = lm_train.make_train_step
+    times, metrics, seen = [], [], {}
+
+    def scalar(x):
+        return float(x.full_tensor() if is_dtensor(x) else x)
+
+    def nbytes(tree):
+        ts = [x.to_local() if is_dtensor(x) else x for x in leaves(tree)
+              if isinstance(x, torch.Tensor)]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def wrap(step):
+        def run(params, state, batch):
+            if not times:
+                seen.update(
+                    param_bytes=nbytes(params), state_bytes=nbytes(state),
+                    init_peak_bytes=torch.cuda.max_memory_allocated(),
+                    whole=[(name, list(p.shape)) for name, p in
+                           leaf_paths(params) if p.numel() > 1 << 20
+                           and not any(pl.is_shard() for pl in
+                                       getattr(p, "placements", ()))])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: scalar(out[2][k])
+                            for k in ("loss", "grad_norm")})
+            return out
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    lm_train.make_train_step = lambda *a, **kw: wrap(make(*a, **kw))
+    try:
+        losses = lm_train.main(flags)
+    finally:
+        lm_train.make_train_step = make
+    return {"losses": losses, "metrics": metrics,
+            "step_ms_each": [t * 1e3 for t in times], **seen}
+
+
+def mesh_start(n, plan, tag):
+    """``torchrun`` (``python -m torch.distributed.run --standalone``, a
+    free port on localhost) of ``n`` ranks of this script in
+    ``--mesh-rank`` mode running ``plan`` (see ``mesh_rank_main``), in a
+    session of its own (so that a failure stops every rank), its output to
+    ``build/mesh/<tag>.log``."""
+    import os
+
+    work = ROOT / "build" / "mesh"
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.glob(f"{tag}.*"):
+        old.unlink()
+    out, log_path = work / tag, work / f"{tag}.log"
+    plan_path = work / f"{tag}.plan.json"
+    plan_path.write_text(json.dumps(plan))
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+         "--mesh-rank", str(out), str(plan_path)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=logf, stderr=subprocess.STDOUT, start_new_session=True)
+    return {"proc": proc, "logf": logf, "out": out, "log": log_path, "n": n,
+            "tag": tag, "t0": time.perf_counter()}
+
+
+def mesh_wait(run, timeout=MESH_TIMEOUT):
+    """Wait for a ``mesh_start`` run -> each rank's records. Fails (the
+    end of the log in the message) if it exits non-zero or outlasts
+    ``timeout``; its session is killed if it still runs."""
+    import os
+    import signal
+
+    try:
+        code = run["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        code = f"timeout after {timeout} s"
+    finally:
+        if run["proc"].poll() is None:
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+            run["proc"].wait()
+        run["logf"].close()
+    tail = run["log"].read_text(errors="replace")[-4000:]
+    expect(code == 0, f"mesh {run['tag']}: torchrun exited {code}; the end "
+           f"of {run['log']}:\n{tail}")
+    recs = [json.loads(Path(f"{run['out']}.{r}.json").read_text())
+            for r in range(run["n"])]
+    wall = time.perf_counter() - run["t0"]
+    log(f"mesh {run['tag']}: {run['n']} rank(s) collected {wall:.1f} s after "
+        f"the start (runs: "
+        + ", ".join(f"{tag} {r['run_s']:.1f} s" for tag, r in recs[0].items())
+        + ")")
+    return recs
+
+
+def mesh_counts(recs):
+    """The kernels' launches summed over every run of every rank of
+    ``recs``."""
+    out = {}
+    for rank in recs:
+        for r in rank.values():
+            for name, n in r["launches"].items():
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def mesh_phase(torch, np, counters, four):
+    """The "mesh" path. ``four`` (``--mesh-only``) with ``MESH_CARDS``
+    cards or more: ``mesh_four``, the launchers under ``torchrun`` across
+    four cards; otherwise ``mesh_1x1_phase``. Returns (the launch counts,
+    the records)."""
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    if four and n >= MESH_CARDS:
+        return mesh_four(torch, np)
+    log(f"mesh: {n} card(s); the four-card runs (qwen3-4b served on (4, 1) "
+        f"and trained on 2x2, zamba2-7b trained at 81 layers on 1x4) "
+        + (f"need {MESH_CARDS} cards" if n < MESH_CARDS else
+           "run under --mesh-only") + "; the serve launcher on a 1x1 mesh")
+    return mesh_1x1_phase(torch, counters)
+
+
+def mesh_1x1_phase(torch, counters):
+    """The "mesh" path on one card: ``launch/serve`` at qwen3-4b's full
+    width and depth (``MESH_ONE_FLAGS``) as a plain process (no mesh), then
+    in this process under ``WORLD_SIZE=1`` as a launcher sets it (a real
+    (1, 1) mesh, NCCL, a world of one: params, prompts, tokens and the
+    cache DTensors, flash-decode through its sharded path). Held: every
+    step's logits bit-equal, as one rank moves no data; the step tokens,
+    streams, served and n_decoded equal; one flash-decode launch a layer a
+    step at the whole batch; no NaN. Returns (the mesh run's launch counts,
+    its record)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as lm
+
+    t0 = time.perf_counter()
+    args, cfg, params, requests = lm.setup(MESH_ONE_FLAGS)
+    expect(args.mesh is None, "the plain launcher built a mesh")
+    plain = []
+    want = lm.serve(cfg, params, requests, slots=args.slots,
+                    max_new=args.max_new, device=args.device,
+                    on_step=lambda step, cache, logits: plain.append(logits))
+    del params
+    torch.cuda.empty_cache()
+    expect(not dist.is_initialized(), "a process group before the 1x1 mesh")
+    meshed = []
+    os.environ["WORLD_SIZE"] = "1"
+    try:
+        r = mesh_serve_rank(torch, counters, MESH_ONE_FLAGS, meshed)
+        counts = counters.read()
+    finally:
+        del os.environ["WORLD_SIZE"]
+    expect(not dist.is_initialized(), "the launcher left its world")
+    torch.cuda.synchronize()
+    steps = want.step_tokens.shape[0]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(plain, meshed)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(plain, meshed))
+    del plain, meshed
+    torch.cuda.empty_cache()
+    expect(r["mesh"], "WORLD_SIZE=1: the launcher built no mesh")
+    expect(len(equal) == steps and all(equal), f"1x1 mesh: logits not "
+           f"bit-equal to no mesh ({equal}, max abs diff {err})")
+    expect(r["step_tokens"] == want.step_tokens.tolist()
+           and r["streams"] == want.streams,
+           "1x1 mesh: the tokens differ from the plain launcher's")
+    expect((r["n_decoded"], r["served"]) == (want.n_decoded, want.served),
+           f"1x1 mesh: n_decoded / served {r['n_decoded']} / "
+           f"{r['served']}, plain {want.n_decoded} / {want.served}")
+    expect(counts["decode_attention"] == cfg.n_layers * steps,
+           f"1x1 mesh: {counts['decode_attention']} flash-decode launches, "
+           f"want {cfg.n_layers} x {steps}")
+    expect(all(sh[0] == args.slots for sh in r["shapes"]),
+           f"1x1 mesh: flash-decode launched at {r['shapes']}")
+    expect(not r["bad"], "1x1 mesh: NaN/inf in the logits")
+    plain_ms = (want.decode_seconds - sum(want.swap_seconds)) * 1e3 / steps
+    log(f"mesh (1x1, NCCL, a world of one, through launch/serve): qwen3-4b "
+        f"full width, {r['n_decoded']} tokens in {steps} steps, "
+        f"{r['served']} requests: logits bit-equal to the plain launcher's "
+        f"at all {steps} steps, tokens equal; flash-decode "
+        f"{counts['decode_attention']} launches at {r['shapes']}; "
+        f"{r['ms_per_step']:.1f} ms a step on the mesh, {plain_ms:.1f} "
+        f"plain; {time.perf_counter() - t0:.1f} s")
+    return counts, r
+
+
+class TopTwo:
+    """An ``on_step`` hook keeping each step's (B,) gap between the top two
+    last-position logits and max |logit| (``host`` gives both on the host,
+    (steps, B))."""
+
+    def __init__(self):
+        self.gaps, self.scales = [], []
+
+    def __call__(self, step, cache, logits):
+        last = logits[:, -1].float()
+        top = last.topk(2, -1).values
+        self.gaps.append(top[:, 0] - top[:, 1])
+        self.scales.append(last.abs().amax(-1))
+
+    def host(self, torch):
+        return torch.stack(self.gaps).cpu(), torch.stack(self.scales).cpu()
+
+
+def mesh_serve_reference(torch):
+    """The lm path's serve (``lm_flags("qwen3-4b")``) on this process's
+    card, no mesh -> {its step tokens, streams, schedule, served, decode
+    seconds, swap seconds, and ``TopTwo``'s gaps and scales}."""
+    from repro_torch.launch import serve as lm
+
+    args, cfg, params, requests = lm.setup(lm_flags("qwen3-4b"))
+    top = TopTwo()
+    res = lm.serve(cfg, params, requests, slots=args.slots,
+                   max_new=args.max_new, device=args.device, on_step=top)
+    del params
+    torch.cuda.empty_cache()
+    gaps, scales = top.host(torch)
+    return {"step_tokens": res.step_tokens, "streams": res.streams,
+            "schedule": res.schedule, "served": res.served,
+            "decode_s": res.decode_seconds, "swap_s": sum(res.swap_seconds),
+            "gaps": gaps, "scales": scales}
+
+
+def mesh_train_reference(torch, flags):
+    """The first ``MESH_HELD_STEPS`` steps of ``launch/train.main(flags)``
+    (one card, no mesh; the schedule's length is the same) -> each step's
+    metrics (``metrics.jsonl``)."""
+    from repro_torch.launch import train as lm_train
+
+    path = ROOT / "build" / "mesh" / "train1.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    lm_train.main(_flag(flags, "--steps", str(MESH_HELD_STEPS))
+                  + ["--metrics", str(path)])
+    torch.cuda.empty_cache()
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def mesh_four(torch, np):
+    """Four cards, one ``torchrun`` of 4 ranks running three launcher runs
+    in turn: (a) qwen3-4b served by ``launch/serve`` on the (4, 1) data mesh
+    with the lm path's flags (12 requests of 1,024 tokens, 8 slots: 2 a
+    card, 64 new): every rank decodes 1,024 tokens in 128 steps with
+    exactly 36 flash-decode launches a step at its local
+    ``MESH_SERVE_SHAPE``, no NaN; the schedule the one-card run's, and
+    each request's stream equal to its one-card stream but where its first
+    differing token is a near-tie of the one-card run (its top two logits
+    there within ``LM_LOGIT_TOL`` x max |logit|; counted) or the request's
+    first token, decoded from the token the slot's previous request ended
+    on when that token differs already (counted). (b) qwen3-4b trained by
+    ``launch/train --mesh 2x2`` with the train path's flags for
+    ``MESH_TRAIN_STEPS`` steps: step 1's loss and grad norm within
+    ``TOL_MESH_STEP`` of one card's, the losses of steps 2 to
+    ``MESH_HELD_STEPS`` (after the sharded AdamW updates) within
+    ``TOL_MESH_LOSS``, then ``hold_training``. (c)
+    zamba2-7b at all 81 layers, ``--mesh 1x4``, AdamW at 1e-4:
+    ``hold_training``, each rank's peak below its card's, its params' and
+    AdamW state's resident bytes printed against ``MESH_STATE_GB`` and the
+    leaves no axis splits named. The one-card references (the lm path's
+    serve with ``TopTwo``, the train path's first ``MESH_HELD_STEPS``
+    steps) are run here first on cuda:0."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    one = mesh_serve_reference(torch)
+    ref_steps = mesh_train_reference(torch, TRAIN_FLAGS)
+    log(f"mesh references (cuda:0, no mesh): train steps 1-"
+        f"{MESH_HELD_STEPS} " + json.dumps(ref_steps)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    plan = [{"tag": "serve", "kind": "serve",
+             "flags": lm_flags("qwen3-4b")}]
+    for label, (arch, mesh, lr) in MESH_TRAIN.items():
+        plan.append({"tag": label, "kind": "train", "flags": _flag(_flag(
+            _flag(TRAIN_FLAGS, "--arch", arch), "--steps",
+            str(MESH_TRAIN_STEPS), ), "--lr", str(lr)) + ["--mesh", mesh]})
+    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "four"))
+    out = {}
+    # (a) serve on (4, 1)
+    cfg = get_config("qwen3-4b")
+    recs = [rank["serve"] for rank in ranks]
+    for r in recs:
+        expect(r["mesh"] and r["n_decoded"] == LM_DECODED
+               and r["steps"] == LM_STEPS and r["served"] == one["served"],
+               f"serve (4, 1) rank {r['rank']}: {r['n_decoded']} tokens, "
+               f"{r['steps']} steps, {r['served']} served")
+        expect(r["launches"]["decode_attention"] == cfg.n_layers * LM_STEPS,
+               f"serve (4, 1) rank {r['rank']}: "
+               f"{r['launches']['decode_attention']} flash-decode launches")
+        expect([tuple(s) for s in r["shapes"]] == [MESH_SERVE_SHAPE],
+               f"serve (4, 1) rank {r['rank']}: flash-decode at "
+               f"{r['shapes']}, want {MESH_SERVE_SHAPE}")
+        expect(not r["bad"] and r["peak_bytes"] < r["card_bytes"],
+               f"serve (4, 1) rank {r['rank']}: NaN/inf {r['bad']}, peak "
+               f"{r['peak_bytes']}")
+        expect(r["step_tokens"] == recs[0]["step_tokens"],
+               f"serve (4, 1): rank {r['rank']}'s tokens differ from rank 0's")
+    expect([tuple(e) for e in recs[0]["schedule"]]
+           == [tuple(e) for e in one["schedule"]],
+           "serve (4, 1): the schedule differs from the one-card run's")
+    got, want = np.asarray(recs[0]["step_tokens"]), one["step_tokens"]
+    at = {}  # request -> the (step, slot) of each of its tokens
+    for t, b, q in one["schedule"]:
+        at.setdefault(q, []).append((t, b))
+    ties, inherited = [], []
+    for q, (g, w) in enumerate(zip(recs[0]["streams"], one["streams"])):
+        j = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None:
+            continue
+        t, b = at[q][j]
+        if j == 0 and t > 0 and got[t - 1, b] != want[t - 1, b]:
+            # its first step decodes from the token the slot's previous
+            # request ended on, which differs already
+            inherited.append({"request": q, "slot": b, "step": t})
+            continue
+        gap, scale = float(one["gaps"][t, b]), float(one["scales"][t, b])
+        expect(gap <= LM_LOGIT_TOL * scale,
+               f"serve (4, 1): request {q} first differs at its token {j} "
+               f"(step {t}, slot {b}), where the one-card run's top two "
+               f"logits are {gap} apart (max |logit| {scale}): not a "
+               "near-tie")
+        ties.append({"request": q, "token": j, "slot": b, "step": t,
+                     "gap": gap, "scale": scale})
+    same = sum(s == w for s, w in zip(recs[0]["streams"], one["streams"]))
+    keys = ("tokens_per_s", "ms_per_step", "prefill_ms", "init_s", "run_s")
+    out["serve"] = {"ranks": [{k: r[k] for k in keys} | {
+        "peak_gb": r["peak_bytes"] / 1e9} for r in recs],
+        "streams_equal": same, "near_ties": ties,
+        "inherited": inherited,
+        "one_card": {"tokens_per_s": LM_DECODED / one["decode_s"],
+                     "ms_per_step": (one["decode_s"] - one["swap_s"]) * 1e3
+                     / LM_STEPS}}
+    log(f"mesh serve qwen3-4b on (4, 1): {same} of {len(one['streams'])} "
+        f"streams equal to one card's; requests first differing at a "
+        f"near-tie: {len(ties)}, from the previous request's last token: "
+        f"{len(inherited)}; " + json.dumps(out["serve"]))
+    # (b), (c) training
+    rows, seq = (int(TRAIN_FLAGS[TRAIN_FLAGS.index(f) + 1])
+                 for f in ("--batch", "--seq"))
+    for label, (arch, mesh, lr) in MESH_TRAIN.items():
+        recs = [rank[label] for rank in ranks]
+        tcfg = get_config(arch)
+        r0 = recs[0]
+        step_ms = float(np.median(r0["step_ms_each"][2:]))
+        rec = {"arch": arch, "mesh": mesh, "layers": tcfg.n_layers, "lr": lr,
+               "losses": r0["losses"],
+               "grad_norms": [m["grad_norm"] for m in r0["metrics"]],
+               "step_ms": step_ms, "tokens_per_s": rows * seq / step_ms * 1e3,
+               "run_s": r0["run_s"],
+               "ranks": [{
+                   "peak_gb": r["peak_bytes"] / 1e9,
+                   "init_peak_gb": r["init_peak_bytes"] / 1e9,
+                   "param_gb": r["param_bytes"] / 1e9,
+                   "state_gb": r["state_bytes"] / 1e9} for r in recs],
+               "whole_leaves": r0["whole"]}
+        if arch == "qwen3-4b":  # steps 1.. against one card, relative
+            rel = [[abs(m[k] - w[k]) / abs(w[k]) for k in ("loss",
+                                                            "grad_norm")]
+                   for m, w in zip(r0["metrics"], ref_steps)]
+            rec["rel_diff_loss_grad_norm"] = rel
+        else:
+            rec["state_vs_reckoned_gb"] = MESH_STATE_GB
+        out[label] = rec
+        log(f"mesh {label}: {arch} ({tcfg.n_layers} layers) on {mesh}: "
+            + json.dumps(rec))
+        for r in recs:
+            expect(r["losses"] == r0["losses"],
+                   f"{label}: rank {r['rank']}'s losses differ from rank 0's")
+            hold_training(np, f"{label} rank {r['rank']}", r["losses"],
+                          MESH_TRAIN_STEPS, tcfg.vocab_size, r["peak_bytes"],
+                          r["card_bytes"], r["launches"])
+        if arch == "qwen3-4b":
+            expect(len(rel) == MESH_HELD_STEPS,
+                   f"{label}: {len(rel)} steps held against one card")
+            expect(rel[0][0] <= TOL_MESH_STEP[0]
+                   and rel[0][1] <= TOL_MESH_STEP[1],
+                   f"{label}: step 1 loss / grad norm relative to one card's "
+                   f"{rel[0]}, tolerance {TOL_MESH_STEP}")
+            expect(all(x[0] <= TOL_MESH_LOSS for x in rel[1:]),
+                   f"{label}: the losses of steps 2-{MESH_HELD_STEPS} "
+                   f"relative to one card's {[x[0] for x in rel[1:]]}, "
+                   f"tolerance {TOL_MESH_LOSS}")
+    log(f"mesh path (4 cards): {time.perf_counter() - t0:.1f} s")
+    return mesh_counts(ranks), out
+
+
+def mesh_decode_shape(torch, F, ops, ref, dev="cuda"):
+    """flash-decode at a rank's shape on the (4, 1) serve
+    (``MESH_SERVE_SHAPE``: 2 of the 8 rows, every head, 1,088 positions;
+    ragged lengths past the prompt), bf16, timed rotating through 12
+    caches (more than twice the L2)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, h, hkv, dh, s, _ = MESH_SERVE_SHAPE
+    q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+    lens = torch.tensor([s, 1056], device=dev, dtype=torch.int32)
+    sets = [(q, *(torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+                  .bfloat16() for _ in range(2)), lens) for _ in range(12)]
+    rec = check_decode(torch, F, ops, ref, sets, "mesh serve (4, 1) per "
+                       "rank", iters=20)
+    del sets
     return rec
 
 
@@ -3980,11 +4517,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of the mesh path
+        return mesh_rank_main(sys.argv[2:])
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import (build, ellmean, flash_decode, hindex,
-                                     ops, ref, sgns, topk)
+    from repro_torch.kernels import build, ops, ref, sgns
 
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA "
@@ -3994,19 +4532,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({len(logs)} compiled: {', '.join(sorted(logs)) or 'cached'})")
 
-    counters = Counters({
-        "ell_mean": (ellmean, "launches"), "h_index": (hindex, "launches"),
-        "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
-        "sgns_bwd": (sgns, "bwd_launches"),
-        "decode_attention": (flash_decode, "launches"),
-        # each kernel of the top-k's pass, and the h-index's two kernels
-        "top_k.partial": (topk, "partial_launches"),
-        "top_k.merge": (topk, "merge_launches"),
-        "h_index.narrow": (hindex, "narrow_launches"),
-        "h_index.wide": (hindex, "wide_launches"),
-        "h_index.hub": (hindex, "hub_launches"),
-        "h_index_hub": (hindex, "hub_launches"),  # its own record too
-    })
+    counters = kernel_counters()
     if sys.argv[1:] == ["--shard-only"]:
         shard_phase(torch, np, ops, ref, F, counters)
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, shard path only")
@@ -4015,6 +4541,12 @@ def main() -> int:
         pipeline_phase(torch, np, counters)
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, pipeline path "
             f"only")
+        return 0
+    if sys.argv[1:] == ["--mesh-only"]:
+        mesh_phase(torch, np, counters, four=True)
+        if torch.cuda.device_count() >= MESH_CARDS:
+            mesh_decode_shape(torch, F, ops, ref)
+        log(f"smoke: {time.perf_counter() - t_start:.1f} s, mesh path only")
         return 0
     if sys.argv[1:] == ["--train-only"]:
         train_families_phase(torch, np, counters)
@@ -4101,13 +4633,15 @@ def main() -> int:
                        "dryrun deepwalk-web1b per device")
     for name in ("sgns_fwd", "sgns_bwd"):
         large_rec[name].append(graph[name])
+    torch.cuda.empty_cache()
+    mesh_c, _ = mesh_phase(torch, np, counters, four=False)
 
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "x_bound", "x_library", "shape")
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, shard_counts,
              pipe_counts, offline_counts, *lm_counts.values(), train_counts,
-             *family_counts.values(), dryrun_counts)
+             *family_counts.values(), dryrun_counts, mesh_c)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
@@ -4117,7 +4651,7 @@ def main() -> int:
                    **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name],
                    **{path: c[name] for path, c in family_counts.items()},
-                   "dryrun": dryrun_counts[name]}
+                   "dryrun": dryrun_counts[name], "mesh": mesh_c[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {
             "name": name, "route": "cuda", "source": src_path,

@@ -25,25 +25,47 @@ Weights come from the port's ``init_model`` with a ``torch.Generator``
 seeded by ``--seed`` (not the JAX package's numbers); the prompts are the
 JAX launcher's, drawn by numpy from the same seed. ``main`` returns the
 number of tokens decoded; ``serve`` also returns each request's tokens.
+
+Under a launcher (``WORLD_SIZE`` in the environment, as ``torchrun`` sets
+it) ``setup`` serves on the JAX launcher's mesh, (world, 1) over ("data",
+"model"): one process a card (NCCL; gloo with ``--device cpu``), the
+params laid out by their logical names under the arch's rule overrides
+(replicated: the model axis is 1), the slots split over "data" (each rank
+prefills and decodes its own rows, flash-decode on its local rows), or
+replicated where the world does not divide them (the rules' fallback, as
+in the JAX launcher). Each step's greedy tokens are gathered once, so
+every rank runs the same schedule; a swapped-in row is written into the
+rank that owns it. Rank 0 alone prints. A plain process serves on one
+device with no mesh, which equals the JAX launcher's 1x1 mesh (DTensor
+dispatch would only slow a decode that is host-bound)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-4b --preset full --slots 8 --requests 12 \
+        --prompt-len 1024 --max-new 64
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, sharding_overrides
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.sharding import (current_ctx, distribute_tree,
+                                              is_dtensor, local_offset,
+                                              sharding_scope, spec_for)
+from repro_torch.launch.mesh import init_world, make_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.steps import make_decode_step, make_prefill_step
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import init_model, model_specs
 
 __all__ = ["cache_batch_axes", "make_requests", "ServeResult", "serve",
-           "setup", "main"]
+           "setup", "close", "main"]
 
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
@@ -62,9 +84,47 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
 
 
 def _set_row(buf, row, b: int, axis: int):
-    """Copy ``row`` (batch size 1) into row ``b`` of ``buf``, in place."""
-    buf.narrow(axis, b, 1).copy_(row)
+    """Copy ``row`` (batch size 1) into row ``b`` of ``buf``, in place. A
+    DTensor ``buf`` (split along ``axis`` alone, as the serving mesh splits
+    the slots) takes it on the ranks whose local slice holds row b; every
+    rank calls this."""
+    if not is_dtensor(buf):
+        buf.narrow(axis, b, 1).copy_(row)
+        return buf
+    src = row.full_tensor() if is_dtensor(row) else row
+    loc, lo = buf.to_local(), local_offset(buf)[axis]
+    if lo <= b < lo + loc.shape[axis]:
+        loc.narrow(axis, b - lo, 1).copy_(src)
     return buf
+
+
+def _mesh():
+    """The ``DeviceMesh`` of the active sharding scope, or None."""
+    ctx = current_ctx()
+    if ctx is None or not hasattr(ctx.mesh, "mesh_dim_names"):
+        return None
+    return ctx.mesh
+
+
+def _greedy(logits):
+    """The last position's argmax -> (the (B, 1) int32 tokens as the
+    decode step takes them, the (B,) tokens whole on every rank). A
+    DTensor's rows are kept split as they are (any other split gathered
+    first), each rank takes its own rows' argmax, and the tokens are
+    gathered once."""
+    if not is_dtensor(logits):
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        return tok, tok[:, 0]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in logits.placements]
+    loc = logits.redistribute(mesh, rows).to_local()
+    tok = DTensor.from_local(
+        loc[:, -1].argmax(-1)[:, None].to(torch.int32), mesh, rows,
+        run_check=False, shape=torch.Size((logits.shape[0], 1)),
+        stride=(1, 1))
+    return tok, tok.full_tensor()[:, 0]
 
 
 def make_requests(vocab_size: int, n: int, prompt_len: int,
@@ -86,6 +146,7 @@ class ServeResult:
     swap_seconds: List[float]  # each swap: B = 1 prefill + row copies
     decode_seconds: float  # the decode loop, swaps included, on_step not
     cache: dict  # the cache after the last step
+    schedule: List[tuple]  # (step, slot, request) of each token in streams
 
 
 def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
@@ -104,8 +165,13 @@ def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
     decode = make_decode_step(cfg)
     axes = cache_batch_axes(cfg)
 
+    mesh = _mesh()
+
     def tokens_of(rows):
-        return torch.from_numpy(np.stack(rows)).to(dev)
+        t = torch.from_numpy(np.stack(rows)).to(dev)
+        if mesh is None:
+            return t
+        return distribute_tree(t, ("batch", None), src_data_rank=None)
 
     synchronize(dev)
     t0 = time.perf_counter()
@@ -122,7 +188,7 @@ def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
     served = B
     owner = [b if b < n_requests else None for b in range(B)]
     next_req = B
-    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    tok, _ = _greedy(logits)
     step_toks, budget = [], []  # budget: (step, slot, request) entries
     swap_seconds: List[float] = []
     n_decoded = 0
@@ -132,8 +198,8 @@ def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
         logits, cache = decode(params, cache, tok)
         step = len(step_toks)
         n_decoded += B
-        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-        step_toks.append(tok[:, 0])
+        tok, whole = _greedy(logits)
+        step_toks.append(whole)
         if on_step is not None:
             synchronize(dev)
             th = time.perf_counter()
@@ -176,11 +242,15 @@ def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
     for step, b, r in budget:
         streams[r].append(int(toks[step, b]))
     return ServeResult(n_decoded, served, streams, toks, t_prefill,
-                       swap_seconds, t_decode, cache)
+                       swap_seconds, t_decode, cache, budget)
 
 
 def setup(argv=None):
-    """Parse the launcher's flags -> (args, cfg, params, requests)."""
+    """Parse the launcher's flags -> (args, cfg, params, requests). Under
+    a launcher (``WORLD_SIZE`` set) this also starts the world, builds the
+    (world, 1) mesh, enters its sharding scope and lays the params out on
+    it; ``args.mesh`` is the mesh (None in a plain process), and ``close``
+    leaves the scope (and the world, if this started it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--preset", choices=["reduced", "full"], default="reduced")
@@ -198,21 +268,56 @@ def setup(argv=None):
     if cfg.family == "encdec" or cfg.frontend == "vision":
         raise SystemExit("serve demo targets decoder-only text archs")
     dev = resolve_device(args.device)
+    args.mesh = args.scope = None
+    args.rank, args.started = 0, False
+    if "WORLD_SIZE" in os.environ:
+        args.started = not torch.distributed.is_initialized()
+        world = init_world(device=dev)
+        args.rank = torch.distributed.get_rank()
+        dev = resolve_device(dev.type)  # this rank's card
+        args.mesh = make_mesh((world, 1), ("data", "model"), device=dev)
+        args.scope = sharding_scope(args.mesh, **sharding_overrides(cfg.name))
+        args.scope.__enter__()
+        split = spec_for((args.slots,), ("batch",))[0] is not None
+        if args.rank == 0:
+            print(f"[serve] mesh ({world}, 1) (data, model): {args.slots} "
+                  "slots, " + (f"{args.slots // world} a rank" if split else
+                               f"replicated on every rank ({world} ranks "
+                               "do not divide them)"))
+    args.device = str(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model(cfg, gen, dev)
+    if args.mesh is not None:
+        params = distribute_tree(params, model_specs(cfg), src_data_rank=None)
     requests = make_requests(cfg.vocab_size, args.requests, args.prompt_len,
                              args.seed)
     return args, cfg, params, requests
 
 
+def close(args) -> None:
+    """Leave the mesh's sharding scope ``setup`` entered, and destroy the
+    world if ``setup`` started it (a plain process: nothing)."""
+    if args.scope is not None:
+        args.scope.__exit__(None, None, None)
+        args.scope = None
+        if args.started:
+            torch.distributed.destroy_process_group()
+
+
 def main(argv=None) -> int:
     args, cfg, params, requests = setup(argv)
-    res = serve(cfg, params, requests, slots=args.slots,
-                max_new=args.max_new, device=args.device)
-    print(f"[serve] {res.served} requests, {res.n_decoded} tokens decoded")
-    print(f"[serve] prefill {res.prefill_seconds * 1e3:.1f} ms; decode "
-          f"{res.n_decoded / max(res.decode_seconds, 1e-9):.1f} tok/s "
-          f"({res.decode_seconds * 1e3 / max(res.n_decoded, 1):.2f} ms/tok)")
+    try:
+        res = serve(cfg, params, requests, slots=args.slots,
+                    max_new=args.max_new, device=args.device)
+    finally:
+        close(args)
+    if args.rank == 0:
+        print(f"[serve] {res.served} requests, {res.n_decoded} tokens "
+              "decoded")
+        print(f"[serve] prefill {res.prefill_seconds * 1e3:.1f} ms; decode "
+              f"{res.n_decoded / max(res.decode_seconds, 1e-9):.1f} tok/s "
+              f"({res.decode_seconds * 1e3 / max(res.n_decoded, 1):.2f} "
+              "ms/tok)")
     return res.n_decoded
 
 

@@ -22,8 +22,10 @@ one process a device (NCCL on the card, gloo with ``--device cpu``), a
 1x1 mesh also without it. The params, the optimizer state and each batch
 are laid out by their logical names under the arch's rule overrides
 (``distributed.sharding``; every rank draws the same params and reads the
-same batch, and keeps its own slice), and checkpoints hold whole tensors,
-so a run resumes on another mesh. "" (the default) trains on one device
+same batch, and keeps its own slice; the optimizer state is built on each
+rank's shards alone, ``sharded_state``), and checkpoints hold whole
+tensors, so a run resumes on another mesh. Rank 0 alone writes the
+metrics. "" (the default) trains on one device
 with no mesh. ``--compress-grads`` is for the one-device run only.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
@@ -53,12 +55,14 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.distributed.compression import ErrorFeedbackInt8
 from repro_torch.distributed.sharding import (distribute_tree, is_dtensor,
+                                              local_tree, shapes_only,
                                               sharding_scope)
 from repro_torch.distributed.watchdog import HangWatchdog, StragglerMonitor
 from repro_torch.launch.mesh import init_world, make_mesh, parse_mesh
 from repro_torch.models.steps import make_train_step
 from repro_torch.models.transformer import init_model, model_specs
 from repro_torch.train import optim
+from repro_torch.train.tree import tree_map
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,6 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     return ap
+
+
+def sharded_state(opt, name: str, params, p_specs, device):
+    """``opt.init(params)`` for DTensor ``params``, laid out as
+    ``optim.optimizer_state_specs(name, ...)`` names it, built leaf by leaf
+    on each rank's own shards on ``device`` (``sharding.local_tree``): no
+    rank allocates a state leaf's whole size. Every optimizer of
+    ``train.optim`` starts its state at zero (AdamW's moments, adafactor's
+    row and column moments, SGD's velocity), so the shards are zeros, as
+    the slices of a whole-tree init would be."""
+    meta = shapes_only(tree_map, lambda p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), params)
+    return local_tree(shapes_only(opt.init, meta),
+                      optim.optimizer_state_specs(name, meta, p_specs),
+                      lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                       device=device))
 
 
 def _scalar(x) -> float:
@@ -154,12 +174,13 @@ def main(argv=None):
     try:
         params = init_model(cfg, torch.Generator(device).manual_seed(args.seed),
                             device)
-        opt_state = opt.init(params)
-        if mesh is not None:
+        if mesh is None:
+            opt_state = opt.init(params)
+        else:  # each rank keeps its slice of the draw; the whole tree goes
             p_specs = model_specs(cfg)
-            opt_state = distribute_tree(opt_state, optim.optimizer_state_specs(
-                cfg.optimizer, params, p_specs), src_data_rank=None)
             params = distribute_tree(params, p_specs, src_data_rank=None)
+            opt_state = sharded_state(opt, cfg.optimizer, params, p_specs,
+                                      device)
         start_step = 0
         if mgr is not None and mgr.latest_step() is not None:
             start_step = mgr.latest_step()
@@ -171,7 +192,9 @@ def main(argv=None):
         metrics_path = args.metrics or (
             os.path.join(args.ckpt_dir, "metrics.jsonl") if args.ckpt_dir
             else "")
-        mf = open(metrics_path, "a") if metrics_path else None
+        rank0 = not torch.distributed.is_initialized() \
+            or torch.distributed.get_rank() == 0
+        mf = open(metrics_path, "a") if metrics_path and rank0 else None
 
         def batches():
             for s in range(start_step, args.steps):

@@ -763,6 +763,58 @@ def test_lm_families_served_on_the_card_match_the_cpu(cuda, arch):
 
 
 @pytest.mark.cuda
+def test_serve_launcher_on_a_world_of_one_nccl_mesh_is_bitwise(cuda,
+                                                               monkeypatch):
+    """``launch/serve`` under a launcher's environment of one rank (NCCL,
+    a (1, 1) mesh: params, prompts, tokens and the cache DTensors, the
+    swaps written into the rank's slice) at the reduced qwen3-4b (fp32),
+    8 slots, 12 requests, 4 new: the streams and every step's logits
+    bit-equal to the same launcher in a plain process with no mesh (one
+    rank moves no data), and flash-decode launched once a layer a step."""
+    import socket
+
+    from repro_torch.distributed.sharding import full_tree
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen3-4b", "--preset", "reduced", "--slots", "8",
+            "--requests", "12", "--prompt-len", "16", "--max-new", "4",
+            "--device", str(cuda)]
+    def run():
+        args, cfg, params, requests = serve.setup(argv)
+        logs = []
+        before = flash_decode.launches
+        try:
+            res = serve.serve(cfg, params, requests, slots=args.slots,
+                              max_new=args.max_new, device=args.device,
+                              on_step=lambda s, c, lg: logs.append(
+                                  full_tree({"x": lg})["x"].clone()))
+            cache = {k: v.clone() for k, v in full_tree(res.cache).items()}
+        finally:
+            serve.close(args)
+        return (args.mesh is not None, res, torch.stack(logs), cache,
+                flash_decode.launches - before)
+
+    plain = run()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, val in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                         MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, val)
+    meshed = run()
+    assert not torch.distributed.is_initialized()
+    assert (plain[0], meshed[0]) == (False, True)
+    assert meshed[1].streams == plain[1].streams
+    assert meshed[1].n_decoded == plain[1].n_decoded == 64
+    assert torch.equal(meshed[2], plain[2])
+    for key, want in plain[3].items():
+        assert torch.equal(meshed[3][key], want), key
+    assert meshed[4] == plain[4] == serve.get_config(
+        "qwen3-4b").reduced().n_layers * 8
+
+
+@pytest.mark.cuda
 def test_hub_ingest_on_the_card_matches_the_oracle(cuda):
     """A hub of degree 34,280 streamed through the serving repair on the
     card, pinned to the window descent: its row of width 65,536 goes

@@ -5,8 +5,9 @@ sharded against themselves unsharded and against the JAX package
 (``torch_mesh_cases.check_family``: loss, every gradient, prefill, 4
 greedy decode steps and the caches; fp32, rtol = atol = 1e-5 against the
 unsharded port), and the SGNS loss and flash-decode on each rank's own
-shards against their unsharded runs. Each test spawns its ranks once,
-with a deadline.
+shards against their unsharded runs. The launcher's optimizer state,
+built on each rank's shards, against the whole-tree init it replaced.
+Each test spawns its ranks once, with a deadline.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ from repro_torch.launch import train
 from torch_mesh_cases import check_family
 from torch_mesh_workers import (DECODE_CASES, bitwise_worker,
                                 kernels_worker, placement_worker, spawn,
-                                train_worker)
+                                state_init_worker, train_worker)
+from repro_torch.train.tree import leaf_paths
 
 LAUNCH = ["--arch", "qwen3-4b", "--preset", "reduced", "--device", "cpu",
           "--batch", "4", "--seq", "32", "--ckpt-every", "100"]
@@ -105,3 +107,32 @@ def test_kernels_on_each_rank_s_shards_match_unsharded(tmp_path):
                                    atol=1e-5, err_msg=f"H={H} Hkv={Hkv}")
         layouts.append(placements)
     assert layouts == [["S(0)", "S(1)"]] * 3 + [["S(0)", "R"]]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "grok-1-314b"])
+def test_train_mesh_builds_optimizer_state_on_each_rank_s_shards(arch,
+                                                                 tmp_path):
+    """3 steps of the launcher on 2x2 (qwen3-4b: AdamW; grok-1-314b:
+    adafactor, its factored row and column moments) leave the params and
+    the optimizer state bit-equal to the same steps from the whole-tree
+    init (``opt.init`` of the whole params, then distributed), and the
+    state's init allocates each leaf's local shard on the rank and nothing
+    else: no tensor of a split leaf's whole size."""
+    path = str(tmp_path / "state.pt")
+    argv = ["--arch", arch, "--preset", "reduced", "--device", "cpu",
+            "--batch", "4", "--seq", "32", "--steps", "3", "--mesh", "2x2",
+            "--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "100"]
+    spawn(state_init_worker, 4, argv, path, timeout=150)
+    out = torch.load(path, weights_only=False)
+    seen = out["seen"]
+    assert sorted(seen["allocs"]) == sorted(seen["local"])
+    split = {w for w, loc in zip(seen["whole"], seen["local"]) if w != loc}
+    assert split and not split & set(seen["allocs"])
+    got, want = dict(leaf_paths(out["got"])), dict(leaf_paths(out["want"]))
+    assert got.keys() == want.keys()
+    assert any("vc" in name for name in want) == (arch == "grok-1-314b")
+    for name, w in want.items():
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(got[name], w), name
+        else:
+            assert int(got[name]) == int(w), name

@@ -327,3 +327,128 @@ def kernels_worker(rank, path):
                               [str(x) for x in got.placements]))
     if rank == 0:
         torch.save(out, path)
+
+
+class AllocTally:
+    """A dispatch mode noting the shape of every tensor an op allocates on
+    a real device (view ops and ``meta`` tensors left out)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        shapes = self.shapes = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view:
+                    outs = out if isinstance(out, (tuple, list)) else (out,)
+                    shapes.extend(tuple(o.shape) for o in outs
+                                  if isinstance(o, torch.Tensor)
+                                  and o.device.type != "meta")
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def state_init_worker(rank, argv, path):
+    """``launch.train.main(argv)`` (a --mesh run with a --ckpt-dir) with a
+    dispatch-mode tally around its optimizer-state init, then the same
+    steps from the whole-tree init (``opt.init`` of the whole params, then
+    both trees distributed: the launcher's path before the state was built
+    on shards). Rank 0 saves: the shapes the init allocated beside the
+    state's local and whole leaf shapes, the launcher's checkpointed tree
+    and the whole-tree path's, both gathered whole."""
+    from repro_torch.configs import get_config, sharding_overrides
+    from repro_torch.configs.shapes import batch_logical_names
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import (distribute_tree, full_tree,
+                                                  sharding_scope)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model, model_specs
+    from repro_torch.train import optim
+
+    args = train.build_parser().parse_args(list(argv))
+    build, seen = train.sharded_state, {}
+
+    def tallied(*a, **kw):
+        with AllocTally() as tally:
+            state = build(*a, **kw)
+        ts = [x for x in leaves(state) if isinstance(x, torch.Tensor)]
+        seen.update(allocs=tally.shapes,
+                    local=[tuple(x.to_local().shape) for x in ts],
+                    whole=[tuple(x.shape) for x in ts])
+        return state
+
+    train.sharded_state = tallied
+    try:
+        train.main(list(argv))
+    finally:
+        train.sharded_state = build
+    cfg = get_config(args.arch).reduced()
+    dims, axes = parse_mesh(args.mesh)
+    mesh = make_mesh(dims, axes, device="cpu")
+    opt = optim.make_optimizer(cfg.optimizer, optim.warmup_cosine(
+        args.lr, 10, max(args.steps, 20)))
+    data = SyntheticLMData(cfg.vocab_size, args.batch, args.seq,
+                           seed=args.seed)
+    with sharding_scope(mesh, **sharding_overrides(cfg.name)):
+        params = init_model(cfg, torch.Generator().manual_seed(args.seed),
+                            "cpu")
+        state = opt.init(params)
+        specs = model_specs(cfg)
+        state = distribute_tree(state, optim.optimizer_state_specs(
+            cfg.optimizer, params, specs), src_data_rank=None)
+        params = distribute_tree(params, specs, src_data_rank=None)
+        step = make_train_step(cfg, opt)
+        for s in range(args.steps):
+            batch = distribute_tree(
+                {k: torch.from_numpy(v) for k, v in data.batch_at(s).items()},
+                batch_logical_names(cfg, train=True), src_data_rank=None)
+            params, state, _ = step(params, state, batch)
+        want = full_tree({"params": params, "opt": state})
+    if rank == 0:
+        template = unflatten(want, [x.clone() if isinstance(x, torch.Tensor)
+                                    else x for x in leaves(want)])
+        got = CheckpointManager(args.ckpt_dir).restore(args.steps, template)
+        torch.save({"seen": seen, "got": got, "want": want}, path)
+
+
+def serve_mesh_worker(rank, cases, path):
+    """``launch.serve`` under this world (``setup`` builds the (world, 1)
+    mesh) for each ``cases`` entry (its flags): the streams, ``served``,
+    ``n_decoded``, the last step's logits and the cache after it, gathered
+    whole; rank 0 saves them."""
+    from repro_torch.distributed.sharding import full_tree
+    from repro_torch.launch import serve
+
+    out = []
+    for flags in cases:
+        args, cfg, params, requests = serve.setup(list(flags))
+        last = {}
+
+        def on_step(step, cache, logits):
+            last["logits"] = logits.full_tensor()
+
+        try:
+            res = serve.serve(cfg, params, requests, slots=args.slots,
+                              max_new=args.max_new, device=args.device,
+                              on_step=on_step)
+            cache = {k: v.clone() for k, v in full_tree(res.cache).items()}
+        finally:
+            serve.close(args)
+        out.append({"streams": res.streams, "served": res.served,
+                    "n_decoded": res.n_decoded, "logits": last["logits"],
+                    "cache": cache})
+    if rank == 0:
+        torch.save(out, path)
