@@ -14,7 +14,12 @@
 // (b, s, c) fp32 scales as it leaves shared memory (the K scale multiplies
 // the finished dot product, the V scale the softmax weight); the output has
 // q's type. A row with no visible position returns 0, as the Pallas kernel
-// does.
+// does. Optionally (a non-null `lse`) each query row's log-sum-exp of its
+// scaled, soft-capped logits over the visible range is written too, fp32
+// (B, H), -inf for a row with none: what a caller needs to combine the
+// partial outputs of a cache split along its sequence (out = sum_r w_r o_r
+// / sum_r w_r, w_r = exp(lse_r - max lse)). It is written where the output
+// is, from the same max and sum, so the output's bits do not change.
 //
 // What bounds it on the H100: memory. Each cache row is read once and used
 // for G dot products and G axpys of width Dh: 4 G Dh FLOP per 2 Dh elements,
@@ -100,6 +105,11 @@ __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
+// a row's log-sum-exp from its max logit and its sum of exp(logit - max):
+// -inf for a row with no visible position (its sum is 0)
+__device__ __forceinline__ float row_lse(float mx, float tot) {
+  return tot > 0.f ? mx + logf(tot) : -__int_as_float(0x7f800000);
+}
 __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
@@ -252,7 +262,8 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ vs,
                        const int* __restrict__ lens,
                        const int* __restrict__ los, TQ* __restrict__ out,
-                       int S, int H, int Hkv, int dh_arg, int nsplit,
+                       float* __restrict__ lse, int S, int H, int Hkv,
+                       int dh_arg, int nsplit,
                        float scale, float softcap) {
   using C = Cfg<TQ, TKV, DH, QUANT>;
   const int dh = PAD ? dh_arg : DH;
@@ -621,6 +632,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (nsplit == 1) {
       if (e % DH < dh) put(out + out_at(e), a / fmaxf(tot, 1e-30f));
+      if (lse != nullptr && e % DH == 0) lse[head0 + g] = row_lse(mx, tot);
     } else {
       pacc[e] = a;
       if (e % DH == 0) {
@@ -653,6 +665,7 @@ __global__ void __launch_bounds__(kThreads)
       a = fmaf(cluster.map_shared_rank(pacc, j)[e], f, a);
     }
     if (e % DH < dh) put(out + out_at(e), a / fmaxf(tot, 1e-30f));
+    if (lse != nullptr && e % DH == 0) lse[head0 + g] = row_lse(mx, tot);
   }
   cluster.sync();  // no block leaves while another still reads its memory
 }
@@ -666,6 +679,7 @@ struct Args {
   const int* lens;
   const int* los;
   void* out;
+  float* lse;
   int B, S, H, Hkv, dh;
   float scale, softcap;
 };
@@ -732,8 +746,8 @@ int launch_dh(const Args& a, int device, cudaStream_t s, int* nsplit_out) {
   TQ* out = static_cast<TQ*>(a.out);
   if (nsplit == 1) {
     kern<<<grid, kThreads, smem, s>>>(q, k, v, a.ks, a.vs, a.lens, a.los, out,
-                                      a.S, a.H, a.Hkv, a.dh, 1, a.scale,
-                                      a.softcap);
+                                      a.lse, a.S, a.H, a.Hkv, a.dh, 1,
+                                      a.scale, a.softcap);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -749,7 +763,7 @@ int launch_dh(const Args& a, int device, cudaStream_t s, int* nsplit_out) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, q, k, v, a.ks, a.vs, a.lens, a.los,
-                           out, a.S, a.H, a.Hkv, a.dh, nsplit, a.scale,
+                           out, a.lse, a.S, a.H, a.Hkv, a.dh, nsplit, a.scale,
                            a.softcap);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -801,15 +815,16 @@ int check_args(int B, int S, int H, int Hkv, int q_dtype, int kv_dtype) {
 }  // namespace
 
 // q: (B, H, Dh); k, v: (B, S, Hkv, Dh); k_scale, v_scale: (B, S, Hkv) fp32
-// (int8 cache only, else null); lens, win_lo: (B,) int32; out: (B, H, Dh).
-// Dh: a multiple of 8 from 32 to 256.
+// (int8 cache only, else null); lens, win_lo: (B,) int32; out: (B, H, Dh);
+// lse: (B, H) fp32, or null for none. Dh: a multiple of 8 from 32 to 256.
 // q_dtype: 0 = float32, 1 = bfloat16 (q and out); kv_dtype: 0 / 1 the same
 // as q_dtype, or 2 = int8. Returns the cudaError_t of the launch.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* k_scale,
                                    const void* v_scale, const void* lens,
-                                   const void* win_lo, void* out, int B, int S,
-                                   int H, int Hkv, int Dh, int q_dtype,
+                                   const void* win_lo, void* out, void* lse,
+                                   int B, int S, int H, int Hkv, int Dh,
+                                   int q_dtype,
                                    int kv_dtype, float softcap, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -823,7 +838,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   const Args a{q, k, v, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(lens), static_cast<const int*>(win_lo),
-               out, B, S, H, Hkv, Dh,
+               out, static_cast<float*>(lse), B, S, H, Hkv, Dh,
                static_cast<float>(1.0 / sqrt(static_cast<double>(Dh))),
                softcap};
   return dispatch(a, q_dtype, kv_dtype, device,
@@ -844,7 +859,7 @@ extern "C" int flash_decode_splits(int B, int S, int H, int Hkv, int Dh,
     return 0;
   }
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, B, S, H, Hkv, Dh, 1.f, 0.f};
+               nullptr, nullptr, nullptr, B, S, H, Hkv, Dh, 1.f, 0.f};
   return dispatch(a, q_dtype, kv_dtype, device, nullptr, nsplit);
 }
 

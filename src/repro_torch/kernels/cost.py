@@ -142,14 +142,15 @@ def sgns_bwd(center: torch.Tensor, neg: torch.Tensor) -> Tuple[float, float]:
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor,
                      cache_len: torch.Tensor, win_lo: torch.Tensor,
-                     quant: bool) -> Tuple[float, float]:
+                     quant: bool, lse: bool = False) -> Tuple[float, float]:
     """The visible K and V rows (and their int8 scales) read, q read and the
-    output written, cache_len and win_lo read; QK and PV, 2 operations an
-    element each."""
+    output (and, with ``lse``, the (B, H) fp32 log-sum-exp) written,
+    cache_len and win_lo read; QK and PV, 2 operations an element each."""
     b, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     vis = int((cache_len.clamp_max(s) - win_lo).clamp_min(0).sum())
     nbytes = (vis * hkv * dh * 2 * k.element_size()
               + (vis * hkv * 8 if quant else 0)
-              + 2 * q.numel() * q.element_size() + 8 * b)
+              + 2 * q.numel() * q.element_size() + 8 * b
+              + (4 * b * h if lse else 0))
     return nbytes, 4.0 * vis * h * dh

@@ -11,7 +11,12 @@ with no copy: it must be contiguous, as a per-layer slice of a contiguous
 (L, B, S, Hkv, Dh) cache is. One launch splits each row's visible range
 over a cluster of up to 8 blocks and combines the splits in a fixed order
 (the splitting rule is in the source; :func:`splits` reports it), so two
-calls on the same inputs give the same bits. The plain version is
+calls on the same inputs give the same bits. On request it also returns
+each query row's log-sum-exp of its scaled, soft-capped logits over the
+visible range, fp32 (B, H) (-inf for a row with none): the weights that
+combine the partial outputs of a cache split along its sequence
+(``ops.decode_attention`` on such a DTensor cache); the output's bits are
+the same with and without it. The plain version is
 ``ref.decode_attention_ref``; ``ops.decode_attention`` computes the window
 bound and dispatches.
 """
@@ -40,7 +45,7 @@ def _fn():
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -73,14 +78,15 @@ def _aligned(t: torch.Tensor, name: str) -> None:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cache_len: torch.Tensor, win_lo: torch.Tensor, *,
                           softcap: float = 0.0, k_scale=None,
-                          v_scale=None) -> torch.Tensor:
+                          v_scale=None, return_lse: bool = False):
     """q: (B, H, Dh) float32/bfloat16; k, v: (B, S, Hkv, Dh) in q's dtype,
     or int8 with k_scale, v_scale (B, S, Hkv) float32; cache_len, win_lo:
     (B,) int32. All contiguous on one CUDA device; Dh in ``HEAD_DIMS`` (a
     multiple of 8 from 32 to 256).
     Row b attends to positions ``win_lo[b] <= s < min(cache_len[b], S)``
     and must have at least one (a row with none gives 0). -> (B, H, Dh) in
-    q's dtype."""
+    q's dtype; with ``return_lse`` also (B, H) float32, each query row's
+    log-sum-exp over its visible positions (-inf for a row with none)."""
     global launches
     build.require(q, "q", tuple(_Q_DTYPES), 3)
     build.require(k, "k", (q.dtype, torch.int8), 4, q.device)
@@ -114,14 +120,18 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _aligned(t, name)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib, fn = _fn()
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
-              cache_len.data_ptr(), win_lo.data_ptr(), out.data_ptr(), b, s,
+              cache_len.data_ptr(), win_lo.data_ptr(), out.data_ptr(),
+              0 if lse is None else lse.data_ptr(), b, s,
               h, hkv, dh, _Q_DTYPES[q.dtype],
               _INT8 if quant else _Q_DTYPES[q.dtype], float(softcap),
               q.device.index, build.stream_of(q.device))
     build.check(lib, code, "flash_decode kernel")
     if b and h:  # the C side launches nothing for an empty output
         launches += 1
-        cost.reckon(cost.decode_attention, q, k, cache_len, win_lo, quant)
-    return out
+        cost.reckon(cost.decode_attention, q, k, cache_len, win_lo, quant,
+                    lse is not None)
+    return out if lse is None else (out, lse)

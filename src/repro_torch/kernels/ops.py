@@ -21,17 +21,20 @@ Under a mesh (``distributed.sharding``), ``sgns_loss`` and
 shards, its plain version) on its own local shards through
 ``torch.distributed.tensor.experimental.local_map``, the counterpart of a
 ``shard_map`` in JAX. The batch stays split as it comes; flash-decode's
-heads stay split with the cache's KV heads, and a cache split along its
-sequence (``kv_seq``) is gathered whole first, each rank keeping its own
-query heads and picking their KV heads (the JAX package's GSPMD combines
-partial softmaxes instead). Every other wrapper refuses a DTensor:
-there is no silent fallback to a global plain version.
+heads stay split with the cache's KV heads. A cache split along its
+sequence (``kv_seq``) stays split: each rank runs the kernel over its own
+positions with every query head (q, small, is gathered), and the partial
+outputs are combined by their log-sum-exps (flash-decoding across ranks,
+the partial-softmax all-reduce that GSPMD inserts in the JAX package), so
+no rank holds another's cache positions. Every other wrapper refuses a
+DTensor: there is no silent fallback to a global plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import as_dtensor, is_dtensor, shard_map
+from repro_torch.distributed.sharding import (as_dtensor, is_dtensor,
+                                              shard_map)
 
 from . import ellmean as _em
 from . import flash_decode as _fd
@@ -41,7 +44,8 @@ from . import sgns as _sg
 from . import topk as _tk
 
 __all__ = ["sgns_loss", "SGNSLoss", "ell_mean", "h_index_sweep",
-           "top_k_scores", "normalize_rows", "decode_attention"]
+           "top_k_scores", "normalize_rows", "decode_attention",
+           "combine_partials"]
 
 
 def _is_dtensor(*ts) -> bool:
@@ -190,8 +194,9 @@ def decode_attention(q, k, v, cache_len, *, softcap: float = 0.0, window=0,
     row; a length above S sees the S cached positions. ``impl``: "cuda" (the
     kernel; the cache must be contiguous), "ref" (the plain version) or
     "auto" (by the tensors' device). DTensors: each rank's rows and heads
-    on its own (``local_map``), the cache's sequence gathered whole and the
-    rank's KV heads picked.
+    on its own (``local_map``); a cache split along its sequence stays
+    split and the ranks' partial outputs are combined
+    (``_decode_attention_sharded``).
     """
     if _is_dtensor(q, k, v, cache_len):
         return _decode_attention_sharded(q, k, v, cache_len, softcap, window,
@@ -203,71 +208,146 @@ def decode_attention(q, k, v, cache_len, *, softcap: float = 0.0, window=0,
             k_scale=k_scale, v_scale=v_scale,
         )
     lens = cache_len.to(torch.int32).contiguous()
-    if isinstance(window, torch.Tensor):
-        win_lo = torch.where(window > 0, (lens - window).clamp_min(0), 0)
-    elif window > 0:
-        win_lo = (lens - window).clamp_min(0)
-    else:
-        win_lo = torch.zeros_like(lens)
     return _fd.decode_attention_cuda(
-        q.contiguous(), k, v, lens, win_lo.to(torch.int32), softcap=softcap,
-        k_scale=k_scale, v_scale=v_scale,
+        q.contiguous(), k, v, lens, _window_lo(lens, window).to(torch.int32),
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale,
     )
+
+
+def _window_lo(lens, window):
+    """Each row's first visible position: ``max(len - window, 0)`` where
+    the window (an int or a 0-dim tensor) is on, else 0."""
+    if isinstance(window, torch.Tensor):
+        return torch.where(window > 0, (lens - window).clamp_min(0), 0)
+    if window > 0:
+        return (lens - window).clamp_min(0)
+    return torch.zeros_like(lens)
+
+
+def _decode_seq_shard(q, k, v, lens, window, off, softcap, k_scale, v_scale,
+                      impl):
+    """One rank's share of decode attention over a cache split along its
+    sequence: the local positions ``[off, off + S_loc)`` of the global
+    ``lens`` / window range (both shifted by ``off`` and clamped to
+    ``[0, S_loc]``) -> (out (B, H, Dh) in q's dtype, lse (B, H) float32;
+    a row with no position here gives 0 and -inf)."""
+    s_loc = k.shape[1]
+    lens = lens.to(torch.int32)
+    lo = (_window_lo(lens, window) - off).clamp(0, s_loc).to(torch.int32)
+    hi = (lens - off).clamp(0, s_loc).to(torch.int32)
+    impl = _resolve(impl, q, "ref", ("ref", "cuda"))
+    if impl == "ref":
+        return _ref.decode_attention_ref(q, k, v, hi, softcap=softcap,
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         win_lo=lo, return_lse=True)
+    return _fd.decode_attention_cuda(
+        q.contiguous(), k, v, hi.contiguous(), lo.contiguous(),
+        softcap=softcap, k_scale=k_scale, v_scale=v_scale, return_lse=True)
+
+
+def combine_partials(out, lse, groups):
+    """Flash-decoding's combine of partial attention outputs across ranks:
+    ``out`` (..., Dh) and ``lse`` (...) over disjoint parts of one sequence
+    on the ranks of ``groups`` (process groups, or (mesh, dim) pairs) ->
+    ``sum_r w_r out_r / sum_r w_r`` with ``w_r = exp(lse_r - max_r lse_r)``,
+    float32: a max all-reduce of lse, then one sum all-reduce of the
+    weighted outputs and the weights together. A part with lse -inf weighs
+    nothing; a row with no visible position anywhere comes out 0."""
+    from torch.distributed._functional_collectives import all_reduce
+
+    top = lse
+    for g in groups:
+        top = all_reduce(top, "max", g)
+    w = torch.where(lse > float("-inf"), torch.exp(lse - top), 0.0)
+    part = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    for g in groups:
+        part = all_reduce(part, "sum", g)
+    num, den = part[..., :-1], part[..., -1:]
+    return torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
 
 
 def _decode_attention_sharded(q, k, v, cache_len, softcap, window, k_scale,
                               v_scale, impl):
     """``decode_attention`` on DTensors. The cache (B, S, Hkv, Dh) keeps its
-    batch and KV-head splits and is gathered along S; q (B, H, Dh) and
-    cache_len (B,) follow the batch split, q's heads the KV heads' split.
-    On an axis that splits q's heads but not the KV heads (the cache split
-    along S, or replicated), q stays split where each rank's H/n heads use
-    a contiguous run of KV heads (their groups whole, or one group shared):
-    the cache is replicated there and each rank picks its own KV heads, as
-    ``attention._attention_by_heads`` does; elsewhere q is gathered. The
-    output is laid out as q."""
+    splits: of the batch (q (B, H, Dh) and cache_len (B,) follow it), of
+    the KV heads (q's heads follow them) and of the sequence. On an axis
+    that splits S, q is gathered (every query head runs over the rank's own
+    positions, cache_len and the window shifted to them) and the ranks'
+    partial outputs are combined by their log-sum-exps
+    (``combine_partials``); the int8 scales split with the cache. On an
+    axis that splits q's heads but not the cache, q stays split where each
+    rank's H/n heads use a contiguous run of KV heads (their groups whole,
+    or one group shared): the cache is replicated there and each rank picks
+    its own KV heads, as ``attention._attention_by_heads`` does; elsewhere
+    q is gathered. The output is laid out as q: on an axis that splits S,
+    each rank keeps its own heads of the combined output where q came split
+    by heads."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
 
     mesh = next(t.device_mesh for t in (k, q, v, cache_len)
                 if is_dtensor(t))
     q, k, v, cache_len = (as_dtensor(t, mesh) for t in (q, k, v, cache_len))
     H, Hkv = q.shape[1], k.shape[2]
     G = H // Hkv
-    q_pl, kv_pl, len_pl, pick = [], [], [], []
+    q_pl, kv_pl, len_pl, out_pl, pick, seq = [], [], [], [], [], []
     for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
-        h = H // mesh.size(m)
+        n = mesh.size(m)
+        h = H // n
         if isinstance(pk, Shard) and pk.dim == 0:
             q_pl.append(pk)
             kv_pl.append(pk)
             len_pl.append(pk)
+            out_pl.append(pk)
         elif isinstance(pk, Shard) and pk.dim == 2:
             q_pl.append(Shard(1))
             kv_pl.append(pk)
             len_pl.append(Replicate())
+            out_pl.append(Shard(1))
+        elif isinstance(pk, Shard) and pk.dim == 1:
+            q_pl.append(Replicate())
+            kv_pl.append(pk)
+            len_pl.append(Replicate())
+            heads = isinstance(pq, Shard) and pq.dim == 1 and H % n == 0
+            out_pl.append(Shard(1) if heads else Replicate())
+            seq.append((m, heads))
         elif (isinstance(pq, Shard) and pq.dim == 1 and not pick
-              and H % mesh.size(m) == 0 and (h % G == 0 or G % h == 0)):
+              and H % n == 0 and (h % G == 0 or G % h == 0)):
             q_pl.append(pq)
             kv_pl.append(Replicate())
             len_pl.append(Replicate())
+            out_pl.append(pq)
             lo = mesh.get_local_rank(m) * h // G
             pick.append(slice(lo, lo + max(h // G, 1)))
         else:
             q_pl.append(Replicate())
             kv_pl.append(Replicate())
             len_pl.append(Replicate())
+            out_pl.append(Replicate())
     quant = k_scale is not None
     sc_pl = kv_pl if quant else None
     if quant:
         k_scale, v_scale = (as_dtensor(t, mesh) for t in (k_scale, v_scale))
+    off = compute_local_shape_and_global_offset(k.shape, mesh, kv_pl)[1][1]
+    mine = [(mesh.get_local_rank(m), mesh.size(m)) for m, heads in seq
+            if heads]
 
     def local(q, k, v, lens, ks, vs):
         if pick:  # the kernel takes a contiguous cache
             k, v = (t[:, :, pick[0]].contiguous() for t in (k, v))
             if quant:
                 ks, vs = (t[:, :, pick[0]].contiguous() for t in (ks, vs))
-        return decode_attention(q, k, v, lens, softcap=softcap,
-                                window=window, k_scale=ks, v_scale=vs,
-                                impl=impl)
+        if not seq:
+            return decode_attention(q, k, v, lens, softcap=softcap,
+                                    window=window, k_scale=ks, v_scale=vs,
+                                    impl=impl)
+        out, lse = _decode_seq_shard(q, k, v, lens, window, off, softcap,
+                                     ks, vs, impl)
+        out = combine_partials(out, lse, [(mesh, m) for m, _ in seq])
+        for r, n in mine:  # this rank's heads, axis by axis
+            out = out.unflatten(1, (n, -1))[:, r]
+        return out.to(q.dtype)
 
     return shard_map(local, mesh, (q_pl, kv_pl, kv_pl, len_pl, sc_pl, sc_pl),
-                     q_pl)(q, k, v, cache_len, k_scale, v_scale)
+                     out_pl)(q, k, v, cache_len, k_scale, v_scale)

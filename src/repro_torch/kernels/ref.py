@@ -130,7 +130,8 @@ def topk_ref(q: torch.Tensor, table: torch.Tensor, k: int,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          cache_len: torch.Tensor, *, softcap: float = 0.0,
-                         window=0, k_scale=None, v_scale=None) -> torch.Tensor:
+                         window=0, k_scale=None, v_scale=None, win_lo=None,
+                         return_lse: bool = False):
     """Single-token GQA decode attention over a padded KV cache.
 
     q: (B, H, Dh) for the new token; k, v: (B, S, Hkv, Dh) cache (padded to
@@ -143,10 +144,18 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softcap * tanh(. / softcap)`` when softcap > 0, and masked to -1e30
     after the cap. Returns (B, H, Dh) in q's dtype.
 
+    ``win_lo`` (B,), given, is each row's lower bound itself (the positions
+    ``win_lo <= s < len``; ``window`` is then not read): a shard of a cache
+    split along its sequence passes its own shifted bounds.
+
     Defined only for rows with at least one visible position (decode always
     has one: length >= 1 and the window's lower bound below it). For a row
     with none this softmax averages V uniformly where the CUDA kernel, like
-    the Pallas one, returns 0.
+    the Pallas one, returns 0. With ``return_lse`` it returns (out, lse):
+    lse (B, H) float32, each query row's log-sum-exp of its logits over its
+    visible positions, as the kernel gives it; a row with none gives lse
+    -inf and output 0 (the kernel's), so that it weighs nothing where a
+    shard's partial outputs are combined.
     """
     b, h, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -162,7 +171,9 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = softcap * torch.tanh(logits / softcap)
     pos = torch.arange(s, device=q.device)[None, :]
     lens = cache_len.to(q.device)[:, None]
-    if isinstance(window, torch.Tensor):
+    if win_lo is not None:
+        win_lo = win_lo.to(q.device)[:, None]
+    elif isinstance(window, torch.Tensor):
         window = window.to(q.device)
         win_lo = torch.where(window > 0, lens - window, 0)
     else:  # a Python int: nothing to copy to the device
@@ -170,5 +181,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (pos < lens) & (pos >= win_lo)
     logits = logits.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, vf)
-    return out.reshape(b, h, dh).to(q.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", p, vf).reshape(b, h, dh)
+    if not return_lse:
+        return out.to(q.dtype)
+    seen = mask.any(-1)[:, None]  # (B, 1): the row has a visible position
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, h)
+    lse = torch.where(seen, lse, float("-inf"))
+    return torch.where(seen[..., None], out, 0.0).to(q.dtype), lse

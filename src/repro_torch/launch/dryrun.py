@@ -25,13 +25,15 @@ is issued (and moves nothing). For each cell:
     by the number of ranks that split it (its output sharded or partial
     over that mesh axis): a replicated (fallback) dim counts in full on
     each device. Ops on local shards (the ``local_map`` regions: attention
-    by heads, flash-decode, the SGNS loss) count as they are. Unlike the
+    by heads, the mamba block by heads, flash-decode, the SGNS loss) count
+    as they are. Unlike the
     JAX package's ``cost_analysis``, a layer loop counts every layer.
   * ``bytes_accessed``: per device, each op's local input and output bytes
     (views excluded): unfused eager ops, not XLA's fused program.
   * ``collective_bytes`` / ``collective_counts``: the ``_c10d_functional``
     collectives issued, under the JAX package's five names, bytes of each
-    call's result (``collective-permute`` stays 0: DTensor has none).
+    call's result (``collective-permute`` stays 0: DTensor has none);
+    ``collective_largest`` (the port's alone) each kind's largest call.
 
 ``--real CELLS`` (arch:shape, comma separated) runs those cells a second
 time for real: rank 0's local shards are made on ``--device`` with values
@@ -41,6 +43,7 @@ warm-ups and 5 timed runs; the record gains ``real``: ``peak_bytes``
 (``torch.cuda.max_memory_allocated`` above the arguments), ``step_ms`` (the
 median), the kernels' launch counts and the local shapes they were
 launched at (``shapes``: flash-decode's (B, H, Hkv, Dh, S, cache dtype),
+S the rank's own positions where the cache is split along its sequence,
 SGNS's (B, K, D, dtype) for each kernel). Its values mean nothing (no
 collective moves data); its memory and device time are the card's own
 per-device figures for the production mesh.
@@ -151,6 +154,7 @@ class Tally(TorchDispatchMode):
         self.bytes = 0.0
         self.coll_bytes = {c: 0 for c in COLLECTIVES}
         self.coll_counts = {c: 0 for c in COLLECTIVES}
+        self.coll_largest = {c: 0 for c in COLLECTIVES}
         self.known = {id(s) for s in known_storages}
         self.live = 0
         self.peak = 0
@@ -178,8 +182,10 @@ class Tally(TorchDispatchMode):
         if func.namespace == "_c10d_functional":
             name = _COLLECTIVE_OPS.get(func.overloadpacket.__name__)
             if name is not None:
+                n = sum(_nbytes(o) for o in outs)
                 self.coll_counts[name] += 1
-                self.coll_bytes[name] += sum(_nbytes(o) for o in outs)
+                self.coll_bytes[name] += n
+                self.coll_largest[name] = max(self.coll_largest[name], n)
         packet = func.overloadpacket
         if packet in self.registry:
             f = self.registry[packet](*args, **kwargs, out_val=out)
@@ -317,7 +323,8 @@ def cell_overrides(arch: str, shape_name: str, model_axis: int = 16) -> dict:
         cfg = get_config(arch)
         if cfg.n_kv_heads % model_axis != 0 and "kv_seq" not in overrides:
             # KV heads can't shard the model axis: shard the cache's
-            # sequence dim instead (flash-decode gathers it whole per layer)
+            # sequence dim instead (flash-decode runs on each rank's own
+            # positions and combines the partial softmaxes: an all-reduce)
             overrides["kv_seq"] = ("model",)
     return overrides
 
@@ -487,6 +494,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out, *,
             bytes_accessed=tally.bytes,
             collective_bytes=tally.coll_bytes,
             collective_counts=tally.coll_counts,
+            collective_largest=tally.coll_largest,
         )
         if real_rec is not None:
             rec["real"] = real_rec

@@ -17,7 +17,8 @@ equal off near-ties
 (fp32 dot products of width d summed in another order), flash-decode 2e-5
 with fp32 queries (fp32 or int8 cache) and rtol 1e-2 + atol 1e-3 with bf16
 ones (one bf16 rounding of the same fp32 result; int8 caches as their
-queries), the LM decode step on the card against the CPU
+queries) and its log-sum-exp rtol 1e-5 + atol 1e-4 (fp32 logits summed in
+another order), the LM decode step on the card against the CPU
 1e-4 (logits) and 1e-5 (caches), with an int8 cache one quantisation step
 and 1e-2 (logits); the reduced MoE, SSM and hybrid models served on the
 card against the CPU: token streams equal, logits 1e-4; the reduced
@@ -585,6 +586,66 @@ def test_flash_decode_window_as_data(cuda):
             w, device=cuda))
         torch.testing.assert_close(got, ops.decode_attention(
             q, k, v, lens, window=w), rtol=0, atol=0)
+
+
+# the log-sum-exp output: (label, B, H, Hkv, Dh, S, global lengths, window,
+# softcap, the shard's first global position (None: the whole cache))
+LSE_CASES = [
+    ("serving: qwen3-4b's heads, 8 rows of 1,088", 8, 32, 8, 128, 1088,
+     [1088, 1056, 1, 700, 1088, 1025, 40, 1100], 0, 0.0, None),
+    ("gemma2-2b: softcap and window", 4, 8, 4, 256, 2048,
+     [2048, 1500, 333, 2100], 600, 50.0, None),
+    # a shard [4096, 6144) of a sequence-split cache: rows that end before
+    # it (no position here), that end inside it, run past it, and whose
+    # window starts past its end
+    ("sequence-split shard", 8, 32, 8, 128, 2048,
+     [32768, 100, 5000, 4096, 8000, 6144, 4097, 7000], 900, 0.0, 4096),
+    # enough rows that S is not split across a cluster
+    ("one split", -1, 32, 8, 128, 256, None, 0, 0.0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LSE_CASES, ids=[c[0] for c in LSE_CASES])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8-bf16"])
+def test_flash_decode_lse_matches_plain(cuda, case, kind):
+    """The kernel's (B, H) log-sum-exp and output against the plain
+    version's, at a serving shape, with softcap and window, on one shard
+    of a cache split along its sequence (``ops._decode_seq_shard``: rows
+    with no position on it give -inf and 0 on both), and with S in one
+    split; the output's bits the same with and without the lse."""
+    label, b, h, hkv, dh, s, lens, window, softcap, off = case
+    if b < 0:  # two waves of resident blocks without splitting S
+        b = -(-2 * torch.cuda.get_device_properties(
+            cuda).multi_processor_count * 16 // hkv)
+    q, k, v, ragged, scales = _decode_inputs(cuda, b, h, hkv, dh, s, kind,
+                                             s + b)
+    lens = ragged if lens is None else torch.tensor(
+        lens, dtype=torch.int32, device=cuda)
+    ks, vs = scales.get("k_scale"), scales.get("v_scale")
+    assert (flash_decode.splits(q, k) == 1) == (label == "one split")
+    at = off or 0  # the whole cache is the shard at 0
+    got, lse = ops._decode_seq_shard(q, k, v, lens, window, at, softcap, ks,
+                                     vs, "cuda")
+    want, wlse = ops._decode_seq_shard(q, k, v, lens, window, at, softcap,
+                                       ks, vs, "ref")
+    lo = (ops._window_lo(lens, window) - at).clamp(0, s).to(torch.int32)
+    hi = (lens - at).clamp(0, s).to(torch.int32)
+    empty = hi <= lo
+    assert not empty.all()
+    if off is not None:
+        assert empty.any()
+    assert torch.equal(lse[empty], torch.full_like(lse[empty],
+                                                   -float("inf")))
+    assert not got[empty].any()
+    rtol, atol = (2e-5, 2e-5) if kind == "float32" else (1e-2, 1e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    # fp32 logits summed in another order: a few ulps of the lse's size
+    torch.testing.assert_close(lse, wlse, rtol=1e-5, atol=1e-4)
+    plain = flash_decode.decode_attention_cuda(
+        q, k, v, hi.contiguous(), lo.contiguous(), softcap=softcap, **scales)
+    assert torch.equal(plain, got)
 
 
 @pytest.mark.cuda

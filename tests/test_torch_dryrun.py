@@ -284,6 +284,73 @@ def test_full_sweep_results_are_green():
     assert all(r["flops"] > 0 for r in got.values() if r["status"] == "ok")
 
 
+# the single pod's all-gather GB a decode_32k step, where the cache is
+# split along its sequence, while flash-decode gathered it whole (the
+# sweep committed before the partial-softmax combine)
+GATHERED_DECODE_GB = {"qwen3-4b": 38.655, "gemma2-2b": 27.918,
+                      "grok-1-314b": 70.306, "nemotron-4-15b": 34.36,
+                      "starcoder2-7b": 17.18, "qwen2-vl-7b": 15.033}
+# the SSM cells' temp GiB a device while the mamba block ran by rows
+BY_ROWS_TEMP_GIB = {("mamba2-2.7b", "train_4k"): 56.49,
+                    ("zamba2-7b", "train_4k"): 371.04,
+                    ("mamba2-2.7b", "prefill_32k"): 28.47,
+                    ("zamba2-7b", "prefill_32k"): 36.43}
+
+
+def test_committed_sweep_splits_the_model_axis():
+    """The committed sweep moves no cache gather and splits the SSD by
+    heads. Every decode_32k cell whose KV cache is split along its
+    sequence (its KV heads do not divide the model axis), on both meshes:
+    the device's slice holds S / 16 positions, and no all-gather call is
+    as large as one layer's K on the device gathered whole along S (the
+    port's call before the combine; ``collective_largest``; grok-1-314b's
+    largest, 96 MiB, gathers FSDP weights); on the single pod the step's
+    all-gather at most 0.5 GB for qwen3-4b and 1/20 of the gathered
+    cache's (``GATHERED_DECODE_GB``) for the rest. The SSM
+    cells (``BY_ROWS_TEMP_GIB``): train_4k temp at most 35 GiB (mamba2)
+    and 100 GiB (zamba2), prefill_32k at most half of the by-rows temp."""
+    from repro_torch.distributed.sharding import (MeshShape, local_shape,
+                                                  sharding_scope, spec_for)
+    from repro_torch.launch.dryrun import cell_overrides
+    from repro_torch.models.transformer import cache_specs, init_cache
+
+    if not os.path.exists(SWEEP):
+        pytest.skip("the sweep has not been committed in this checkout")
+    with open(SWEEP) as f:
+        got = {(r["arch"], r["shape"], r["mesh"]): r for r in json.load(f)}
+    meshes = {"single": MeshShape((16, 16), ("data", "model")),
+              "multi": MeshShape((2, 16, 16), ("pod", "data", "model"))}
+    split = [a for a in REGISTRY if "k" in cache_specs(get_config(a))
+             and "kv_seq" in cell_overrides(a, "decode_32k")]
+    assert sorted(split) == sorted(GATHERED_DECODE_GB)
+    for arch in split:
+        cfg = get_config(arch)
+        shape = SHAPES["decode_32k"]
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                           device="meta")
+        for name, mesh in meshes.items():
+            with sharding_scope(mesh, **cell_overrides(arch, "decode_32k")):
+                names = cache_specs(cfg)["k"]
+                local = local_shape(cache["k"].shape,
+                                    spec_for(cache["k"].shape, names), mesh)
+            assert local[2] == shape.seq_len // 16, (arch, name, local)
+            gathered = shape.seq_len * cache["k"].element_size()
+            for n in (local[1], *local[3:]):
+                gathered *= n
+            ag = got[(arch, "decode_32k", name)]["collective_largest"][
+                "all-gather"]
+            assert ag < gathered, (arch, name, ag, gathered)
+        ag = got[(arch, "decode_32k", "single")]["collective_bytes"][
+            "all-gather"] / 1e9
+        bound = 0.5 if arch == "qwen3-4b" else GATHERED_DECODE_GB[arch] / 20
+        assert ag <= bound, (arch, ag, bound)
+    bounds = {"train_4k": {"mamba2-2.7b": 35.0, "zamba2-7b": 100.0}}
+    for (arch, shape), before in BY_ROWS_TEMP_GIB.items():
+        temp = got[(arch, shape, "single")]["memory"]["temp_bytes"] / 2**30
+        bound = bounds.get(shape, {}).get(arch, before / 2)
+        assert temp <= bound, (arch, shape, temp, bound)
+
+
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-7b"])
 def test_family_sharded_on_2x2_matches(arch, tmp_path):
     check_family(arch, tmp_path)
@@ -292,9 +359,11 @@ def test_family_sharded_on_2x2_matches(arch, tmp_path):
 def test_decode_with_the_cache_split_along_its_sequence(tmp_path):
     """The reduced qwen3-4b on a 1x8 mesh: its 4 KV heads do not divide
     the 8-way model axis, so the cache is split along its sequence
-    (``kv_seq``), and flash-decode gathers it whole (``ops.
-    decode_attention``) while each rank writes the new token only into its
-    own slice."""
+    (``kv_seq``): flash-decode runs on each rank's own positions and the
+    partial outputs are combined by their log-sum-exps (``ops.
+    decode_attention``; 24 positions, 3 a rank: the last rank holds no
+    visible position of the 20-token prompts until the decode reaches
+    it), and each rank writes the new token only into its own slice."""
     got = check_family("qwen3-4b", tmp_path, mesh_shape=(1, 8),
                        serve_overrides={"kv_seq": ("model",)})
     assert got["k_placements"] == ["R", "S(2)"]  # (L, B, S, Hkv, Dh)

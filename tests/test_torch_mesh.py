@@ -89,9 +89,10 @@ def test_kernels_on_each_rank_s_shards_match_unsharded(tmp_path):
     cell's layout), equal the unsharded run's (fp32, rtol = atol = 1e-5),
     and the looked-up rows come out split as the pairs (8 of 32 a rank:
     the kernel runs on each rank's own pairs). flash-decode with the cache
-    split along its sequence: each case equals the unsharded run's, and
-    q's heads stay split (each rank picks its KV heads) except where a
-    rank's heads span two groups (H = 6 on 3 KV heads, gathered)."""
+    split along its sequence (rows whose visible range misses a rank's
+    half included): each case equals the unsharded run's, and the output
+    keeps q's heads split (each rank combines the partial outputs of
+    every head and keeps its own), H = 6 on 3 KV heads too."""
     out = str(tmp_path / "kernels.pt")
     spawn(kernels_worker, 4, out, timeout=90)
     got = torch.load(out, weights_only=False)
@@ -106,7 +107,7 @@ def test_kernels_on_each_rank_s_shards_match_unsharded(tmp_path):
         np.testing.assert_allclose(dec.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=f"H={H} Hkv={Hkv}")
         layouts.append(placements)
-    assert layouts == [["S(0)", "S(1)"]] * 3 + [["S(0)", "R"]]
+    assert layouts == [["S(0)", "S(1)"]] * 4
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "grok-1-314b"])

@@ -73,11 +73,12 @@ def _run_jax(jcfg, jparams, batch):
 
 
 def check_family(arch, tmp_path, mesh_shape=(2, 2), timeout=150.0,
-                 serve_overrides=None):
+                 serve_overrides=None, worker=family_worker):
     """The port's ``arch`` (reduced preset) on a ``mesh_shape`` (data,
     model) gloo mesh against itself unsharded and against the JAX
     package: training under the dry run's train-cell rules, prefill and
-    decode under its decode-cell rules (or ``serve_overrides``). Returns
+    decode under its decode-cell rules (or ``serve_overrides``), each rank
+    running ``worker`` (``family_worker`` or one that wraps it). Returns
     the sharded run's results."""
     jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
     jparams = jtf.init_model(jax.random.PRNGKey(0), jcfg)
@@ -89,7 +90,7 @@ def check_family(arch, tmp_path, mesh_shape=(2, 2), timeout=150.0,
     torch.save({"cfg": cfg, "params": params,
                 "batch": {k: torch.from_numpy(v) for k, v in batch.items()}},
                path)
-    spawn(family_worker, mesh_shape[0] * mesh_shape[1], mesh_shape, path,
+    spawn(worker, mesh_shape[0] * mesh_shape[1], mesh_shape, path,
           cell_overrides(arch, "train_4k", model),
           serve_overrides or cell_overrides(arch, "decode_32k", model),
           timeout=timeout)

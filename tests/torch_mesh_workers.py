@@ -247,10 +247,10 @@ def bitwise_worker(rank, path):
 
 
 # flash-decode on a (data, model) mesh: (H, Hkv, int8 cache); the cache
-# split along its sequence over model, the rows over data. H / 2 query
-# heads a rank: one shared KV head (G = 4), two KV heads whole (G = 1), an
-# int8 cache, and H = 6 on 3 KV heads (3 heads a rank span two groups:
-# q is gathered)
+# split along its sequence over model, the rows over data; q comes split
+# by heads (H / 2 a rank) and each rank keeps its heads of the combined
+# output: G = 4, G = 1, an int8 cache, and H = 6 on 3 KV heads (a rank's
+# 3 heads span two groups)
 DECODE_CASES = ((8, 2, False), (4, 4, False), (8, 2, True), (6, 3, False))
 
 
@@ -452,3 +452,129 @@ def serve_mesh_worker(rank, cases, path):
                     "cache": cache})
     if rank == 0:
         torch.save(out, path)
+
+
+def ssd_heads_worker(rank, mesh_shape, path, overrides_train,
+                     overrides_serve):
+    """``family_worker`` with the number of heads each ``ssd_chunked``
+    call (train, prefill) and each decode step (``_ssd_step``) saw on each
+    rank noted, gathered into the results as ``ssd_heads`` (one set a
+    rank)."""
+    from repro_torch.models import mamba2
+
+    seen = set()
+    chunked, step = mamba2.ssd_chunked, mamba2._ssd_step
+
+    def noting_chunked(x, *a, **kw):
+        seen.add(("chunked", x.shape[2]))
+        return chunked(x, *a, **kw)
+
+    def noting_step(zg, window, dt, conv_w, conv_b, ssm, *a, **kw):
+        seen.add(("step", ssm.shape[1]))
+        return step(zg, window, dt, conv_w, conv_b, ssm, *a, **kw)
+
+    mamba2.ssd_chunked, mamba2._ssd_step = noting_chunked, noting_step
+    try:
+        family_worker(rank, mesh_shape, path, overrides_train,
+                      overrides_serve)
+    finally:
+        mamba2.ssd_chunked, mamba2._ssd_step = chunked, step
+    world = torch.distributed.get_world_size()
+    got = [None] * world
+    torch.distributed.all_gather_object(got, sorted(seen))
+    if rank == 0:
+        out = torch.load(path + ".out", weights_only=False)
+        out["ssd_heads"] = got
+        torch.save(out, path + ".out")
+
+
+def seq_decode_worker(rank, path):
+    """flash-decode with the cache split along its sequence over a (1,
+    world) (data, model) mesh, each case of ``path`` (inputs, keywords; q
+    split by heads where they divide the world) -> the combined output,
+    its placements, and the collectives the call issued (the dry run's
+    tally: calls and largest call by kind), on rank 0."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import Tally
+    from repro_torch.launch.mesh import make_mesh
+
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    out = []
+    for t, kw in torch.load(path, weights_only=False):
+        q_pl = [Replicate(), Shard(1) if t["q"].shape[1] % world == 0
+                else Replicate()]
+        seq = [Replicate(), Shard(1)]
+
+        def place(x, pl):
+            return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+        scales = {n: place(t[n], seq) for n in ("k_scale", "v_scale")
+                  if n in t}
+        with Tally() as tally:
+            got = ops.decode_attention(
+                place(t["q"], q_pl), place(t["k"], seq), place(t["v"], seq),
+                place(t["lens"], [Replicate(), Replicate()]), **kw,
+                **scales)
+        out.append((got.full_tensor(), [str(p) for p in got.placements],
+                    tally.coll_counts, tally.coll_largest))
+    if rank == 0:
+        torch.save(out, path + ".out")
+
+
+def thread_backward_worker(rank, arch, mesh_shape, path):
+    """The reduced ``arch``'s loss and gradients on a (data, model) mesh
+    under the dry run's train-cell rules, twice: the backward on this
+    thread, and on another thread with no sharding scope bound (DTensor's
+    implicit replication on), as the autograd engine runs a card's
+    backward on its device thread, where each rematerialised block
+    recomputes. Rank 0 saves both gradient lists, whole."""
+    import threading
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import batch_logical_names
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  sharding_scope)
+    from repro_torch.launch.dryrun import cell_overrides
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_model, model_specs
+
+    cfg = get_config(arch).reduced()
+    assert cfg.remat == "full"
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(cfg).items()}
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    got = []
+    for threaded in (False, True):
+        with sharding_scope(mesh, **cell_overrides(arch, "train_4k",
+                                                   mesh_shape[1])):
+            p = distribute_tree(params, model_specs(cfg), src_data_rank=None)
+            b = distribute_tree(_model_batch(batch, True),
+                                batch_logical_names(cfg, train=True),
+                                src_data_rank=None)
+            ws = [x.detach().requires_grad_() for x in leaves(p)]
+            loss, _ = loss_fn(unflatten(p, ws), b, cfg)
+        box = {}
+
+        def backward():
+            try:
+                with implicit_replication():
+                    box["grads"] = torch.autograd.grad(loss, ws)
+            except Exception as e:  # raised again on the calling thread
+                box["error"] = e
+
+        if threaded:
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+        else:
+            backward()
+        if "error" in box:
+            raise box["error"]
+        got.append([g.full_tensor() for g in box["grads"]])
+    if rank == 0:
+        torch.save(got, path)
