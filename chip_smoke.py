@@ -574,6 +574,44 @@ MESH_TRAIN = {"train-2x2": ("qwen3-4b", "2x2", 3e-4, MESH_TRAIN_STEPS),
                                    MESH_TRAIN_STEPS)}
 # the runs held step by step to one card's first MESH_HELD_STEPS steps
 MESH_HELD = ("train-2x2", "train-ssm-1x4")
+# the train cells as the JAX package lays them out (``mesh_cells``; in its
+# own torchrun, ``--mesh-only cells`` alone), each held step by step to one
+# card's first MESH_HELD_STEPS steps with the train path's flags:
+# label -> (arch, mesh, peak rate, config changes (depth, dtypes), rows,
+# tokens a row). gemma2-2b and starcoder2-7b: heads that do not divide the
+# model axis, so attention runs on each rank's own S/4 query rows
+# (Ulysses, attn_seq); gemma2's 8,192 tokens a row cross its 4,096 window
+# at every rank boundary. starcoder2-7b at 16 of its 32 layers on both
+# sides: 7.17 B x 12 bytes of AdamW state (86 GB) do not fit one card.
+# grok-1-314b at one layer (the train-adafactor path's depth and rate),
+# its experts 2D over (data, model) under its own rules, and its fp32
+# twin (2 rows: one card holds its fp32 params, gradients and adafactor
+# temporaries, ~68 GB). Rates: at 3e-4 one H100's loss rose within 3
+# steps (gemma2 12.22 -> 9.67 -> 11.93, starcoder2 11.57 -> 26.83 ->
+# 23.12), so they take the widths' rates of TRAIN_FAMILIES: d_ff 9,216
+# 1e-4, 18,432 3e-5
+MESH_CELLS = {
+    "cell-gemma2-1x4": ("gemma2-2b", "1x4", 1e-4, {}, 1, 8192),
+    "cell-starcoder2-1x4": ("starcoder2-7b", "1x4", 3e-5,
+                            {"n_layers": 16}, 4, 1024),
+    "cell-grok-2x2": ("grok-1-314b", "2x2", 1e-5, {"n_layers": 1}, 4, 1024),
+    "cell-grok-2x2-fp32": ("grok-1-314b", "2x2", 1e-5, {
+        "n_layers": 1, "param_dtype": "float32",
+        "compute_dtype": "float32"}, 2, 1024),
+}
+# the step whose allocations the caching allocator records (its history,
+# ``largest_allocs``) on every grok rank and on one card: no rank may
+# allocate a block as large as one whole expert matrix (E x d x f bf16)
+MESH_CELLS_RECORD = {"cell-grok-2x2": 1}
+# the runs whose top-2 routing follows the mesh's bf16 rounding: the
+# residual stream into the router differs from one card's by the bf16
+# partial sums of the attention's out-projection, and a token whose
+# second and third experts are that close to a tie goes elsewhere (at
+# decode ~14% of the MoE's token-layers, which is why the moe path's plain
+# step replays the kernel step's routing). Their losses are held at
+# TOL_MESH_LOSS, their grad norms printed; the fp32 twin, whose router
+# sees the same values to ~1e-6, is held at TOL_MESH_STEP
+MESH_CELLS_ROUTED = ("cell-grok-2x2",)
 MESH_STATE_GB = 20.9
 # zamba2-7b at 81 layers on 1x4 in PR 26 (by rows: every rank ran every
 # mamba block whole): ms a step (two runs) and peak GB a rank
@@ -4097,9 +4135,10 @@ def mesh_rank_main(argv) -> int:
     """``chip_smoke.py --mesh-rank OUT PLAN``: one rank of a ``torchrun``
     of the "mesh" path (``mesh_start``). Starts the world (so that the
     launchers keep it), then runs each entry of the JSON list PLAN in turn:
-    ``{"tag", "kind": "serve" | "train" | "decode", "flags"}``, the
-    launcher (or, for "decode", ``mesh_decode_rank``) with
-    those flags, every kernel count set to 0 just before it and the peak
+    ``{"tag", "kind": "serve" | "train" | "decode", "flags", "opts"}``,
+    the launcher (or, for "decode", ``mesh_decode_rank``) with
+    those flags (and the keywords ``opts``, where given), every kernel
+    count set to 0 just before it and the peak
     memory reset; writes this rank's records {tag: record (the counts, the
     peak, what the launcher returned)} to ``OUT.<rank>.json``."""
     import torch
@@ -4116,7 +4155,8 @@ def mesh_rank_main(argv) -> int:
             run = {"serve": mesh_serve_rank, "train": mesh_train_rank,
                    "decode": mesh_decode_rank}[entry["kind"]]
             t0 = time.perf_counter()
-            rec = run(torch, counters, entry["flags"])
+            rec = run(torch, counters, entry["flags"],
+                      **entry.get("opts", {}))
             torch.cuda.empty_cache()
             rec.update(rank=rank, world=torch.distributed.get_world_size(),
                        launches=counters.read(), run_s=time.perf_counter()
@@ -4182,18 +4222,26 @@ def mesh_serve_rank(torch, counters, flags, logits_out=None):
             "bad": bool(bad)}
 
 
-def mesh_train_rank(torch, counters, flags):
+def mesh_train_rank(torch, counters, flags, changes=None, step_peaks=False,
+                    record_step=None):
     """``launch/train.main(FLAGS)`` with its step wrapped: synchronised
     around every call, the seconds, loss and grad norm kept; at the first
     call the rank's resident bytes of params and optimizer state (local
     shards) and the leaves of more than 1 M entries that no mesh axis
-    splits -> the rank's record."""
+    splits -> the rank's record. ``changes``: the arch's config with those
+    fields changed (a cut depth, dtypes; bound into the launcher's
+    ``get_config``). ``step_peaks``: the
+    peak memory of each step (the peak reset before it). ``record_step``:
+    that step (from 0) under the caching allocator's history
+    (``largest_allocs``)."""
+    import dataclasses
+
     from repro_torch.distributed.sharding import is_dtensor
     from repro_torch.launch import train as lm_train
     from repro_torch.train.tree import leaf_paths, leaves
 
-    make = lm_train.make_train_step
-    times, metrics, seen = [], [], {}
+    make, get = lm_train.make_train_step, lm_train.get_config
+    times, metrics, seen, peaks = [], [], {}, []
 
     def scalar(x):
         return float(x.full_tensor() if is_dtensor(x) else x)
@@ -4214,10 +4262,18 @@ def mesh_train_rank(torch, counters, flags):
                            and not any(pl.is_shard() for pl in
                                        getattr(p, "placements", ()))])
             torch.cuda.synchronize()
+            if step_peaks:
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            out = step(params, state, batch)
+            if len(times) == record_step:
+                out, seen["largest_allocs"] = largest_allocs(
+                    torch, lambda: step(params, state, batch))
+            else:
+                out = step(params, state, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            if step_peaks:
+                peaks.append(torch.cuda.max_memory_allocated())
             metrics.append({k: scalar(out[2][k])
                             for k in ("loss", "grad_norm")})
             return out
@@ -4226,12 +4282,44 @@ def mesh_train_rank(torch, counters, flags):
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     lm_train.make_train_step = lambda *a, **kw: wrap(make(*a, **kw))
+    if changes:
+        lm_train.get_config = lambda name: dataclasses.replace(get(name),
+                                                               **changes)
     try:
         losses = lm_train.main(flags)
     finally:
-        lm_train.make_train_step = make
+        lm_train.make_train_step, lm_train.get_config = make, get
     return {"losses": losses, "metrics": metrics,
-            "step_ms_each": [t * 1e3 for t in times], **seen}
+            "step_ms_each": [t * 1e3 for t in times],
+            "step_peak_bytes": peaks, **seen}
+
+
+def largest_allocs(torch, fn, n=8, where=3):
+    """``fn()`` under the caching allocator's history of this process's
+    card (``torch.cuda.memory._record_memory_history``, Python stacks) ->
+    (its result, {"sizes": the ``n`` largest blocks it allocated, bytes,
+    largest first; "allocs": how many it allocated; "where": the port's
+    and DTensor's frames that allocated the ``where`` largest}), from the
+    allocator's own snapshot of the trace."""
+    mem = torch.cuda.memory
+    mem._record_memory_history(enabled="all", context="alloc",
+                               stacks="python", max_entries=1 << 20)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        snap = mem._snapshot()
+    finally:
+        mem._record_memory_history(enabled=None)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    allocs = sorted((e for e in trace if e["action"] == "alloc"),
+                    key=lambda e: -e["size"])
+    frames = [[f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+               for f in e.get("frames", ())
+               if "repro_torch" in f["filename"]
+               or "distributed/tensor" in f["filename"]][:10]
+              for e in allocs[:where]]
+    return out, {"sizes": [e["size"] for e in allocs[:n]],
+                 "allocs": len(allocs), "where": frames}
 
 
 def fill_decode_cache(torch, k, v, slices, hkv, heads=None, rows=None):
@@ -4789,7 +4877,8 @@ def mesh_phase(torch, np, counters, four, only=None):
         return mesh_four(torch, np, only)
     log(f"mesh: {n} card(s); the four-card runs (qwen3-4b served on (4, 1), "
         f"decoded on a sequence-split cache on 1x4 and trained on 2x2, "
-        f"mamba2-2.7b and zamba2-7b (81 layers) trained on 1x4) "
+        f"mamba2-2.7b and zamba2-7b (81 layers) trained on 1x4, the train "
+        f"cells of gemma2-2b, starcoder2-7b and grok-1-314b) "
         + (f"need {MESH_CARDS} cards" if n < MESH_CARDS else
            "run under --mesh-only") + "; the serve launcher on a 1x1 mesh")
     return mesh_1x1_phase(torch, counters)
@@ -4942,9 +5031,14 @@ def mesh_four(torch, np, only=None):
     a step and peak beside PR 26's (``MESH_HYBRID_BEFORE``). The one-card
     references (the lm path's serve with ``TopTwo``, the decode and its
     fp32 witness, each held run's first ``MESH_HELD_STEPS`` steps) are run
-    here first on cuda:0. ``only="decode"``: (b) alone."""
+    here first on cuda:0. Then the train cells (``mesh_cells``: gemma2-2b
+    and starcoder2-7b on 1x4, grok-1-314b on 2x2) in a torchrun of their
+    own. ``only="decode"``: (b) alone; ``only="cells"``: the cells
+    alone."""
     from repro_torch.configs import get_config
 
+    if only == "cells":
+        return mesh_cells(torch, np)
     t0 = time.perf_counter()
     flags = {label: _flag(_flag(_flag(TRAIN_FLAGS, "--arch", arch),
                                 "--steps", str(steps)), "--lr", str(lr))
@@ -5110,8 +5204,156 @@ def mesh_four(torch, np, only=None):
                        f"tolerance {TOL_MESH_LOSS}")
         except SmokeFailure as e:
             failed.append(str(e))
+    counts = mesh_counts(ranks)
+    try:  # launches none: training runs no kernel of the port
+        _, out["cells"] = mesh_cells(torch, np)
+    except SmokeFailure as e:
+        failed.append(str(e))
     expect(not failed, "; ".join(failed))
     log(f"mesh path (4 cards): {time.perf_counter() - t0:.1f} s")
+    return counts, out
+
+
+def mesh_cell_flags(label):
+    """The train path's flags for a ``MESH_CELLS`` run: its arch, rate,
+    rows and tokens a row, ``MESH_HELD_STEPS`` steps."""
+    arch, _, lr, _, rows, seq = MESH_CELLS[label]
+    flags = TRAIN_FLAGS
+    for name, value in (("--arch", arch), ("--steps", MESH_HELD_STEPS),
+                        ("--lr", lr), ("--batch", rows), ("--seq", seq)):
+        flags = _flag(flags, name, str(value))
+    return flags
+
+
+def mesh_cell_opts(label):
+    """``mesh_train_rank``'s keywords for a ``MESH_CELLS`` run."""
+    return {"changes": MESH_CELLS[label][3], "step_peaks": True,
+            "record_step": MESH_CELLS_RECORD.get(label)}
+
+
+def mesh_cells_reference(torch):
+    """Each ``MESH_CELLS`` run on this process's card, no mesh
+    (``mesh_train_rank``) -> {label: its record, with its peak}."""
+    t0 = time.perf_counter()
+    ones = {}
+    for label in MESH_CELLS:
+        ones[label] = mesh_train_rank(torch, kernel_counters(),
+                                      mesh_cell_flags(label),
+                                      **mesh_cell_opts(label))
+        ones[label]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    log("mesh cells references (one card, no mesh): " + json.dumps(
+        {label: {k: r[k] for k in ("metrics", "step_ms_each",
+                                   "step_peak_bytes")}
+         | {"peak_gb": r["peak_bytes"] / 1e9,
+            "largest_allocs": r.get("largest_allocs")}
+         for label, r in ones.items()})
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return ones
+
+
+def mesh_cells(torch, np):
+    """The train cells as the JAX package lays them out, on four cards
+    (``MESH_CELLS``): each first on cuda:0 with no mesh (``mesh_train_rank``
+    in this process), then all in one ``torchrun`` of 4 ranks
+    (``launch/train --mesh``, each arch's own rules). Held for each: every
+    rank's losses rank 0's, finite, no kernel launched, peaks below the
+    card's; step 1's loss and grad norm within ``TOL_MESH_STEP`` of one
+    card's, the losses of steps 2 to ``MESH_HELD_STEPS`` within
+    ``TOL_MESH_LOSS`` (``MESH_CELLS_ROUTED``: every step's loss within
+    ``TOL_MESH_LOSS``, the grad norms printed; its fp32 twin held as the
+    rest). grok-1-314b (``MESH_CELLS_RECORD``): at the recorded
+    step, every rank's peak below one card's on the same step, and the
+    largest block each rank allocated (the allocator's own history) below
+    one whole expert matrix. Printed: ms a step (step 3), peak GB a rank
+    beside one card's, the largest blocks -> (the launch counts, the
+    records)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    ones = mesh_cells_reference(torch)
+    plan = [{"tag": label, "kind": "train", "opts": mesh_cell_opts(label),
+             "flags": mesh_cell_flags(label) + ["--mesh", mesh]}
+            for label, (_, mesh, *_) in MESH_CELLS.items()]
+    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "cells"))
+    out, failed = {}, []
+    for label, (arch, mesh, lr, changes, rows, seq) in MESH_CELLS.items():
+        recs, one = [rank[label] for rank in ranks], ones[label]
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        r0 = recs[0]
+        rel = [[abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
+               for m, w in zip(r0["metrics"], one["metrics"])]
+        rec = {"arch": arch, "mesh": mesh, "layers": cfg.n_layers,
+               "of_layers": get_config(arch).n_layers, "lr": lr,
+               "dtype": cfg.param_dtype,
+               "rows": rows, "seq": seq, "losses": r0["losses"],
+               "rel_diff_loss_grad_norm": rel,
+               "step_ms": r0["step_ms_each"][-1],
+               "step_ms_each": r0["step_ms_each"],
+               "tokens_per_s": rows * seq / r0["step_ms_each"][-1] * 1e3,
+               "run_s": r0["run_s"],
+               "ranks": [{"peak_gb": r["peak_bytes"] / 1e9,
+                          "step_peak_gb": [b / 1e9
+                                           for b in r["step_peak_bytes"]],
+                          "param_gb": r["param_bytes"] / 1e9,
+                          "state_gb": r["state_bytes"] / 1e9,
+                          "largest_allocs": r.get("largest_allocs")}
+                         for r in recs],
+               "whole_leaves": r0["whole"],
+               "one_card": {"step_ms_each": one["step_ms_each"],
+                            "peak_gb": one["peak_bytes"] / 1e9,
+                            "step_peak_gb": [b / 1e9 for b in
+                                             one["step_peak_bytes"]],
+                            "largest_allocs": one.get("largest_allocs")}}
+        at = MESH_CELLS_RECORD.get(label)
+        if at is not None:
+            m = cfg.moe
+            rec["expert_matrix_bytes"] = whole = \
+                m.n_experts * cfg.d_model * m.d_ff_expert * 2
+        out[label] = rec
+        log(f"mesh {label}: {arch} ({cfg.n_layers} of "
+            f"{rec['of_layers']} layers, {rows} x {seq}) on {mesh}: "
+            + json.dumps(rec))
+        try:
+            for r in recs:
+                expect(r["losses"] == r0["losses"],
+                       f"{label}: rank {r['rank']}'s losses differ from "
+                       "rank 0's")
+                expect(len(r["losses"]) == MESH_HELD_STEPS
+                       and all(math.isfinite(x) for x in r["losses"])
+                       and r["peak_bytes"] < r["card_bytes"]
+                       and not any(r["launches"].values()),
+                       f"{label} rank {r['rank']}: losses {r['losses']}, "
+                       f"peak {r['peak_bytes']}, launches {r['launches']}")
+                if at is not None:
+                    expect(r["step_peak_bytes"][at]
+                           < one["step_peak_bytes"][at],
+                           f"{label} rank {r['rank']}: step {at + 1}'s peak "
+                           f"{r['step_peak_bytes'][at]} B, one card's "
+                           f"{one['step_peak_bytes'][at]}")
+                    big = r["largest_allocs"]["sizes"][0]
+                    expect(big < whole,
+                           f"{label} rank {r['rank']}: a block of {big} B "
+                           f"allocated in step {at + 1}, a whole expert "
+                           f"matrix is {whole}")
+            expect(len(rel) == MESH_HELD_STEPS,
+                   f"{label}: {len(rel)} steps held against one card")
+            routed = label in MESH_CELLS_ROUTED
+            expect(routed or (rel[0][0] <= TOL_MESH_STEP[0]
+                              and rel[0][1] <= TOL_MESH_STEP[1]),
+                   f"{label}: step 1 loss / grad norm relative to one "
+                   f"card's {rel[0]}, tolerance {TOL_MESH_STEP}")
+            expect(all(x[0] <= TOL_MESH_LOSS for x in rel[routed:]),
+                   f"{label}: the losses of steps {2 - routed}-"
+                   f"{MESH_HELD_STEPS} relative to one card's "
+                   f"{[x[0] for x in rel[routed:]]}, tolerance "
+                   f"{TOL_MESH_LOSS}")
+        except SmokeFailure as e:
+            failed.append(str(e))
+    expect(not failed, "; ".join(failed))
+    log(f"mesh cells (4 cards): {time.perf_counter() - t0:.1f} s")
     return mesh_counts(ranks), out
 
 
@@ -5196,10 +5438,11 @@ def main() -> int:
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, pipeline path "
             f"only")
         return 0
-    if sys.argv[1:2] == ["--mesh-only"] and sys.argv[2:] in ([], ["decode"]):
+    if sys.argv[1:2] == ["--mesh-only"] and sys.argv[2:] in (
+            [], ["decode"], ["cells"]):
         only = (sys.argv[2:] or [None])[0]
         mesh_phase(torch, np, counters, four=True, only=only)
-        if torch.cuda.device_count() >= MESH_CARDS:
+        if torch.cuda.device_count() >= MESH_CARDS and only != "cells":
             if only is None:
                 mesh_decode_shape(torch, F, ops, ref)
             mesh_seq_decode_shape(torch, F, ops, ref)

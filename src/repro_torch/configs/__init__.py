@@ -46,8 +46,11 @@ GRAPH_REGISTRY = {deepwalk_web.CONFIG.name: deepwalk_web.CONFIG}
 # 2D over data x model (FSDP+TP).
 SHARDING_OVERRIDES = {
     # heads (8/36/28) don't divide the 16-way model axis: weights fall back
-    # to head_dim TP (rule default) and attention activations go Ulysses
-    # (sequence-sharded q with replicated GQA KV).
+    # to head_dim TP (rule default) and attention goes Ulysses: q split by
+    # sequence (an all-to-all from the head-dim split), the small GQA K/V
+    # replicated, each rank attending its own S/16 query rows at their
+    # absolute positions against every key
+    # (models.attention._attention_by_heads).
     "gemma2-2b": {"attn_seq": ("model",)},
     "starcoder2-7b": {"attn_seq": ("model",)},
     "qwen2-vl-7b": {"attn_seq": ("model",)},

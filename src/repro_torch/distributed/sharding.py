@@ -38,7 +38,7 @@ import torch
 from repro_torch.train.tree import leaves, leaves_up_to, unflatten
 
 __all__ = ["default_rules", "MeshShape", "mesh_axes", "sharding_scope",
-           "current_ctx", "spec_for", "placements_for", "local_shape",
+           "current_ctx", "scoped", "spec_for", "placements_for", "local_shape",
            "distribute_tree", "constrain", "full_tree", "is_dtensor",
            "as_dtensor", "assign_", "local_offset", "local_tree",
            "shapes_only", "shard_map", "local_narrow", "sharded_rows",
@@ -138,6 +138,24 @@ def sharding_scope(mesh, rules: Optional[Rules] = None, **overrides):
 
 def current_ctx() -> Optional[ShardingCtx]:
     return _CTX.get()
+
+
+def scoped(fn):
+    """``fn`` run under the sharding scope bound where ``scoped`` is called
+    (as it is, where that is none): a checkpointed block's recompute runs
+    on the autograd engine's thread, where no scope is bound, and must lay
+    its activations out as the forward did."""
+    ctx = current_ctx()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        if current_ctx() is ctx:
+            return fn(*args, **kwargs)
+        with sharding_scope(ctx.mesh, ctx.rules):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def _axes_for(name: Optional[str], dim: int, ctx: ShardingCtx):
@@ -337,13 +355,14 @@ def assign_(dst, src):
     return dst
 
 
-def local_offset(x) -> Tuple[int, ...]:
+def local_offset(x, placements=None) -> Tuple[int, ...]:
     """The global index of this rank's first element of DTensor ``x``, per
-    dim."""
+    dim, as ``x`` is laid out or would be under ``placements``."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    _, off = compute_local_shape_and_global_offset(x.shape, x.device_mesh,
-                                                   x.placements)
+    _, off = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements if placements is None
+        else placements)
     return tuple(off)
 
 

@@ -100,18 +100,30 @@ def _out_project(out, wo):
 
 
 def _attention_by_heads(attn, q, k, v):
-    """``attn(q, k, v)`` on DTensors. Where q (B, Sq, H, Dh) is split by
-    batch and heads alone, each rank runs ``attn`` on its own rows and
-    heads (``local_map``) with the KV heads of its GQA groups: K/V split as
-    the heads where the KV heads divide that mesh axis, else replicated and
-    the rank's one KV head picked out (its H/n heads then share one KV
-    head). A split sequence (Ulysses, ``attn_seq``) is gathered first: each
-    rank then attends over its rows and heads in full. A split head dim
-    runs ``attn`` on the DTensors as they are."""
+    """``attn(q, k, v)`` on DTensors, each rank on its own shards
+    (``shard_map``: the chunked loop never runs on DTensors). On each mesh
+    axis, by q's (B, Sq, H, Dh) split there:
+      * rows (batch): q, K and V keep their rows;
+      * heads: q keeps its heads with the KV heads of its GQA groups, K/V
+        split as the heads where the KV heads divide the axis, else
+        replicated and the rank's one KV head picked out (its H/n heads
+        share one KV head);
+      * the sequence (Ulysses, ``attn_seq``), or a split neither way above
+        (the head dim, where the weights fell back to it; heads whose
+        groups straddle ranks) where the sequence divides the axis: q
+        keeps, or is moved to (an all-to-all), its split sequence and K/V
+        are replicated. Each rank attends its own S/n query rows, at their
+        absolute positions (``q_offset``), against every key; the
+        backward's K/V gradient is a partial sum over the axis. The causal
+        work is uneven across ranks, as in the JAX package: the last rank
+        sees every key, the first 1/n of them;
+      * otherwise (replicated, partial, or a split the sequence does not
+        divide): q, K and V whole on the axis.
+    The output is laid out as q's placements in the region."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
-    H, Hkv = q.shape[2], k.shape[2]
+    S, H, Hkv = q.shape[1], q.shape[2], k.shape[2]
     G = H // Hkv
     q_pl, kv_pl, pick = [], [], []
     for m, p in enumerate(q.placements):
@@ -119,28 +131,27 @@ def _attention_by_heads(attn, q, k, v):
         if isinstance(p, Shard) and p.dim == 0:
             q_pl.append(p)
             kv_pl.append(p)
-        elif isinstance(p, Shard) and p.dim == 2:
+        elif isinstance(p, Shard) and p.dim == 2 and Hkv % n == 0:
             q_pl.append(p)
-            if Hkv % n == 0:
-                kv_pl.append(p)
-            elif G % (H // n) == 0:  # the rank's heads share one KV head
-                kv_pl.append(Replicate())
-                pick.append(mesh.get_local_rank(m) * (H // n) // G)
-            else:
-                return attn(q, k, v)
-        elif isinstance(p, Shard) and p.dim == 3:
-            return attn(q, k, v)
-        else:  # replicated, partial, or a split sequence (gathered)
+            kv_pl.append(p)
+        elif isinstance(p, Shard) and p.dim == 2 and G % (H // n) == 0 \
+                and not pick:  # the rank's heads share one KV head
+            q_pl.append(p)
+            kv_pl.append(Replicate())
+            pick.append(mesh.get_local_rank(m) * (H // n) // G)
+        elif isinstance(p, Shard) and S % n == 0:  # the sequence
+            q_pl.append(Shard(1))
+            kv_pl.append(Replicate())
+        else:
             q_pl.append(Replicate())
             kv_pl.append(Replicate())
-    if len(pick) > 1:
-        return attn(q, k, v)
+    q_offset = local_offset(q, q_pl)[1]
 
     def local(q, k, v):
         if pick:
             k = k[:, :, pick[0]:pick[0] + 1]
             v = v[:, :, pick[0]:pick[0] + 1]
-        return attn(q, k, v)
+        return attn(q, k, v, q_offset=q_offset)
 
     return shard_map(local, mesh, (q_pl, kv_pl, kv_pl), q_pl)(q, k, v)
 
@@ -160,8 +171,10 @@ def _mask(pos_q, pos_k, *, causal: bool, window: int):
 
 
 def attention_reference(q, k, v, *, causal: bool, window: int = 0,
-                        softcap: float = 0.0):
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, Hkv, Dh) -> (B, Sq, H, Dh)."""
+                        softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, Hkv, Dh) -> (B, Sq, H, Dh). q's
+    rows sit at positions ``q_offset``.. (a rank's own rows of a split
+    sequence), the keys at 0..Sk-1."""
     B, Sq, H, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, Dh).float()
@@ -169,7 +182,7 @@ def attention_reference(q, k, v, *, causal: bool, window: int = 0,
     s = s / float(np.sqrt(Dh))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    m = _mask(torch.arange(Sq, device=q.device),
+    m = _mask(q_offset + torch.arange(Sq, device=q.device),
               torch.arange(Sk, device=q.device), causal=causal, window=window)
     s = s.masked_fill(~m, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -179,7 +192,7 @@ def attention_reference(q, k, v, *, causal: bool, window: int = 0,
 
 def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
                       softcap: float = 0.0, chunk_q: int = 512,
-                      chunk_kv: int = 1024):
+                      chunk_kv: int = 1024, q_offset: int = 0):
     """Online-softmax attention; same contract as attention_reference.
     KV chunks with no visible pair for a Q chunk are skipped; shapes that
     the chunks do not divide go to ``attention_reference``."""
@@ -189,7 +202,7 @@ def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
     cq, ckv = min(chunk_q, Sq), min(chunk_kv, Sk)
     if Sq % cq or Sk % ckv:
         return attention_reference(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, q_offset=q_offset)
     scale = float(1.0 / np.sqrt(Dh))
     dev = q.device
     qg = q.reshape(B, Sq, Hkv, G, Dh)
@@ -199,11 +212,12 @@ def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
         m_run = torch.full((B, Hkv, G, cq), NEG_INF, device=dev)
         l_run = torch.zeros((B, Hkv, G, cq), device=dev)
         acc = torch.zeros((B, Hkv, G, cq, Dh), device=dev)
-        pos_q = q0 + torch.arange(cq, device=dev)
+        p0 = q_offset + q0  # the chunk's first position
+        pos_q = p0 + torch.arange(cq, device=dev)
         for k0 in range(0, Sk, ckv):
-            if causal and k0 > q0 + cq - 1:
+            if causal and k0 > p0 + cq - 1:
                 continue  # every key is after every query
-            if window > 0 and k0 + ckv - 1 <= q0 - window:
+            if window > 0 and k0 + ckv - 1 <= p0 - window:
                 continue  # every key is outside every query's window
             kb = k[:, k0:k0 + ckv].float()
             vb = v[:, k0:k0 + ckv].float()
@@ -272,7 +286,8 @@ def apply_attention(params, x, cfg: ModelConfig, *, causal: bool = True,
         k = _rope(k, pos, cfg)
     # "attn_seq" is () by default (pure head-TP); archs whose head counts
     # don't divide the model axis override it to ("model",): Ulysses-style
-    # sequence parallelism with the (small, GQA) KV replicated
+    # sequence parallelism with the (small, GQA) KV replicated, each rank
+    # attending its own query rows (_attention_by_heads)
     q = constrain(q, "batch", "attn_seq", "heads", None)
     k = constrain(k, "batch", "seq", "kv_heads", None)
     v = constrain(v, "batch", "seq", "kv_heads", None)

@@ -14,6 +14,19 @@ Dispatch and combine are one-hot products, and the expert products batched
 matmuls over all E experts on their C slots each (``torch.bmm``): outside
 any kernel, as they are in the JAX package. At decode this reads every
 expert's weights each step, as the JAX package does.
+
+Under a mesh every product runs on each rank's shards with explicit
+placements (``shard_map``), never on a whole expert matrix. The expert
+products (``_expert_bmm``), on each mesh axis: experts split (moonshot's
+``experts: model``) keep their split on the rows and the weights; rows of
+tokens split (the groups over "batch") keep it, and the weight is gathered
+there, one layer's slice at a time (FSDP: grok-1's ``expert_embed: data``;
+under full remat the gather is redone in backward, and its gradient is
+reduce-scattered back); a weight's split of its output dim (grok-1's
+``expert_mlp: model`` on ``w_up`` / ``w_gate``) stays, the rows' d gathered
+there, so ``h`` stays split over f; a split of the contracted dim
+(``w_down``'s f) makes the product a partial sum, which the next
+``constrain`` to ``act_embed`` reduce-scatters.
 """
 from __future__ import annotations
 
@@ -21,8 +34,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (constrain, is_dtensor, matmul,
-                                              shard_map, spec_for)
+from repro_torch.distributed.sharding import (as_dtensor, constrain,
+                                              is_dtensor, matmul, shard_map,
+                                              spec_for)
 
 from .config import ModelConfig
 from .layers import normal
@@ -103,6 +117,49 @@ def _group_bmm(a, b):
                      b_pl)(a, b)
 
 
+def _expert_bmm(rows, *ws):
+    """``rows @ w`` per expert for each w of ``ws`` (laid out alike):
+    rows (E, N, k), w (E, k, n). On DTensors each rank multiplies its own
+    shards (``shard_map``; the rows redistributed once for all of ``ws``),
+    on each mesh axis by the splits there: experts (dim 0 of either)
+    split both and the products; the rows' N (tokens) kept split, w
+    gathered; else w's output dim kept split (rows gathered), or its
+    contracted dim (the rows split to match, the products partial sums);
+    else all whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not (is_dtensor(rows) or is_dtensor(ws[0])):
+        return tuple(torch.bmm(rows, w) for w in ws)
+    mesh = (ws[0] if is_dtensor(ws[0]) else rows).device_mesh
+    rows = as_dtensor(rows, mesh)
+    ws = [as_dtensor(w, mesh) for w in ws]
+    r_pl, w_pl, o_pl = [], [], []
+    for pr, pw in zip(rows.placements, ws[0].placements):
+        if Shard(0) in (pr, pw):
+            r_pl.append(Shard(0))
+            w_pl.append(Shard(0))
+            o_pl.append(Shard(0))
+        elif pr == Shard(1):
+            r_pl.append(pr)
+            w_pl.append(Replicate())
+            o_pl.append(pr)
+        elif pw == Shard(2):
+            r_pl.append(Replicate())
+            w_pl.append(pw)
+            o_pl.append(pw)
+        elif pw == Shard(1):
+            r_pl.append(Shard(2))
+            w_pl.append(pw)
+            o_pl.append(Partial())
+        else:
+            r_pl.append(Replicate())
+            w_pl.append(Replicate())
+            o_pl.append(Replicate())
+    return shard_map(lambda rows, *ws: tuple(torch.bmm(rows, w) for w in ws),
+                     mesh, (r_pl,) + (w_pl,) * len(ws),
+                     (o_pl,) * len(ws))(rows, *ws)
+
+
 def apply_moe(params, x, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux {load_balance_loss,
     router_z_loss})."""
@@ -136,11 +193,10 @@ def apply_moe(params, x, cfg: ModelConfig):
     expert_in = _group_bmm(disp.transpose(1, 2), xt).reshape(G, E, C, d)
     expert_in = constrain(expert_in, "batch", "experts", None, "act_embed")
     rows = expert_in.transpose(0, 1).reshape(E, G * C, d)  # per expert
-    h = torch.bmm(rows, params["w_up"])
-    g = torch.bmm(rows, params["w_gate"])
+    h, g = _expert_bmm(rows, params["w_up"], params["w_gate"])
     h = F.gelu(g, approximate="tanh") * h
     h = _constrain_by_group(h, G, "expert_mlp")
-    out = torch.bmm(h, params["w_down"])  # (E, G * C, d)
+    out, = _expert_bmm(h, params["w_down"])  # (E, G * C, d)
     out = _constrain_by_group(out, G, "act_embed")
     out = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
     y = _group_bmm(combine.reshape(G, Tg, E * C), out)

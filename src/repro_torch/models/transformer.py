@@ -50,7 +50,8 @@ from .attention import (apply_attention_decode,
                         quantize_kv_rows)
 from repro_torch.distributed.sharding import (assign_, constrain,
                                               is_dtensor, local_tree, matmul,
-                                              shapes_only, sharded_rows)
+                                              scoped, shapes_only,
+                                              sharded_rows)
 
 from .blocks import (apply_ffn, apply_mamba_block, apply_shared_block,
                      apply_transformer_block, init_mamba_block,
@@ -285,14 +286,15 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _maybe_remat(fn, cfg: ModelConfig):
     """``cfg.remat``: "full" recomputes the whole layer in backward,
     "dots" saves the matrix products and recomputes the rest, "none" keeps
-    every activation."""
+    every activation. The recompute runs under the forward's sharding
+    scope (``sharding.scoped``)."""
     if cfg.remat == "none":
         return fn
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_matmuls)
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+    return lambda *a: checkpoint(scoped(fn), *a, use_reentrant=False, **kw)
 
 
 # ----------------------------------------------------------- full forward --
@@ -406,8 +408,9 @@ def lm_loss(params, hidden, targets, mask, cfg: ModelConfig):
     tot = cnt = torch.zeros((), device=hidden.device)
     for c0 in range(0, S, C):
         part = slice(c0, c0 + C)
-        tot = tot + checkpoint(chunk_nll, hidden[:, part], targets[:, part],
-                               mask[:, part], use_reentrant=False)
+        tot = tot + checkpoint(scoped(chunk_nll), hidden[:, part],
+                               targets[:, part], mask[:, part],
+                               use_reentrant=False)
         cnt = cnt + mask[:, part].sum()
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -45,6 +45,8 @@ from typing import Any, Callable, NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, shard_map
+
 from .tree import leaves, leaves_up_to, tree_map, unflatten
 
 __all__ = [
@@ -273,6 +275,28 @@ def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
     )
 
 
+def _over_outer(g, r, c):
+    """``g / (r[..., None] * c[..., None, :])``: g (..., m, n), r (..., m),
+    c (..., n). On DTensors each rank divides its own block of g by the
+    outer product of its slices of r and c (``shard_map``): DTensor's own
+    broadcast may lay the product out whole along a dim that g splits (on
+    H100s under torch 2.11, a 3.2 GB block a rank at grok-1-314b's
+    experts on 2x2)."""
+    if not is_dtensor(g):
+        return g / (r[..., None] * c[..., None, :])
+    from torch.distributed.tensor import Replicate, Shard
+
+    n = g.ndim
+    g_pl = [p if isinstance(p, Shard) else Replicate() for p in g.placements]
+    r_pl = [p if isinstance(p, Shard) and p.dim < n - 1 else Replicate()
+            for p in g_pl]
+    c_pl = [p if isinstance(p, Shard) and p.dim < n - 2
+            else Shard(n - 2) if p == Shard(n - 1) else Replicate()
+            for p in g_pl]
+    return shard_map(lambda g, r, c: g / (r[..., None] * c[..., None, :]),
+                     g.device_mesh, (g_pl, r_pl, c_pl), g_pl)(g, r, c)
+
+
 def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
               eps: float = 1e-30, clip_threshold: float = 1.0,
               min_dim_size_to_factor: int = 128,
@@ -317,7 +341,7 @@ def adafactor(lr: Union[float, Schedule], decay: float = 0.8,
             c_mom = vc[i].mul_(beta).add_(one_minus * g2.mean(-2))
             del g2
             r = r_mom / r_mom.mean(-1, keepdim=True).clamp_min(1e-30)
-            u = g / (torch.sqrt(r)[..., None] * torch.sqrt(c_mom)[..., None, :])
+            u = _over_outer(g, torch.sqrt(r), torch.sqrt(c_mom))
         else:
             u = g / torch.sqrt(vr[i].mul_(beta).add_(one_minus * g2))
             del g2

@@ -1450,3 +1450,36 @@ def test_compiled_cost_counts_a_lone_ell_mean(cuda):
     assert rep["argument_bytes"] == idx.nbytes + valid.nbytes + emb.nbytes
     assert rep["output_bytes"] == idx.shape[0] * emb.shape[1] * 4
     assert rep["temp_bytes"] >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 256, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_attention_with_a_query_offset_on_the_card(cuda, offset,
+                                                           dtype):
+    """A rank's own 256 query rows of a sequence split four ways (Ulysses:
+    rows ``offset:offset + 256`` of 1,024 at ``q_offset``) against every
+    key, at gemma2-2b's head dim 256 on its 8 heads and 4 KV heads, logit
+    softcap 50 and a window of 300 (it crosses the rank's first row): the
+    chunked attention on the card equals the same call on the CPU (fp32
+    1e-5, bf16 one rounding of the same fp32 result: rtol 1e-2, atol
+    1e-3), and rows ``offset:`` of the whole call."""
+    from repro_torch.models.attention import attention_chunked
+
+    gen = torch.Generator().manual_seed(offset)
+    S, rows = 1024, 256
+    q = torch.randn((1, S, 8, 256), generator=gen).to(dtype)
+    k, v = (torch.randn((1, S, 4, 256), generator=gen).to(dtype)
+            for _ in "kv")
+    kw = dict(causal=True, window=300, softcap=50.0, chunk_q=128,
+              chunk_kv=256)
+    mine = q[:, offset:offset + rows]
+    want = attention_chunked(mine, k, v, q_offset=offset, **kw)
+    got = attention_chunked(mine.to(cuda), k.to(cuda), v.to(cuda),
+                            q_offset=offset, **kw).cpu()
+    whole = attention_chunked(q.to(cuda), k.to(cuda), v.to(cuda),
+                              **kw)[:, offset:offset + rows].cpu()
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    for name, x in (("cpu", want), ("whole call", whole)):
+        np.testing.assert_allclose(got.float().numpy(), x.float().numpy(),
+                                   rtol=tol[0], atol=tol[1], err_msg=name)

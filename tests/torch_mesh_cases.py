@@ -14,6 +14,8 @@ backward's sums in another order).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +29,8 @@ from repro.models.steps import make_prefill_step as jmake_prefill_step
 from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import cell_overrides
 from repro_torch.models import transformer
-from torch_mesh_workers import (NEW, S, batch_for, family_worker, run_port,
-                                serve_batch, spawn)
+from torch_mesh_workers import (NEW, S, batch_for, families_worker,
+                                family_worker, run_port, serve_batch, spawn)
 
 TOL = 1e-5
 
@@ -58,7 +60,8 @@ def _run_jax(jcfg, jparams, batch):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss, _), grads = jax.value_and_grad(
         lambda p: jloss_fn(p, jb, jcfg), has_aux=True)(jparams)
-    logits, cache = jax.jit(jmake_prefill_step(jcfg, max_len=S + NEW))(
+    logits, cache = jax.jit(jmake_prefill_step(
+        jcfg, max_len=batch["tokens"].shape[1] + NEW))(
         jparams, serve_batch(jb))
     out = {"loss": loss, "grads": jax.tree.leaves(grads), "prefill": logits,
            "prefill_cache": jax.tree.map(np.asarray, cache)}
@@ -72,32 +75,65 @@ def _run_jax(jcfg, jparams, batch):
     return out
 
 
-def check_family(arch, tmp_path, mesh_shape=(2, 2), timeout=150.0,
-                 serve_overrides=None, worker=family_worker):
-    """The port's ``arch`` (reduced preset) on a ``mesh_shape`` (data,
-    model) gloo mesh against itself unsharded and against the JAX
-    package: training under the dry run's train-cell rules, prefill and
-    decode under its decode-cell rules (or ``serve_overrides``), each rank
-    running ``worker`` (``family_worker`` or one that wraps it). Returns
-    the sharded run's results."""
-    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
-    jparams = jtf.init_model(jax.random.PRNGKey(0), jcfg)
-    params = transformer.from_jax_params(jax.tree.map(np.asarray, jparams),
-                                         cfg, device="cpu")
-    batch = batch_for(cfg)
-    model = mesh_shape[1]
-    path = str(tmp_path / f"{arch}.pt")
-    torch.save({"cfg": cfg, "params": params,
-                "batch": {k: torch.from_numpy(v) for k, v in batch.items()}},
-               path)
-    spawn(worker, mesh_shape[0] * mesh_shape[1], mesh_shape, path,
-          cell_overrides(arch, "train_4k", model),
-          serve_overrides or cell_overrides(arch, "decode_32k", model),
-          timeout=timeout)
-    got = torch.load(path + ".out", weights_only=False)
-    ref = run_port(cfg, params, batch)
-    want = _run_jax(jcfg, jparams, batch)
+def _reduced(config, changes):
+    """``config.reduced()`` with ``changes``; a dict changes the fields of
+    that sub-config (``{"moe": {"group_size": 16}}``), each package's
+    own."""
+    cfg = config.reduced()
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in changes.items()})
 
+
+def check_family(arch, tmp_path, mesh_shape=(2, 2), timeout=150.0,
+                 serve_overrides=None, worker=family_worker, seq=S,
+                 reduced=None):
+    """The port's ``arch`` (the reduced preset, with ``reduced``'s changes
+    in both packages: ``_reduced``) on a ``mesh_shape`` (data, model) gloo
+    mesh against itself unsharded and against the JAX package, on ``seq``
+    tokens a row: training under the dry run's train-cell rules, prefill
+    and decode under its decode-cell rules (or ``serve_overrides``), each
+    rank running ``worker`` (``family_worker`` or one that wraps it).
+    Returns the sharded run's results."""
+    return check_families((arch,), tmp_path, mesh_shape, timeout,
+                          serve_overrides, worker, seq,
+                          {arch: reduced or {}})[0]
+
+
+def check_families(archs, tmp_path, mesh_shape=(2, 2), timeout=150.0,
+                   serve_overrides=None, worker=family_worker, seq=S,
+                   reduced=None):
+    """``check_family`` of each of ``archs`` (``reduced``: {arch: its
+    changes}), their sharded runs in one spawn of the ranks, one after
+    another."""
+    model = mesh_shape[1]
+    cases, runs = [], []
+    for arch in archs:
+        changes = (reduced or {}).get(arch, {})
+        jcfg = _reduced(jget_config(arch), changes)
+        cfg = _reduced(get_config(arch), changes)
+        jparams = jtf.init_model(jax.random.PRNGKey(0), jcfg)
+        params = transformer.from_jax_params(
+            jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+        batch = batch_for(cfg, S=seq)
+        path = str(tmp_path / f"{arch}.pt")
+        torch.save({"cfg": cfg, "params": params, "batch": {
+            k: torch.from_numpy(v) for k, v in batch.items()}}, path)
+        cases.append((arch, jcfg, jparams, cfg, params, batch, path))
+        runs.append((path, cell_overrides(arch, "train_4k", model),
+                     serve_overrides or cell_overrides(arch, "decode_32k",
+                                                       model)))
+    spawn(families_worker, mesh_shape[0] * mesh_shape[1], mesh_shape, runs,
+          worker, timeout=timeout)
+    return [_check(arch, torch.load(path + ".out", weights_only=False),
+                   run_port(cfg, params, batch),
+                   _run_jax(jcfg, jparams, batch))
+            for arch, jcfg, jparams, cfg, params, batch, path in cases]
+
+
+def _check(arch, got, ref, want):
+    """The sharded run's results ``got`` against the unsharded port's
+    ``ref`` and the JAX package's ``want``; returns ``got``."""
     _close(got["loss"], ref["loss"], f"{arch} loss")
     _close(got["loss"], want["loss"], f"{arch} loss vs jax")
     assert len(got["grads"]) == len(ref["grads"]) == len(want["grads"])

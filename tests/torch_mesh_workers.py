@@ -68,7 +68,7 @@ def spawn(fn, world: int, *args, timeout: float = 120.0):
         raise RuntimeError(f"rank exit codes {codes}")
 
 
-def batch_for(cfg, seed=0):
+def batch_for(cfg, seed=0, S=S):
     """A seeded numpy batch of ``B`` rows of ``S`` tokens with targets, a
     mask and the family's extra inputs (frames, patches and positions)."""
     rng = np.random.default_rng(seed)
@@ -102,6 +102,7 @@ def run_port(cfg, params, batch):
     loss, _ = loss_fn(unflatten(params, ws), tb, cfg)
     out = {"loss": loss.detach(),
            "grads": list(torch.autograd.grad(loss, ws))}
+    S = tb["tokens"].shape[1]
     logits, cache = make_prefill_step(cfg, max_len=S + NEW)(
         params, serve_batch(tb))
     out["prefill"] = logits
@@ -177,6 +178,14 @@ def family_worker(rank, mesh_shape, path, overrides_train, overrides_serve):
             if "k" in cache else None
     if rank == 0:
         torch.save(out, path + ".out")
+
+
+def families_worker(rank, mesh_shape, runs, worker):
+    """``worker(rank, mesh_shape, path, overrides_train, overrides_serve)``
+    for each (path, overrides_train, overrides_serve) of ``runs`` in turn,
+    in one group: several archs for one spawn of the ranks."""
+    for path, train, serve in runs:
+        worker(rank, mesh_shape, path, train, serve)
 
 
 def train_worker(rank, argv, path):
@@ -330,32 +339,128 @@ def kernels_worker(rank, path):
 
 
 class AllocTally:
-    """A dispatch mode noting the shape of every tensor an op allocates on
-    a real device (view ops and ``meta`` tensors left out)."""
+    """The shape of every tensor a rank allocates on a real device (a list,
+    in order), under a mesh its local one: a dispatch mode notes each op's
+    outputs (a DTensor's local shard; view ops and ``meta`` tensors left
+    out), and DTensor's redistributions (``redistribute_local_tensor``,
+    explicit ones and those inside its op dispatch) note what they return.
+    ``DTensor.full_tensor``, a test's own gather, is left out."""
 
     def __init__(self):
+        from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
 
         shapes = self.shapes = []
+        self.paused = paused = [False]
+
+        def note(outs):
+            if paused[0]:
+                return
+            for o in outs if isinstance(outs, (tuple, list)) else (outs,):
+                if isinstance(o, DTensor):
+                    o = o._local_tensor
+                if isinstance(o, torch.Tensor) and o.device.type != "meta":
+                    shapes.append(tuple(o.shape))
+
+        self.note = note
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
                 if not func.is_view:
-                    outs = out if isinstance(out, (tuple, list)) else (out,)
-                    shapes.extend(tuple(o.shape) for o in outs
-                                  if isinstance(o, torch.Tensor)
-                                  and o.device.type != "meta")
+                    note(out)
                 return out
 
         self.mode = Mode()
 
     def __enter__(self):
+        from torch.distributed.tensor import DTensor, _api, _dispatch, \
+            _redistribute
+
+        self.saved = [(m, m.redistribute_local_tensor)
+                      for m in (_api, _dispatch, _redistribute)]
+        redistribute = _redistribute.redistribute_local_tensor
+
+        def noting(*a, **kw):
+            out = redistribute(*a, **kw)
+            self.note(out)
+            return out
+
+        for m, _ in self.saved:
+            m.redistribute_local_tensor = noting
+        self.full = full = DTensor.full_tensor
+        paused = self.paused
+
+        def full_tensor(x, *a, **kw):
+            paused[0] = True
+            try:
+                return full(x, *a, **kw)
+            finally:
+                paused[0] = False
+
+        DTensor.full_tensor = full_tensor
         self.mode.__enter__()
         return self
 
     def __exit__(self, *exc):
+        from torch.distributed.tensor import DTensor
+
         self.mode.__exit__(*exc)
+        DTensor.full_tensor = self.full
+        for m, f in self.saved:
+            m.redistribute_local_tensor = f
+
+
+def expert_alloc_worker(rank, mesh_shape, path, overrides_train,
+                        overrides_serve):
+    """``family_worker`` under an ``AllocTally``: the local shapes each
+    rank allocated (training, prefill, decode), gathered into the results
+    as ``allocs`` (one sorted list of the distinct shapes a rank)."""
+    with AllocTally() as tally:
+        family_worker(rank, mesh_shape, path, overrides_train,
+                      overrides_serve)
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, sorted(set(tally.shapes)))
+    if rank == 0:
+        out = torch.load(path + ".out", weights_only=False)
+        out["allocs"] = got
+        torch.save(out, path + ".out")
+
+
+def adafactor_worker(rank, path):
+    """One adafactor step of the reduced grok-1-314b (``path``: the config,
+    params and gradients, whole) on a 2x2 (data, model) mesh under its own
+    rules, the state built on each rank's shards as the launcher builds
+    it, under an ``AllocTally``: rank 0 saves the params after the
+    step (gathered whole), the shapes the step allocated on each rank and
+    the local shapes of the params and the state."""
+    from repro_torch.configs import sharding_overrides
+    from repro_torch.distributed.sharding import (distribute_tree, full_tree,
+                                                  sharding_scope)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.train import optim
+
+    inp = torch.load(path, weights_only=False)
+    cfg = inp["cfg"]
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    opt = optim.make_optimizer("adafactor", 1e-2)
+    with sharding_scope(mesh, **sharding_overrides(cfg.name)):
+        specs = model_specs(cfg)
+        params = distribute_tree(inp["params"], specs, src_data_rank=None)
+        grads = distribute_tree(inp["grads"], specs, src_data_rank=None)
+        state = train.sharded_state(opt, "adafactor", params, specs, "cpu")
+        local = {tuple(x.to_local().shape) for x in leaves((params, state))
+                 if isinstance(x, torch.Tensor)}
+        with AllocTally() as tally:
+            opt.step(grads, state, params)
+        whole = full_tree(params)
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, sorted(set(tally.shapes)))
+    if rank == 0:
+        torch.save({"params": whole, "allocs": got, "local": local},
+                   path + ".out")
 
 
 def state_init_worker(rank, argv, path):
@@ -485,6 +590,35 @@ def ssd_heads_worker(rank, mesh_shape, path, overrides_train,
     if rank == 0:
         out = torch.load(path + ".out", weights_only=False)
         out["ssd_heads"] = got
+        torch.save(out, path + ".out")
+
+
+def attn_rows_worker(rank, mesh_shape, path, overrides_train,
+                     overrides_serve):
+    """``family_worker`` with the query rows and the query offset of each
+    ``attention_chunked`` call (train, its recomputation, prefill) on each
+    rank noted, gathered into the results as ``attn_rows`` (one sorted
+    list of (rows, offset) a rank)."""
+    from repro_torch.models import attention
+
+    seen = set()
+    chunked = attention.attention_chunked
+
+    def noting(q, k, v, **kw):
+        seen.add((q.shape[1], kw.get("q_offset", 0)))
+        return chunked(q, k, v, **kw)
+
+    attention.attention_chunked = noting
+    try:
+        family_worker(rank, mesh_shape, path, overrides_train,
+                      overrides_serve)
+    finally:
+        attention.attention_chunked = chunked
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, sorted(seen))
+    if rank == 0:
+        out = torch.load(path + ".out", weights_only=False)
+        out["attn_rows"] = got
         torch.save(out, path + ".out")
 
 
