@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device (four for the four-card runs of the mesh path,
-phase 14) and ``nvcc``; it imports nothing of JAX or of the
+phase 15) and ``nvcc``; it imports nothing of JAX or of the
 JAX package. Phases, each unguarded (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
@@ -262,7 +262,20 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    line's ``large``. Every flash-decode check (``check_decode``) also
    holds the kernel's log-sum-exp output against the plain version's and
    the output's bits equal with and without it;
-14. the "mesh" path (``mesh_phase``). In the whole smoke, and under
+14. the "graph" path (``graph_1x1_phase``): the paper's own workload, the
+   deepwalk-web1b SGNS step with Adam as ``launch.dryrun`` builds it for
+   real (``graph_run``: the SGNS init drawn chunk by chunk, seeded
+   power-law pairs), at ``GRAPH_ONE_V`` = 2^23 nodes, D = 128, K = 5, 2^20
+   pairs a step, ``GRAPH_STEPS`` steps with no mesh, then on a (1, 1)
+   NCCL mesh of a world of one in this process (the lookups through
+   ``sharded_rows``): step 1's loss 6 ln 2 and its grad norm within
+   ``TOL_GRAPH_STEP`` of no mesh's, later losses within
+   ``TOL_GRAPH_LOSS``, one launch of each SGNS kernel a step (the path's
+   counts); the tables' and moments' max abs difference and bit-equality
+   printed. Then both SGNS kernels at a 2x2 rank's own pairs
+   (``GRAPH_RANK_SGNS``: B = 2^18, K = 5, D = 128 fp32) against their
+   plain versions: rows of the kernels line's ``large``;
+15. the "mesh" path (``mesh_phase``). In the whole smoke, and under
    ``--mesh-only`` with fewer than four cards (``mesh_1x1_phase``):
    ``launch/serve`` at qwen3-4b's full width and depth (``MESH_ONE_FLAGS``:
    8 steps, four rows swapped in) as a plain process, then in this process
@@ -319,7 +332,13 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    ms a step, tokens/s, peak GB beside PR 26's, the params' and AdamW
    state's resident GB a rank against ``MESH_STATE_GB`` and the leaves no
    mesh axis splits; then flash-decode at (a)'s and (b)'s per-rank shapes
-   against its plain version.
+   against its plain version. ``--mesh-only cells`` (``mesh_cells``, also
+   the last run of ``--mesh-only``): the train cells of ``MESH_CELLS``,
+   the graph cell on 2x2 (``MESH_GRAPH``: at 2^23 nodes against each
+   rank's card running it alone, at 2^25 nodes, 34.36 GB of state a rank,
+   with no block of a whole table's size) and qwen2-vl-7b on 1x4 through
+   ``models.steps`` (``MESH_VL``: 12 layers against one card, all 28),
+   after ``nvidia-smi topo -m``.
 
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
@@ -333,8 +352,8 @@ The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
 serving, the hub, the resilience, the shard, the pipeline, the offline,
 the four LM serving, the
-two step, the train, the six training families', the dryrun and the mesh
-path (every rank of every run), each path's count beside it; the h-index's hub kernel also as
+two step, the train, the six training families', the dryrun, the graph
+and the mesh path (every rank of every run), each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -344,6 +363,7 @@ import contextlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -612,6 +632,40 @@ MESH_CELLS_RECORD = {"cell-grok-2x2": 1}
 # TOL_MESH_LOSS, their grad norms printed; the fp32 twin, whose router
 # sees the same values to ~1e-6, is held at TOL_MESH_STEP
 MESH_CELLS_ROUTED = ("cell-grok-2x2",)
+# the paper's own workload for real (``launch.dryrun``'s graph cell:
+# deepwalk-web1b's D = 128, K = 5, B = 2^20 pairs a step, fp32 tables,
+# Adam 0.025; ``graph_run``), its node count V cut to what the cards hold:
+# 2^23 on one card (tables 8.59 GB, gradients 8.59, Adam's moments 17.18:
+# 34.36 GB), 2^25 on 2x2 (the same 34.36 GB a rank; one card would need
+# 137.4 GB, and 2^26 68.7 GB a rank before any temporaries). In the whole
+# smoke: GRAPH_STEPS steps on a 1x1 NCCL mesh against the step with no
+# mesh (``graph_1x1_phase``). Under ``--mesh-only cells``: label -> (mesh,
+# V, steps, held to one card's run on each rank's card, the allocator's
+# history on step 2 and the collectives of step 2 traced)
+GRAPH_ONE_V = 1 << 23
+GRAPH_STEPS = 3
+MESH_GRAPH = {"cell-graph-2x2-parity": ("2x2", 1 << 23, GRAPH_STEPS, True),
+              "cell-graph-2x2": ("2x2", 1 << 25, 8, False)}
+GRAPH_TIMED = 2  # the steps from which a run's ms a step is the median
+# step 1 of the graph cell against one card's: its loss (6 ln 2 exactly in
+# both: emb_out starts at zero) and grad norm, relative; steps 2-3's
+# losses. The same pairs and tables, the sums in another order
+TOL_GRAPH_STEP = 1e-6
+TOL_GRAPH_LOSS = 1e-5
+# the SGNS kernels at a rank's own pairs on 2x2: 2^20 / 4
+GRAPH_RANK_SGNS = (1 << 18, 5, 128, "float32")
+# qwen2-vl-7b on 1x4 under its rules (attn_seq on model), through
+# models.steps (``vl_train``; both launchers refuse it) with the train-vl
+# path's batch (2 x 2,048, 1,024 patches, M-RoPE positions) and rate:
+# label -> (mesh, layers (None: all 28), steps). At 12 layers held step by
+# step to one card's (as MESH_CELLS); at 28 by ``hold_training``: 7.62 B
+# params x 12 bytes (91.4 GB) fit no one card, 22.9 GB a rank. At 28
+# layers the train-vl path's own 12 steps: in 6 the warmup's rates (3e-6
+# x the step) left the loss where it started (12.30 -> 12.34, the first
+# five's mean against the last five's; 4 x H100)
+MESH_VL = {"cell-vl-1x4-12": ("1x4", 12, MESH_HELD_STEPS),
+           "cell-vl-1x4": ("1x4", None, TRAIN_STEPS_FAMILY)}
+MESH_CELLS_TIMEOUT = 1200  # s the cells' torchrun may take
 MESH_STATE_GB = 20.9
 # zamba2-7b at 81 layers on 1x4 in PR 26 (by rows: every rank ran every
 # mamba block whole): ms a step (two runs) and peak GB a rank
@@ -4135,8 +4189,10 @@ def mesh_rank_main(argv) -> int:
     """``chip_smoke.py --mesh-rank OUT PLAN``: one rank of a ``torchrun``
     of the "mesh" path (``mesh_start``). Starts the world (so that the
     launchers keep it), then runs each entry of the JSON list PLAN in turn:
-    ``{"tag", "kind": "serve" | "train" | "decode", "flags", "opts"}``,
-    the launcher (or, for "decode", ``mesh_decode_rank``) with
+    ``{"tag", "kind": "serve" | "train" | "decode" | "graph" | "vl",
+    "flags", "opts"}``, the launcher (or, for "decode", "graph" and "vl",
+    ``mesh_decode_rank``, ``mesh_graph_rank`` and ``mesh_vl_rank``, the
+    flags their mesh) with
     those flags (and the keywords ``opts``, where given), every kernel
     count set to 0 just before it and the peak
     memory reset; writes this rank's records {tag: record (the counts, the
@@ -4153,7 +4209,8 @@ def mesh_rank_main(argv) -> int:
     try:
         for entry in json.loads(Path(plan).read_text()):
             run = {"serve": mesh_serve_rank, "train": mesh_train_rank,
-                   "decode": mesh_decode_rank}[entry["kind"]]
+                   "decode": mesh_decode_rank, "graph": mesh_graph_rank,
+                   "vl": mesh_vl_rank}[entry["kind"]]
             t0 = time.perf_counter()
             rec = run(torch, counters, entry["flags"],
                       **entry.get("opts", {}))
@@ -4379,13 +4436,18 @@ class CollectiveTrace:
     issues inside its own dispatch too, which ``launch.dryrun.Tally``, a
     dispatch mode, does not see). ``calls``: {op name: [calls, elements of
     the input, largest input]} for the functional collectives
-    (``_c10d_functional::``) and the backend's own calls (``nccl:``)."""
+    (``_c10d_functional::``) and the backend's own calls (``nccl:``).
+    ``device``: the card's activity traced too (``device_time(prof)``)."""
+
+    def __init__(self, device=False):
+        self.device = device
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
 
-        self.prof = profile(activities=[ProfilerActivity.CPU],
-                            record_shapes=True)
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if self.device else [])
+        self.prof = profile(activities=acts, record_shapes=True)
         self.prof.__enter__()
         return self
 
@@ -4878,7 +4940,9 @@ def mesh_phase(torch, np, counters, four, only=None):
     log(f"mesh: {n} card(s); the four-card runs (qwen3-4b served on (4, 1), "
         f"decoded on a sequence-split cache on 1x4 and trained on 2x2, "
         f"mamba2-2.7b and zamba2-7b (81 layers) trained on 1x4, the train "
-        f"cells of gemma2-2b, starcoder2-7b and grok-1-314b) "
+        f"cells of gemma2-2b, starcoder2-7b and grok-1-314b, the graph "
+        f"cell on 2x2 at 2^23 and 2^25 nodes, qwen2-vl-7b on 1x4 at 12 and "
+        f"28 layers) "
         + (f"need {MESH_CARDS} cards" if n < MESH_CARDS else
            "run under --mesh-only") + "; the serve launcher on a 1x1 mesh")
     return mesh_1x1_phase(torch, counters)
@@ -5205,8 +5269,9 @@ def mesh_four(torch, np, only=None):
         except SmokeFailure as e:
             failed.append(str(e))
     counts = mesh_counts(ranks)
-    try:  # launches none: training runs no kernel of the port
-        _, out["cells"] = mesh_cells(torch, np)
+    try:  # the graph runs' SGNS kernels; training runs none
+        cells, out["cells"] = mesh_cells(torch, np)
+        counts = {k: n + cells.get(k, 0) for k, n in counts.items()}
     except SmokeFailure as e:
         failed.append(str(e))
     expect(not failed, "; ".join(failed))
@@ -5233,7 +5298,10 @@ def mesh_cell_opts(label):
 
 def mesh_cells_reference(torch):
     """Each ``MESH_CELLS`` run on this process's card, no mesh
-    (``mesh_train_rank``) -> {label: its record, with its peak}."""
+    (``mesh_train_rank``), and each ``MESH_VL`` run that one card holds
+    (``vl_train``) -> {label: its record, with its peak}. The graph runs'
+    one-card references run on each rank's own card
+    (``mesh_graph_rank``)."""
     t0 = time.perf_counter()
     ones = {}
     for label in MESH_CELLS:
@@ -5242,6 +5310,10 @@ def mesh_cells_reference(torch):
                                       **mesh_cell_opts(label))
         ones[label]["peak_bytes"] = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
+    for label, (_, layers, steps) in MESH_VL.items():
+        if layers is not None:  # all 28 layers fit no one card
+            ones[label] = vl_train(torch, layers, steps)
+            torch.cuda.empty_cache()
     log("mesh cells references (one card, no mesh): " + json.dumps(
         {label: {k: r[k] for k in ("metrics", "step_ms_each",
                                    "step_peak_bytes")}
@@ -5250,6 +5322,55 @@ def mesh_cells_reference(torch):
          for label, r in ones.items()})
         + f"; {time.perf_counter() - t0:.1f} s")
     return ones
+
+
+def topology(torch) -> str:
+    """How the cards are joined: ``nvidia-smi topo -m``, ``nvidia-smi
+    nvlink --status`` (what each prints, or its error) and which pairs of
+    cards reach each other's memory (``can_device_access_peer``)."""
+    out = []
+    for args in (["topo", "-m"], ["nvlink", "--status"]):
+        try:
+            p = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                               text=True, timeout=60)
+            got = (p.stdout + p.stderr).strip()
+        except (OSError, subprocess.SubprocessError) as e:
+            got = f"failed: {e}"
+        out.append(f"nvidia-smi {' '.join(args)}:\n{got}")
+    n = torch.cuda.device_count()
+    out.append("peer access: " + json.dumps(
+        [[i == j or torch.cuda.can_device_access_peer(i, j)
+          for j in range(n)] for i in range(n)]))
+    return "\n".join(out)
+
+
+def nccl_rate(torch, nbytes=1 << 28, iters=5):
+    """The started world's all-gather and reduce-scatter of ``nbytes`` of
+    fp32 a rank (the graph cell's collectives), each the median of
+    ``iters`` calls after one, every call started together (an all-reduce
+    of one element first): {op: [ms, bus GB/s]}, bus GB/s as NCCL's
+    tests reckon it ((n - 1) / n x the whole buffer over the time)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    small = torch.empty(nbytes // 4, device="cuda")
+    whole = torch.empty(n * small.numel(), device="cuda")
+    ops = {"all_gather": lambda: dist.all_gather_into_tensor(whole, small),
+           "reduce_scatter": lambda: dist.reduce_scatter_tensor(small,
+                                                                whole)}
+    out = {}
+    for name, op in ops.items():
+        times = []
+        for _ in range(iters + 1):
+            dist.all_reduce(torch.zeros(1, device="cuda"))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            op()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        sec = statistics.median(times[1:])
+        out[name] = [sec * 1e3, (n - 1) / n * whole.nbytes / sec / 1e9]
+    return out
 
 
 def mesh_cells(torch, np):
@@ -5266,18 +5387,34 @@ def mesh_cells(torch, np):
     step, every rank's peak below one card's on the same step, and the
     largest block each rank allocated (the allocator's own history) below
     one whole expert matrix. Printed: ms a step (step 3), peak GB a rank
-    beside one card's, the largest blocks -> (the launch counts, the
-    records)."""
+    beside one card's, the largest blocks. In the same torchrun the
+    paper's own workload (``MESH_GRAPH``: the graph cell on 2x2 at 2^23
+    nodes against each rank's one-card run, at 2^25 nodes alone;
+    ``hold_mesh_graph``) and qwen2-vl-7b through ``models.steps`` on 1x4
+    (``MESH_VL``: 12 layers against one card's steps, all 28 by
+    ``hold_training``; ``hold_mesh_vl``); printed for each: ms a step,
+    pairs or tokens a second, each rank's peak, the graph runs' collective
+    calls and input bytes by op (step 2, ``CollectiveTrace``; every
+    collective of the path moves 4-byte elements) and the cards'
+    topology -> (the launch counts, the records)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
+    log("cards' topology:\n" + topology(torch))
     ones = mesh_cells_reference(torch)
     plan = [{"tag": label, "kind": "train", "opts": mesh_cell_opts(label),
              "flags": mesh_cell_flags(label) + ["--mesh", mesh]}
             for label, (_, mesh, *_) in MESH_CELLS.items()]
-    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "cells"))
+    plan += [{"tag": label, "kind": "graph", "flags": mesh,
+              "opts": {"n_nodes": v, "steps": steps, "parity": parity}}
+             for label, (mesh, v, steps, parity) in MESH_GRAPH.items()]
+    plan += [{"tag": label, "kind": "vl", "flags": mesh,
+              "opts": {"layers": layers, "steps": steps}}
+             for label, (mesh, layers, steps) in MESH_VL.items()]
+    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "cells"),
+                      MESH_CELLS_TIMEOUT)
     out, failed = {}, []
     for label, (arch, mesh, lr, changes, rows, seq) in MESH_CELLS.items():
         recs, one = [rank[label] for rank in ranks], ones[label]
@@ -5352,9 +5489,447 @@ def mesh_cells(torch, np):
                    f"{TOL_MESH_LOSS}")
         except SmokeFailure as e:
             failed.append(str(e))
+    for label in (*MESH_GRAPH, *MESH_VL):
+        recs = [rank[label] for rank in ranks]
+        try:
+            out[label] = hold_mesh_graph(torch, label, recs) \
+                if label in MESH_GRAPH else hold_mesh_vl(np, label, recs,
+                                                         ones.get(label))
+        except SmokeFailure as e:
+            failed.append(str(e))
+        finally:
+            log(f"mesh {label}: " + json.dumps(
+                out.get(label) or {"metrics": recs[0].get("metrics"),
+                                   "peak_bytes": [r.get("peak_bytes")
+                                                  for r in recs]}))
     expect(not failed, "; ".join(failed))
     log(f"mesh cells (4 cards): {time.perf_counter() - t0:.1f} s")
     return mesh_counts(ranks), out
+
+
+def graph_config(n_nodes):
+    """The deepwalk-web1b config with ``n_nodes`` nodes (its widths kept)."""
+    import dataclasses
+
+    from repro_torch.configs.deepwalk_web import CONFIG
+
+    return dataclasses.replace(CONFIG, n_nodes=n_nodes)
+
+
+def graph_run(torch, cfg, steps, mesh=None, inspect=None, counters=None):
+    """The graph cell as ``launch.dryrun`` builds it for real
+    (``graph_state``: the SGNS init drawn chunk by chunk, Adam's moments at
+    zero; ``GraphPairs``: the seeded power-law pairs; ``graph_step`` with
+    its metrics) of ``cfg`` for ``steps`` steps on this process's card:
+    on ``mesh`` under the cell's rules where given (each rank's own rows,
+    moments and pairs, the lookups through ``sharding.sharded_rows``),
+    else whole tensors. Each step's pairs drawn before its clock starts;
+    each step synchronised and timed, its loss and grad norm kept.
+    ``inspect``: that step (from 0), and the init, under the allocator's
+    history (``largest_allocs``), the step in a ``CollectiveTrace`` of the
+    card's activity too (its device ms and its 12 costliest kernels).
+    ``counters``: set to 0 just before the first step, read after the last
+    -> (params, state, record)."""
+    from repro_torch.configs import sharding_overrides
+    from repro_torch.distributed.sharding import local_offset, sharding_scope
+    from repro_torch.launch import dryrun
+    from repro_torch.train import optim
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rec = {"n_nodes": cfg.n_nodes, "steps": steps, "metrics": [],
+           "step_ms_each": []}
+    scope = contextlib.nullcontext() if mesh is None else sharding_scope(
+        mesh, **sharding_overrides(cfg.name))
+    with scope:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+
+        def init():
+            return (*dryrun.graph_state(cfg, device=dev),
+                    dryrun.GraphPairs(cfg, device=dev))
+
+        if inspect is None:
+            params, state, pairs = init()
+        else:
+            (params, state, pairs), rec["init_allocs"] = largest_allocs(
+                torch, init)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if mesh is not None:
+            rec["offset"] = local_offset(params["emb_in"])[0]
+            rec["local_rows"] = params["emb_in"].to_local().shape[0]
+        step = dryrun.graph_step(optim.make_optimizer(
+            "adam", dryrun.GRAPH_LR), metrics=True)
+        if counters is not None:
+            counters.reset()
+        for s in range(steps):
+            batch = pairs(s)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if s == inspect:
+                with CollectiveTrace(device=True) as trace:
+                    (params, state, m), rec["step_allocs"] = largest_allocs(
+                        torch, lambda: step(params, state, batch))
+            else:
+                params, state, m = step(params, state, batch)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            rec["step_ms_each"].append((time.perf_counter() - t) * 1e3)
+            if s == inspect:
+                rec["collectives"] = trace.calls
+                dev_us = device_time(trace.prof)
+                rec["device_ms"] = sum(us for _, us in dev_us.values()) / 1e3
+                rec["device_top"] = [
+                    [name[:80], n, us / 1e3] for name, (n, us) in sorted(
+                        dev_us.items(), key=lambda kv: -kv[1][1])[:12]]
+            del batch
+        if counters is not None:
+            rec["launches"] = counters.read()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    timed = rec["step_ms_each"][GRAPH_TIMED:] or rec["step_ms_each"][-1:]
+    rec["step_ms"] = statistics.median(timed)
+    rec["pairs_per_s"] = cfg.global_batch / rec["step_ms"] * 1e3
+    return params, state, rec
+
+
+def graph_tensors(params, state):
+    """The graph cell's params and Adam moments by name, each a plain
+    tensor (a DTensor's local shard)."""
+    out = {}
+    for tag, tree in (("", params), ("mu.", state[0].mu),
+                      ("nu.", state[0].nu)):
+        for k, v in tree.items():
+            out[tag + k] = v.to_local() if hasattr(v, "to_local") else v
+    return out
+
+
+def graph_diff(torch, got, want):
+    """{name: [max abs difference, bit-equal]} of two ``graph_tensors``."""
+    return {k: [float((got[k] - w).abs().max()), bool(torch.equal(got[k],
+                                                                   w))]
+            for k, w in want.items()}
+
+
+def hold_graph(label, rec, one):
+    """A graph run held to one card's (``rec`` and ``one``: ``graph_run``
+    records): as many finite metrics; step 1's loss (in both: 6 ln 2, as
+    emb_out starts at zero) and grad norm within ``TOL_GRAPH_STEP`` of one
+    card's, relative; later losses within ``TOL_GRAPH_LOSS`` -> each step's
+    [loss, grad norm] relative differences."""
+    got, want = rec["metrics"], one["metrics"]
+    expect(len(got) == len(want) == rec["steps"] and all(
+        math.isfinite(m[k]) for m in got + want for k in m),
+        f"{label}: metrics {got}, one card's {want}")
+    ln2 = (graph_config(1).n_neg + 1) * math.log(2)
+    for m, who in ((got[0], label), (want[0], f"{label}'s one card")):
+        expect(abs(m["loss"] - ln2) <= TOL_GRAPH_STEP * ln2,
+               f"{who}: step 1's loss {m['loss']}, want 6 ln 2 = {ln2}")
+    rel = [[abs(g[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
+           for g, w in zip(got, want)]
+    expect(max(rel[0]) <= TOL_GRAPH_STEP, f"{label}: step 1 loss / grad "
+           f"norm relative to one card's {rel[0]}, tolerance "
+           f"{TOL_GRAPH_STEP}")
+    expect(all(r[0] <= TOL_GRAPH_LOSS for r in rel[1:]),
+           f"{label}: later losses relative to one card's "
+           f"{[r[0] for r in rel[1:]]}, tolerance {TOL_GRAPH_LOSS}")
+    return rel
+
+
+def graph_1x1_phase(torch, counters):
+    """The "graph" path on one card: the graph cell (``graph_run``) at
+    ``GRAPH_ONE_V`` nodes for ``GRAPH_STEPS`` steps with no mesh, then in
+    this process on a (1, 1) mesh over a world of one (NCCL), each lookup
+    and its backward through ``sharded_rows``, the loss and grad norm
+    reduced, Adam on the rank's (whole) shards. Held (``hold_graph``) to
+    the run with no mesh; both SGNS kernels launched once a step on the
+    mesh; the tables and moments after the last step: max abs difference
+    and bit-equality printed. Returns (the mesh run's launch counts, its
+    record)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, make_mesh
+
+    t0 = time.perf_counter()
+    cfg = graph_config(GRAPH_ONE_V)
+    params, state, one = graph_run(torch, cfg, GRAPH_STEPS)
+    want = graph_tensors(params, state)
+    del params, state
+    torch.cuda.empty_cache()
+    expect(not dist.is_initialized(), "a process group before the graph "
+           "path's 1x1 mesh")
+    init_world(device="cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        params, state, rec = graph_run(torch, cfg, GRAPH_STEPS, mesh,
+                                       counters=counters)
+        rec["diff"] = graph_diff(torch, graph_tensors(params, state), want)
+        del params, state, want
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    counts = rec["launches"]
+    rec["one_card"] = {k: one[k] for k in ("metrics", "step_ms_each",
+                                           "step_ms", "peak_bytes")}
+    log(f"graph (deepwalk-web1b, V = {cfg.n_nodes:,}, D = {cfg.dim}, K = "
+        f"{cfg.n_neg}, B = {cfg.global_batch:,} pairs, Adam "
+        f"{GRAPH_STEPS} steps; 1x1 NCCL mesh vs no mesh): " + json.dumps(
+            {k: rec[k] for k in ("metrics", "step_ms_each", "step_ms",
+                                 "pairs_per_s", "peak_bytes", "init_s",
+                                 "diff", "one_card")}))
+    rel = hold_graph("graph 1x1", rec, one)
+    expect(counts["sgns_fwd"] == counts["sgns_bwd"] == GRAPH_STEPS
+           and sum(counts.values()) == 2 * GRAPH_STEPS,
+           f"graph 1x1: launches {counts}, want one forward and one "
+           f"backward a step")
+    expect(rec["peak_bytes"] < torch.cuda.get_device_properties(
+        0).total_memory, f"graph 1x1: peak {rec['peak_bytes']}")
+    log(f"graph 1x1: held (step [loss, grad norm] relative to no mesh "
+        f"{rel}; tables and moments bit-equal: "
+        f"{all(v[1] for v in rec['diff'].values())}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts, rec
+
+
+def mesh_graph_rank(torch, counters, flags, n_nodes, steps, parity):
+    """One rank of a ``MESH_GRAPH`` run: with ``parity``, the graph cell
+    first with no mesh on this rank's card (one card's run, kept: its
+    metrics, times and peak, and the rows of its params and moments that
+    this rank's shards hold, at block d x M + m of (d, m) on a D x M mesh,
+    as the JAX package lays rows out over ("data", "model"); step 2
+    inspected); then the
+    cell on the ``flags`` mesh (``graph_run``, step 2 inspected), the kernel
+    counts set to 0 just before its first step; last the world's NCCL
+    rates (``nccl_rate``) -> the rank's record (with the max abs difference
+    and bit-equality of its shards against those rows)."""
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+
+    dims, axes = parse_mesh(flags)
+    mesh = make_mesh(dims, axes, device="cuda")
+    cfg = graph_config(n_nodes)
+    d, m = mesh.get_coordinate()
+    n = n_nodes // mesh.size()
+    out = {"mesh": flags, "coordinate": [d, m],
+           "block_offset": (d * dims[1] + m) * n,
+           "table_bytes": n_nodes * cfg.dim * 4}
+    want = None
+    if parity:
+        params, state, one = graph_run(torch, cfg, steps, inspect=1)
+        lo = out["block_offset"]
+        want = {k: v[lo:lo + n].clone()
+                for k, v in graph_tensors(params, state).items()}
+        del params, state
+        torch.cuda.empty_cache()
+        out["one_card"] = one
+    params, state, rec = graph_run(torch, cfg, steps, mesh, inspect=1,
+                                   counters=counters)
+    out.update(rec)
+    if want is not None:
+        out["diff"] = graph_diff(torch, graph_tensors(params, state), want)
+    del params, state, want
+    torch.cuda.empty_cache()
+    out["nccl"] = nccl_rate(torch)
+    return out
+
+
+def vl_train(torch, layers, steps, mesh_shape=None, counters=None):
+    """qwen2-vl-7b at full width and ``layers`` layers (None: all 28)
+    trained as the train-vl path trains it (``family_steps``: its rows,
+    tokens, 1,024 patches at M-RoPE positions, mask 0 on them, AdamW under
+    the launcher's warmup-cosine to its rate) through
+    ``models.steps.make_train_step`` for ``steps`` steps, on this
+    process's card or, with ``mesh_shape``, on a (data, model) mesh of the
+    started world under the arch's rules (attn_seq on model: attention on
+    each rank's own query rows), as ``launch/train --mesh`` lays a run
+    out: the params drawn whole alike on every rank, each keeping its
+    shards, the optimizer state built on them (``sharded_state``), each
+    batch distributed. Each step synchronised, timed and its peak kept
+    -> the record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, sharding_overrides
+    from repro_torch.configs.shapes import batch_logical_names
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  is_dtensor, sharding_scope)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.models.transformer import init_model, model_specs
+    from repro_torch.train import optim
+
+    arch, _, rows, seq, lr = TRAIN_FAMILIES["train-vl"]
+    whole = get_config(arch)
+    cfg = whole if layers is None else dataclasses.replace(whole,
+                                                           n_layers=layers)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scope = contextlib.nullcontext()
+    if mesh_shape is not None:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
+        scope = sharding_scope(mesh, **sharding_overrides(arch))
+    rec = {"arch": arch, "layers": cfg.n_layers, "of_layers": whole.n_layers,
+           "vocab": cfg.vocab_size, "rows": rows, "seq": seq, "lr": lr,
+           "metrics": [],
+           "step_ms_each": [], "step_peak_bytes": []}
+
+    def scalar(x):
+        return float(x.full_tensor() if is_dtensor(x) else x)
+
+    with scope:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+        opt = optim.make_optimizer(cfg.optimizer, optim.warmup_cosine(
+            lr, 10, max(steps, 20)))
+        if mesh_shape is None:
+            state = opt.init(params)
+        else:
+            specs = model_specs(cfg)
+            params = distribute_tree(params, specs, src_data_rank=None)
+            state = sharded_state(opt, cfg.optimizer, params, specs, dev)
+        torch.cuda.synchronize()
+        rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        step = make_train_step(cfg, opt)
+        data = SyntheticLMData(cfg.vocab_size, rows, seq, seed=0)
+        if counters is not None:
+            counters.reset()
+        for s in range(steps):
+            batch = train_batch(torch, cfg, data, s, dev)
+            if mesh_shape is not None:
+                batch = distribute_tree(batch, batch_logical_names(
+                    cfg, train=True), src_data_rank=None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            rec["metrics"].append({k: scalar(m[k])
+                                   for k in ("loss", "grad_norm")})
+            torch.cuda.synchronize()
+            rec["step_ms_each"].append((time.perf_counter() - t) * 1e3)
+            rec["step_peak_bytes"].append(torch.cuda.max_memory_allocated())
+        if counters is not None:
+            rec["launches"] = counters.read()
+        del params, state, batch
+    rec["losses"] = [x["loss"] for x in rec["metrics"]]
+    rec["peak_bytes"] = max(rec["step_peak_bytes"] + [rec["init_peak_bytes"]])
+    return rec
+
+
+def mesh_vl_rank(torch, counters, flags, layers, steps):
+    """One rank of a ``MESH_VL`` run (``vl_train`` on the ``flags``
+    mesh, the kernel counts set to 0 just before its first step)."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    dims, _ = parse_mesh(flags)
+    return vl_train(torch, layers, steps, dims, counters)
+
+
+def hold_mesh_graph(torch, label, recs):
+    """A ``MESH_GRAPH`` run's checks on every rank's record -> its
+    summary. Every rank: the metrics rank 0's; its rows at block d x M + m
+    (``local_offset`` of its shard); one SGNS forward and one backward a
+    step; no block the allocator handed out in the init or step 2 as large
+    as one whole table; its peak below its card's. With parity: held to
+    its card's one-card run (``hold_graph``), every rank's one-card run
+    the same. Without: finite losses, the last below the first."""
+    mesh, n_nodes, steps, parity = MESH_GRAPH[label]
+    r0 = recs[0]
+    for r in recs:
+        expect(r["metrics"] == r0["metrics"], f"{label}: rank {r['rank']}'s "
+               f"metrics differ from rank 0's")
+        expect(r["offset"] == r["block_offset"],
+               f"{label} rank {r['rank']} at {r['coordinate']}: its rows "
+               f"start at {r['offset']}, not {r['block_offset']}")
+        expect(r["launches"]["sgns_fwd"] == r["launches"]["sgns_bwd"]
+               == steps and sum(r["launches"].values()) == 2 * steps,
+               f"{label} rank {r['rank']}: launches {r['launches']}")
+        big = max(r["init_allocs"]["sizes"][0], r["step_allocs"]["sizes"][0])
+        expect(big < r["table_bytes"], f"{label} rank {r['rank']}: a block "
+               f"of {big} B, a whole table is {r['table_bytes']}")
+        expect(r["peak_bytes"] < r["card_bytes"], f"{label} rank "
+               f"{r['rank']}: peak {r['peak_bytes']} B")
+    losses = [m["loss"] for m in r0["metrics"]]
+    out = {"mesh": mesh, "n_nodes": n_nodes, "steps": steps,
+           "losses": losses, "metrics": r0["metrics"],
+           "step_ms": r0["step_ms"], "step_ms_each": r0["step_ms_each"],
+           "pairs_per_s": r0["pairs_per_s"],
+           "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+           "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
+           "largest_alloc_gb": [max(r["init_allocs"]["sizes"][0],
+                                    r["step_allocs"]["sizes"][0]) / 1e9
+                                for r in recs],
+           "where": r0["step_allocs"]["where"],
+           "collectives_step2": {name: [c[0], c[1] * 4]
+                                 for name, c in r0["collectives"].items()
+                                 if name.startswith("_c10d_functional")},
+           "nccl_ms_bus_gb_s": r0["nccl"],
+           "device_ms_step2": r0["device_ms"], "device_top": r0["device_top"],
+           "run_s": r0["run_s"]}
+    if parity:
+        one = r0["one_card"]
+        expect(all(r["one_card"]["metrics"] == one["metrics"]
+                   for r in recs), f"{label}: the ranks' one-card runs "
+               f"differ")
+        out["rel_diff_loss_grad_norm"] = hold_graph(label, r0, one)
+        out["one_card"] = {"step_ms_each": one["step_ms_each"],
+                           "step_ms": one["step_ms"],
+                           "peak_gb": one["peak_bytes"] / 1e9,
+                           "device_ms_step2": one["device_ms"],
+                           "device_top": one["device_top"]}
+        out["diff"] = {k: [max(r["diff"][k][0] for r in recs),
+                           all(r["diff"][k][1] for r in recs)]
+                       for k in r0["diff"]}
+    else:
+        expect(len(losses) == steps and all(map(math.isfinite, losses))
+               and losses[-1] < losses[0],
+               f"{label}: losses {losses} not finite and falling")
+    return out
+
+
+def hold_mesh_vl(np, label, recs, one=None):
+    """A ``MESH_VL`` run's checks -> its summary: every rank's losses rank
+    0's, no kernel launched, each rank's peak below its card's; at 12
+    layers held to ``one`` (one card's steps) as ``MESH_CELLS`` are; at all
+    28 by ``hold_training``."""
+    mesh, layers, steps = MESH_VL[label]
+    r0 = recs[0]
+    for r in recs:
+        expect(r["losses"] == r0["losses"], f"{label}: rank {r['rank']}'s "
+               f"losses differ from rank 0's")
+        expect(not any(r["launches"].values()) and r["peak_bytes"]
+               < r["card_bytes"], f"{label} rank {r['rank']}: launches "
+               f"{r['launches']}, peak {r['peak_bytes']}")
+    out = {"mesh": mesh, "layers": r0["layers"], "of_layers":
+           r0["of_layers"], "rows": r0["rows"], "seq": r0["seq"],
+           "losses": r0["losses"], "metrics": r0["metrics"],
+           "step_ms_each": r0["step_ms_each"],
+           "step_ms": statistics.median(r0["step_ms_each"][2:]),
+           "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+           "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
+           "run_s": r0["run_s"]}
+    out["tokens_per_s"] = r0["rows"] * r0["seq"] / out["step_ms"] * 1e3
+    if one is None:
+        counts = mesh_counts([{label: r} for r in recs])
+        out["mean_first5_last5"] = hold_training(
+            np, label, r0["losses"], steps, r0["vocab"],
+            max(r["peak_bytes"] for r in recs),
+            min(r["card_bytes"] for r in recs), counts)
+        return out
+    rel = [[abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
+           for m, w in zip(r0["metrics"], one["metrics"])]
+    out["rel_diff_loss_grad_norm"] = rel
+    out["one_card"] = {"step_ms_each": one["step_ms_each"],
+                       "peak_gb": one["peak_bytes"] / 1e9}
+    expect(len(rel) == steps and all(math.isfinite(x) for x in r0["losses"]),
+           f"{label}: losses {r0['losses']}, one card's {one['losses']}")
+    expect(rel[0][0] <= TOL_MESH_STEP[0] and rel[0][1] <= TOL_MESH_STEP[1],
+           f"{label}: step 1 loss / grad norm relative to one card's "
+           f"{rel[0]}, tolerance {TOL_MESH_STEP}")
+    expect(all(x[0] <= TOL_MESH_LOSS for x in rel[1:]),
+           f"{label}: the losses of steps 2-{steps} relative to one card's "
+           f"{[x[0] for x in rel[1:]]}, tolerance {TOL_MESH_LOSS}")
+    return out
 
 
 def mesh_decode_shape(torch, F, ops, ref, dev="cuda"):
@@ -5534,6 +6109,13 @@ def main() -> int:
     for name in ("sgns_fwd", "sgns_bwd"):
         large_rec[name].append(graph[name])
     torch.cuda.empty_cache()
+    graph_c, _ = graph_1x1_phase(torch, counters)
+    b, k, d, _ = GRAPH_RANK_SGNS
+    graph = check_sgns(torch, ref, sgns, b, k, d, torch.float32,
+                       "graph cell per rank on 2x2")
+    for name in ("sgns_fwd", "sgns_bwd"):
+        large_rec[name].append(graph[name])
+    torch.cuda.empty_cache()
     mesh_c, _ = mesh_phase(torch, np, counters, four=False)
 
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",
@@ -5541,7 +6123,7 @@ def main() -> int:
     kernels = []
     paths = (serve_counts, hub_counts, resil_counts, shard_counts,
              pipe_counts, offline_counts, *lm_counts.values(), train_counts,
-             *family_counts.values(), dryrun_counts, mesh_c)
+             *family_counts.values(), dryrun_counts, graph_c, mesh_c)
     for name, (src_path, replaces) in SOURCES.items():
         by_path = {"serve": serve_counts[name], "hub": hub_counts[name],
                    "resilience": resil_counts[name],
@@ -5551,7 +6133,8 @@ def main() -> int:
                    **{path: c[name] for path, c in lm_counts.items()},
                    "train": train_counts[name],
                    **{path: c[name] for path, c in family_counts.items()},
-                   "dryrun": dryrun_counts[name], "mesh": mesh_c[name]}
+                   "dryrun": dryrun_counts[name],
+                   "graph": graph_c[name], "mesh": mesh_c[name]}
         expect(sum(by_path.values()) > 0, f"kernel {name} never launched")
         rec = {
             "name": name, "route": "cuda", "source": src_path,

@@ -53,6 +53,13 @@ per-device figures for the production mesh.
   python -m repro_torch.launch.dryrun --mesh single --arch all \\
       --shape all --include-graph --real qwen3-4b:decode_32k
 
+The graph cell (the paper's own workload) also runs for real at any
+``GraphEmbedConfig``'s size, on one device or a real mesh: ``graph_state``
+draws its tables (the SGNS init, chunk by chunk, each rank its own rows)
+and builds Adam's moments on each rank's shards, ``GraphPairs`` draws each
+step's pairs (a seeded power law over the nodes; each rank keeps its own
+block), and ``graph_step`` is the step the dry run measures.
+
 Only this module starts a fake process group (``launch.mesh.init_world``);
 one process holds one default group, so a caller that needs another group
 runs this as a subprocess.
@@ -76,6 +83,7 @@ from repro_torch.configs import REGISTRY, get_config, sharding_overrides
 from repro_torch.configs.deepwalk_web import CONFIG as DW_CONFIG
 from repro_torch.configs.shapes import (SHAPES, batch_logical_names,
                                         input_specs, shape_supported)
+from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (is_dtensor, local_tree,
                                               sharding_scope)
 from repro_torch.launch.mesh import init_world, make_production_mesh
@@ -86,7 +94,8 @@ from repro_torch.models.transformer import (cache_specs, init_model,
 from repro_torch.train import optim
 from repro_torch.train.tree import leaves
 
-__all__ = ["build_cell", "build_graph_cell", "cell_overrides", "run_cell",
+__all__ = ["build_cell", "build_graph_cell", "graph_step", "graph_state",
+           "GraphPairs", "cell_overrides", "run_cell",
            "ACCUM_OVERRIDES", "SkipCell", "COLLECTIVES", "Tally", "main"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -276,27 +285,44 @@ def build_cell(arch: str, shape_name: str, mesh, make):
     return make_decode_step(cfg), (params, cache, tokens), (1,)
 
 
-def build_graph_cell(shape, mesh, make):
-    """The paper's own workload: the sharded SGNS train step
-    (deepwalk-web1b), both SGNS kernels on each rank's pairs."""
-    from repro_torch.skipgram.model import batch_loss
+GRAPH_LR = 0.025  # the graph cell's Adam rate
+GRAPH_SPECS = {"emb_in": ("vocab", None), "emb_out": ("vocab", None)}
+GRAPH_BATCH_SPECS = {"centers": ("batch",), "contexts": ("batch",),
+                     "negatives": ("batch", None)}
+GRAPH_SPREAD = 2654435761  # node of the r-th most frequent id: r x this mod V
 
-    c = DW_CONFIG
+
+def build_graph_cell(shape, mesh, make, config=DW_CONFIG):
+    """The paper's own workload: the sharded SGNS train step
+    (deepwalk-web1b, or ``config``: a ``GraphEmbedConfig`` sized otherwise),
+    both SGNS kernels on each rank's pairs."""
+    c = config
     V, D, K, B = c.n_nodes, c.dim, c.n_neg, c.global_batch
     pdt = getattr(torch, c.param_dtype)
     meta = {"emb_in": torch.empty((V, D), dtype=pdt, device="meta"),
             "emb_out": torch.empty((V, D), dtype=pdt, device="meta")}
-    p_specs = {"emb_in": ("vocab", None), "emb_out": ("vocab", None)}
-    params = _place(meta, p_specs, make, "params")
-    opt = optim.make_optimizer("adam", 0.025)
-    opt_state = _place(opt.init(meta), optim.adam_state_specs(p_specs), make,
-                       "opt")
+    params = _place(meta, GRAPH_SPECS, make, "params")
+    opt = optim.make_optimizer("adam", GRAPH_LR)
+    opt_state = _place(opt.init(meta), optim.adam_state_specs(GRAPH_SPECS),
+                       make, "opt")
     i32 = torch.int32
     batch = {"centers": torch.empty((B,), dtype=i32, device="meta"),
              "contexts": torch.empty((B,), dtype=i32, device="meta"),
              "negatives": torch.empty((B, K), dtype=i32, device="meta")}
-    batch = _place(batch, {"centers": ("batch",), "contexts": ("batch",),
-                           "negatives": ("batch", None)}, make, "batch")
+    batch = _place(batch, GRAPH_BATCH_SPECS, make, "batch")
+    return graph_step(opt), (params, opt_state, batch), (0, 1)
+
+
+def graph_step(opt, metrics=False):
+    """The graph cell's step ``(params, opt_state, batch) -> (params,
+    opt_state, loss)``: the mean SGNS loss of the batch, its gradients, one
+    ``opt`` step on the params in place. ``metrics``: the third output is
+    ``{"loss", "grad_norm"}``, each reduced to every rank (the loss is a
+    mean over pairs split over the mesh: a partial sum until then)."""
+    from repro_torch.skipgram.model import batch_loss
+
+    def whole(x):
+        return x.full_tensor() if is_dtensor(x) else x
 
     def step(params, opt_state, batch):
         ws = {k: v.detach().requires_grad_() for k, v in params.items()}
@@ -305,10 +331,99 @@ def build_graph_cell(shape, mesh, make):
                               batch["negatives"])
             grads = dict(zip(ws, torch.autograd.grad(loss, list(
                 ws.values()))))
+        out = loss.detach()
+        if metrics:
+            out = {"loss": whole(out),
+                   "grad_norm": whole(optim.global_norm(grads))}
         opt_state = opt.step(grads, opt_state, params)
-        return params, opt_state, loss.detach()
+        return params, opt_state, out
 
-    return step, (params, opt_state, batch), (0, 1)
+    return step
+
+
+def graph_state(config=DW_CONFIG, *, device="cuda", seed=0):
+    """The graph cell's (params, Adam state) for a real run: ``emb_in`` as
+    ``skipgram.model.init_params`` draws it, chunk by chunk
+    (``init_rows``), ``emb_out`` and the moments zeros. Under a sharding
+    scope (the cell's rules: rows split over every mesh axis) each rank
+    makes its own rows alone, bit-equal to the same rows of the whole
+    table, and the moments on its own shards as ``launch/train --mesh``
+    builds them; with none, whole tensors on ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import current_ctx, local_offset
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.skipgram.model import init_rows
+
+    V, D = config.n_nodes, config.dim
+    pdt = getattr(torch, config.param_dtype)
+    dev = resolve_device(device)
+    opt = optim.make_optimizer("adam", GRAPH_LR)
+    if current_ctx() is None:
+        params = {"emb_in": init_rows(0, V, V, D, seed, pdt, device=dev),
+                  "emb_out": torch.zeros((V, D), dtype=pdt, device=dev)}
+        return params, opt.init(params)
+    meta = {"emb_out": torch.empty((V, D), dtype=pdt, device="meta")}
+    out = local_tree(meta, {"emb_out": GRAPH_SPECS["emb_out"]},
+                     lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                   device=dev))["emb_out"]
+    lo, n = local_offset(out)[0], out.to_local().shape[0]
+    emb_in = DTensor.from_local(init_rows(lo, lo + n, V, D, seed, pdt,
+                                          device=dev),
+                                out.device_mesh, out.placements,
+                                run_check=False, shape=out.shape,
+                                stride=out.stride())
+    params = {"emb_in": emb_in, "emb_out": out}
+    return params, sharded_state(opt, "adam", params, GRAPH_SPECS, dev)
+
+
+class GraphPairs:
+    """The graph cell's pairs for a real run, the same on every run and
+    rank: ``pairs(step)`` draws the step's whole batch from a generator on
+    ``device`` seeded by (seed, step) and, under a sharding scope, keeps
+    each rank's own block (the batch split over every mesh axis). Centers
+    and contexts follow a power law over the nodes (the r-th most frequent
+    id's share is 1/(r + 1) of the harmonic sum), negatives that law to the
+    3/4 power, as ``skipgram.corpus.noise_cdf`` raises a walk corpus's
+    counts (a walk visits nodes in proportion to their degree); the r-th
+    id is node r x ``GRAPH_SPREAD`` mod V, so that the hot rows fall on
+    every rank's shard. Each law is inverted by a search of its float64
+    CDF."""
+
+    def __init__(self, config=DW_CONFIG, *, device="cuda", seed=0):
+        self.config, self.seed = config, seed
+        self.device = resolve_device(device)
+        w = 1.0 / torch.arange(1, config.n_nodes + 1, dtype=torch.float64,
+                               device=self.device)
+        self.cdf = [self._cdf(w), self._cdf(w.pow_(0.75))]
+
+    @staticmethod
+    def _cdf(w):
+        c = torch.cumsum(w, 0)
+        return c.div_(c[-1].clone())
+
+    def _ids(self, cdf, u):
+        V = self.config.n_nodes
+        r = torch.searchsorted(cdf, u, right=True).clamp_(max=V - 1)
+        return r.mul_(GRAPH_SPREAD).remainder_(V).to(torch.int32)
+
+    def __call__(self, step: int):
+        from repro_torch.distributed.sharding import (current_ctx,
+                                                      distribute_tree)
+
+        c = self.config
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.seed << 32) + (1 << 31) + step)
+        u = torch.rand((c.global_batch, 2 + c.n_neg), generator=gen,
+                       dtype=torch.float64, device=self.device)
+        pair = self._ids(self.cdf[0], u[:, :2].contiguous())
+        batch = {"centers": pair[:, 0].contiguous(),
+                 "contexts": pair[:, 1].contiguous(),
+                 "negatives": self._ids(self.cdf[1], u[:, 2:].contiguous())}
+        if current_ctx() is not None:
+            batch = distribute_tree(batch, GRAPH_BATCH_SPECS,
+                                    src_data_rank=None)
+        return batch
 
 
 def cell_overrides(arch: str, shape_name: str, model_axis: int = 16) -> dict:

@@ -27,9 +27,11 @@ from repro_torch.distributed.sharding import is_dtensor, sharded_rows
 from repro_torch.kernels import ops
 from repro_torch.train.optim import AdamState
 
-__all__ = ["init_params", "batch_loss", "from_jax_params", "Params"]
+__all__ = ["init_params", "init_rows", "batch_loss", "from_jax_params",
+           "Params"]
 
 Params = Dict[str, torch.Tensor]
+INIT_CHUNK_ROWS = 1 << 16  # rows of ``init_rows``' draws, at most
 
 
 def init_params(n_nodes: int, dim: int, gen: torch.Generator,
@@ -41,6 +43,27 @@ def init_params(n_nodes: int, dim: int, gen: torch.Generator,
     emb_in = (u - 0.5) / dim
     emb_out = torch.zeros((n_nodes, dim), device=device)
     return {"emb_in": emb_in.to(dtype), "emb_out": emb_out.to(dtype)}
+
+
+def init_rows(lo: int, hi: int, n_nodes: int, dim: int, seed: int,
+              dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    """Rows ``lo:hi`` of the input table of ``init_params``' law
+    (uniform(-0.5, 0.5)/dim) for a table of ``n_nodes`` rows, drawn chunk
+    by chunk (``INIT_CHUNK_ROWS`` rows, at most 1/64 of the table): chunk c
+    from a generator on ``device`` seeded by (seed, c) alone, drawn whole
+    and cut to the rows asked for. So any range of rows is the same rows
+    of the whole table bit for bit (a rank's shard of a row-split table
+    draws its own chunks and no more), and no draw is larger than a
+    chunk."""
+    device = resolve_device(device)
+    n = max(1, min(INIT_CHUNK_ROWS, n_nodes >> 6))
+    out = torch.empty((hi - lo, dim), dtype=dtype, device=device)
+    for c in range(lo // n, -(-hi // n)):
+        gen = torch.Generator(device=device).manual_seed((seed << 32) + c)
+        u = torch.rand((n, dim), generator=gen, device=device)
+        a, b = max(lo, c * n), min(hi, (c + 1) * n)
+        out[a - lo:b - lo] = ((u[a - c * n:b - c * n] - 0.5) / dim).to(dtype)
+    return out
 
 
 class _SortedRows(torch.autograd.Function):

@@ -19,7 +19,9 @@ Each transform has two forms over the same per-leaf arithmetic:
     is a few fp32 copies of one leaf, and an elementwise transform (every
     one but adafactor) takes a leaf above ``SLICE_BYTES`` of fp32 in slices
     along its leading axis (``rows``), with the same bits: zamba2-7b's
-    stacked ``in_proj`` at 36 layers is 2.0 G entries, 8 GB a copy;
+    stacked ``in_proj`` at 36 layers is 2.0 G entries, 8 GB a copy. A
+    DTensor leaf is sliced likewise on each rank's local shard (a node
+    table's 4.3 GB shard at 2^25 nodes on four ranks);
   * ``update(grads, state, params) -> (updates, state)``, the JAX
     package's functional form, which copies the state first and leaves the
     one passed in as it was: the reference the parity tests hold ``step``
@@ -90,21 +92,30 @@ def _clone(state):
                     else x, state)
 
 
-def _row_slices(t: torch.Tensor):
-    """Slices of t's leading axis holding at most ``SLICE_BYTES`` of fp32
-    each (one row if a row holds more); [None] for a leaf below it, and for
-    a DTensor (``launch/train --mesh``: each rank updates its own shard)."""
-    from repro_torch.distributed.sharding import is_dtensor
+def _local(t):
+    """A DTensor's local shard; any other tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
 
-    if t.dim() == 0 or t.numel() * 4 <= SLICE_BYTES or is_dtensor(t):
+
+def _row_slices(g: torch.Tensor, p=None):
+    """Slices of the leading axis of gradient ``g`` holding at most
+    ``SLICE_BYTES`` of fp32 each (one row if a row holds more); [None] for a
+    leaf below it. A DTensor is sliced on its local shard (``launch/train
+    --mesh``, the graph cell: each rank updates its own shard), where
+    ``g`` is laid out as its parameter ``p`` (and so as its moments)."""
+    if is_dtensor(g) and (p is None or not is_dtensor(p)
+                          or list(g.placements) != list(p.placements)):
+        return [None]
+    t = _local(g)
+    if t.dim() == 0 or t.numel() * 4 <= SLICE_BYTES:
         return [None]
     n = max(1, SLICE_BYTES // max(t[0].numel() * 4, 1))
     return [slice(k, k + n) for k in range(0, t.shape[0], n)]
 
 
 def _at(t, rows):
-    """A state leaf, or its rows."""
-    return t if rows is None else t[rows]
+    """A state leaf, or the rows of its (local) shard."""
+    return t if rows is None else _local(t)[rows]
 
 
 def _transform(init, begin, leaf, elementwise=False) -> GradientTransform:
@@ -119,12 +130,13 @@ def _transform(init, begin, leaf, elementwise=False) -> GradientTransform:
     def step(grads, state, params):
         ctx, state = begin(state, grads)
         for i, (g, p) in enumerate(zip(leaves(grads), leaves(params))):
-            for rows in _row_slices(g) if elementwise else [None]:
+            for rows in _row_slices(g, p) if elementwise else [None]:
                 if rows is None:
                     p.add_(leaf(ctx, i, g, p).to(p.dtype))
                 else:
-                    pr = p[rows]
-                    pr.add_(leaf(ctx, i, g[rows], pr, rows).to(p.dtype))
+                    pr = _local(p)[rows]
+                    pr.add_(leaf(ctx, i, _local(g)[rows], pr, rows)
+                            .to(p.dtype))
         return state
 
     return GradientTransform(init, update, step, begin, leaf, elementwise)

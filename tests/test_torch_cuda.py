@@ -229,6 +229,15 @@ def test_sgns_kernels_take_any_k(cuda, b, d, dtype):
 
 
 @pytest.mark.cuda
+def test_sgns_kernels_at_the_graph_cell_s_rank_shape(cuda):
+    """Both kernels at the shape each rank of the graph cell's 2x2 mesh
+    launches them at: its own 2^18 of the 2^20 pairs, K = 5, D = 128,
+    fp32."""
+    _sgns_holds(*_sgns_inputs(cuda, 1 << 18, 128, 5, torch.float32, 18),
+                torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [4, 8, 150, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sgns_kernels_on_unaligned_rows(cuda, d, dtype):

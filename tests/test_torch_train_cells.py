@@ -4,8 +4,10 @@ The attention's query offset: ``attention_chunked`` and
 ``attention_reference`` on rows ``k:`` of q at ``q_offset = k`` equal rows
 ``k:`` of the whole call (causal, window, softcap, GQA; chunks that do and
 do not divide the rows). Ulysses attention (``attn_seq``): the reduced
-gemma2-2b (a window of 16, small enough to cross ranks) and starcoder2-7b,
-whose 4 heads do not divide an 8-way model axis, on gloo 1x8: each rank's
+gemma2-2b (a window of 16, small enough to cross ranks), starcoder2-7b and
+qwen2-vl-7b (its M-RoPE batch: patch embeddings in the first slots and (3,
+B, S) positions), whose 4 heads do not divide an 8-way model axis, on gloo
+1x8: each rank's
 attention runs on its own S/8 query rows at their absolute positions, and
 the loss, every gradient, the prefill and 4 decode steps equal the
 unsharded port and the JAX package (``torch_mesh_cases.check_families``).
@@ -69,7 +71,8 @@ def test_query_offset_rows_equal_the_whole_call_s(case):
 def test_heads_indivisible_archs_attend_their_own_query_rows_on_1x8(
         tmp_path):
     S = 32
-    got = check_families(("gemma2-2b", "starcoder2-7b"), tmp_path,
+    got = check_families(("gemma2-2b", "starcoder2-7b", "qwen2-vl-7b"),
+                         tmp_path,
                          mesh_shape=(1, 8), timeout=240,
                          worker=attn_rows_worker, seq=S,
                          reduced={"gemma2-2b": {"sliding_window": 16}})

@@ -712,3 +712,96 @@ def thread_backward_worker(rank, arch, mesh_shape, path):
         got.append([g.full_tensor() for g in box["grads"]])
     if rank == 0:
         torch.save(got, path)
+
+
+def graph_cell_worker(rank, mesh_shape, path):
+    """The graph cell (``launch.dryrun``: ``graph_state``, ``GraphPairs``,
+    ``graph_step`` with metrics) of the config in ``path`` on a (data,
+    model) mesh under its own rules, ``steps`` steps under an
+    ``AllocTally``. Rank 0 saves: each rank's mesh coordinate, the rows of
+    its first ``emb_in`` shard and their offset, the shapes each rank
+    allocated, whether its params, Adam state and first pairs are laid out
+    as ``build_graph_cell`` of the same config lays out the dry run's
+    arguments, every step's metrics, and the params and Adam moments after
+    the last step, gathered whole."""
+    from repro_torch.configs import sharding_overrides
+    from repro_torch.distributed.sharding import (full_tree, local_offset,
+                                                  sharding_scope)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optim
+
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.train.tree import leaves
+
+    def layout(tree):
+        return [(tuple(x.shape), x.dtype, [str(p) for p in x.placements],
+                 tuple(x.to_local().shape)) for x in leaves(tree)
+                if isinstance(x, torch.Tensor)]
+
+    inp = torch.load(path, weights_only=False)
+    cfg = inp["cfg"]
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
+    step = dryrun.graph_step(optim.make_optimizer("adam", dryrun.GRAPH_LR),
+                             metrics=True)
+    metrics = []
+    with sharding_scope(mesh, **sharding_overrides(cfg.name)):
+        _, cell, _ = dryrun.build_graph_cell(
+            SHAPES["train_4k"], mesh, dryrun._maker("meta"), cfg)
+        with AllocTally() as tally:
+            params, state = dryrun.graph_state(cfg, device="cpu")
+            first = (tuple(mesh.get_coordinate()),
+                     local_offset(params["emb_in"])[0],
+                     params["emb_in"].to_local().clone())
+            pairs = dryrun.GraphPairs(cfg, device="cpu")
+            as_cell = layout(cell) == layout((params, state, pairs(0)))
+            for s in range(inp["steps"]):
+                params, state, m = step(params, state, pairs(s))
+                metrics.append({k: float(v) for k, v in m.items()})
+        whole = full_tree({"params": params, "mu": state[0].mu,
+                           "nu": state[0].nu})
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, (first, sorted(set(
+        tally.shapes)), as_cell))
+    if rank == 0:
+        torch.save({"ranks": got, "metrics": metrics, "state": whole},
+                   path + ".out")
+
+
+def sliced_dtensor_worker(rank, path):
+    """Three steps of the optimizer in ``path`` (AdamW, or the graph
+    cell's Adam) on DTensor leaves of a 2x2 (data, model) mesh (rows split
+    over both axes, a leaf split over model alone, one replicated), their
+    moments on each rank's shards, with ``optim.SLICE_BYTES`` as it is and
+    then small enough that each local shard is updated a few rows at a
+    time. Rank 0 saves both runs' params and moments gathered whole, and
+    how many slices each leaf took."""
+    from repro_torch.distributed.sharding import (distribute_tree, full_tree,
+                                                  sharding_scope)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.train import optim
+
+    inp = torch.load(path, weights_only=False)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    specs = {"table": ("vocab", None), "stack": ("stack", None, "mlp"),
+             "norm": (None,)}
+    out, limit = [], optim.SLICE_BYTES
+    with sharding_scope(mesh, vocab=("data", "model")):
+        for small in (False, True):
+            optim.SLICE_BYTES = inp["small"] if small else limit
+            opt = optim.make_optimizer(inp["name"], 1e-2)
+            params = distribute_tree({k: v.clone() for k, v in
+                                      inp["params"].items()}, specs,
+                                     src_data_rank=None)
+            state = sharded_state(opt, inp["name"], params, specs, "cpu")
+            for g in inp["grads"]:
+                grads = distribute_tree(g, specs, src_data_rank=None)
+                state = opt.step(grads, state, params)
+            slices = {k: len(optim._row_slices(grads[k], params[k]))
+                      for k in params}
+            out.append((full_tree(params), full_tree(state[0].mu),
+                        full_tree(state[0].nu), slices))
+    optim.SLICE_BYTES = limit
+    if rank == 0:
+        torch.save(out, path + ".out")
