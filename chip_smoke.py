@@ -271,10 +271,12 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    ``sharded_rows``): step 1's loss 6 ln 2 and its grad norm within
    ``TOL_GRAPH_STEP`` of no mesh's, later losses within
    ``TOL_GRAPH_LOSS``, one launch of each SGNS kernel a step (the path's
-   counts); the tables' and moments' max abs difference and bit-equality
-   printed. Then both SGNS kernels at a 2x2 rank's own pairs
-   (``GRAPH_RANK_SGNS``: B = 2^18, K = 5, D = 128 fp32) against their
-   plain versions: rows of the kernels line's ``large``;
+   counts); the tables and moments entry by entry where Adam's
+   denominator is off its eps (``graph_diff``), their bit-equality
+   printed. Then both SGNS kernels at this path's own shape
+   (``GRAPH_ONE_SGNS``: B = 2^20, K = 5, D = 128 fp32) and at a 2x2
+   rank's own pairs (``GRAPH_RANK_SGNS``: B = 2^18) against their plain
+   versions: rows of the kernels line's ``large``;
 15. the "mesh" path (``mesh_phase``). In the whole smoke, and under
    ``--mesh-only`` with fewer than four cards (``mesh_1x1_phase``):
    ``launch/serve`` at qwen3-4b's full width and depth (``MESH_ONE_FLAGS``:
@@ -652,10 +654,23 @@ GRAPH_TIMED = 2  # the steps from which a run's ms a step is the median
 # losses. The same pairs and tables, the sums in another order
 TOL_GRAPH_STEP = 1e-6
 TOL_GRAPH_LOSS = 1e-5
-# the SGNS kernels at a rank's own pairs on 2x2: 2^20 / 4
+# the tables and Adam moments after the last step, entry by entry, where
+# no gradient reached the entry or Adam's denominator is off its eps
+# (``graph_diff``): a table within a hundredth of one step's largest move
+# (lr = 0.025); a wrong row's update is off by about lr. mu within
+# TOL_GRAPH_MOMENT x the entry's RMS gradient (sqrt(v_hat)), nu within
+# TOL_GRAPH_MOMENT x nu. A hot row sums ~10^5 terms: another order moves
+# its gradient by ~1e-9 (mu off by 1.7e-10 in a 2x2 run on 4 x H100), an
+# update at sqrt(v_hat) = 1e-6 by ~3e-5
+TOL_GRAPH_TABLE = 2.5e-4
+TOL_GRAPH_MOMENT = 1e-2
+GRAPH_CHUNK = 1 << 20  # rows a graph table is compared in
+# the SGNS kernels at the graph path's shape (a 1x1 mesh: all 2^20 pairs
+# a step) and at a rank's own pairs on 2x2 (2^20 / 4)
+GRAPH_ONE_SGNS = (1 << 20, 5, 128, "float32")
 GRAPH_RANK_SGNS = (1 << 18, 5, 128, "float32")
 # qwen2-vl-7b on 1x4 under its rules (attn_seq on model), through
-# models.steps (``vl_train``; both launchers refuse it) with the train-vl
+# models.steps (``vl_steps``; both launchers refuse it) with the train-vl
 # path's batch (2 x 2,048, 1,024 patches, M-RoPE positions) and rate:
 # label -> (mesh, layers (None: all 28), steps). At 12 layers held step by
 # step to one card's (as MESH_CELLS); at 28 by ``hold_training``: 7.62 B
@@ -665,7 +680,6 @@ GRAPH_RANK_SGNS = (1 << 18, 5, 128, "float32")
 # five's mean against the last five's; 4 x H100)
 MESH_VL = {"cell-vl-1x4-12": ("1x4", 12, MESH_HELD_STEPS),
            "cell-vl-1x4": ("1x4", None, TRAIN_STEPS_FAMILY)}
-MESH_CELLS_TIMEOUT = 1200  # s the cells' torchrun may take
 MESH_STATE_GB = 20.9
 # zamba2-7b at 81 layers on 1x4 in PR 26 (by rows: every rank ran every
 # mamba block whole): ms a step (two runs) and peak GB a rank
@@ -3619,29 +3633,81 @@ def train_batch(torch, cfg, data, step, dev):
     return batch
 
 
-def family_steps(torch, cfg, rows, seq, lr, meter, steps, dev="cuda"):
+def family_steps(torch, cfg, rows, seq, lr, steps, meter=None,
+                 mesh_shape=None, counters=None):
     """``make_train_step`` driven as the launcher drives it, for the
-    families it refuses: params from a seeded generator on the card, the
-    config's optimizer under the launcher's schedule (warmup-cosine to
-    ``lr``, 10 warm-up steps of max(steps, 20)), the synthetic batches of
-    seed 0 with the family's inputs (``train_batch``) -> the losses."""
+    families it refuses: params from a seeded generator on this process's
+    card, the config's optimizer under the launcher's schedule
+    (warmup-cosine to ``lr``, 10 warm-up steps of max(steps, 20)), the
+    synthetic batches of seed 0 with the family's inputs (``train_batch``)
+    for ``steps`` steps. With ``mesh_shape``: on a (data, model) mesh of
+    the started world under the arch's rules, as ``launch/train --mesh``
+    lays a run out (the params drawn whole alike on every rank, each
+    keeping its shards, the optimizer state built on them by
+    ``sharded_state``, each batch distributed). ``meter`` wraps the step;
+    each step is synchronised and timed. ``counters``: set to 0 just before
+    the first step, read after the last -> {"metrics": each step's loss and
+    grad norm, "losses", "step_ms_each", "init_peak_bytes", "peak_bytes"
+    (since the call), "launches"}."""
+    from repro_torch.configs import sharding_overrides
+    from repro_torch.configs.shapes import batch_logical_names
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed.sharding import (distribute_tree,
+                                                  is_dtensor, sharding_scope)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_state
     from repro_torch.models.steps import make_train_step
-    from repro_torch.models.transformer import init_model
+    from repro_torch.models.transformer import init_model, model_specs
     from repro_torch.train import optim
 
-    params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
-    opt = optim.make_optimizer(cfg.optimizer,
-                               optim.warmup_cosine(lr, 10, max(steps, 20)))
-    state = opt.init(params)
-    step = meter.wrap(make_train_step(cfg, opt))
-    data = SyntheticLMData(cfg.vocab_size, rows, seq, seed=0)
-    losses = []
-    for s in range(steps):
-        params, state, m = step(params, state,
-                                train_batch(torch, cfg, data, s, dev))
-        losses.append(float(m["loss"]))
-    return losses
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scope = contextlib.nullcontext()
+    if mesh_shape is not None:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
+        scope = sharding_scope(mesh, **sharding_overrides(cfg.name))
+    rec = {"metrics": [], "step_ms_each": []}
+
+    def scalar(x):
+        return float(x.full_tensor() if is_dtensor(x) else x)
+
+    with scope:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+        opt = optim.make_optimizer(cfg.optimizer,
+                                   optim.warmup_cosine(lr, 10, max(steps, 20)))
+        if mesh_shape is None:
+            state = opt.init(params)
+        else:
+            specs = model_specs(cfg)
+            params = distribute_tree(params, specs, src_data_rank=None)
+            state = sharded_state(opt, cfg.optimizer, params, specs, dev)
+        torch.cuda.synchronize()
+        rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
+        step = make_train_step(cfg, opt)
+        if meter is not None:
+            step = meter.wrap(step)
+        data = SyntheticLMData(cfg.vocab_size, rows, seq, seed=0)
+        if counters is not None:
+            counters.reset()
+        for s in range(steps):
+            batch = train_batch(torch, cfg, data, s, dev)
+            if mesh_shape is not None:
+                batch = distribute_tree(batch, batch_logical_names(
+                    cfg, train=True), src_data_rank=None)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            rec["metrics"].append({k: scalar(m[k])
+                                   for k in ("loss", "grad_norm")})
+            torch.cuda.synchronize()
+            rec["step_ms_each"].append((time.perf_counter() - t) * 1e3)
+        if counters is not None:
+            rec["launches"] = counters.read()
+        del params, state, batch
+    rec["losses"] = [x["loss"] for x in rec["metrics"]]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
 
 
 def train_family_phase(torch, np, counters, path):
@@ -3687,8 +3753,8 @@ def train_family_phase(torch, np, counters, path):
         finally:
             lm_train.make_train_step, lm_train.get_config = make, get
     else:
-        losses = family_steps(torch, cfg, rows, seq, lr, meter,
-                              TRAIN_STEPS_FAMILY)
+        losses = family_steps(torch, cfg, rows, seq, lr,
+                              TRAIN_STEPS_FAMILY, meter)["losses"]
     counts = counters.read()
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4046,10 +4112,19 @@ def _dryrun_dir():
 
 def dryrun_phase(torch):
     """The dry run of the production single-pod mesh: (a) the sweep, (b)
-    the real per-device cells. Returns the real cells' launch counts by
-    kernel."""
-    dryrun_sweep()
-    return dryrun_real(torch)
+    the real per-device cells, their processes started together (the
+    sweep traces on the CPU alone, the real cells run on the card).
+    Returns the real cells' launch counts by kernel."""
+    real = dryrun_real_start()
+    try:
+        dryrun_sweep()
+    except BaseException:
+        proc, logf = real
+        proc.kill()
+        proc.wait()
+        logf.close()
+        raise
+    return dryrun_real(torch, real)
 
 
 def dryrun_sweep():
@@ -4107,18 +4182,25 @@ def dryrun_sweep():
     return recs
 
 
-def dryrun_real(torch):
-    """(b) The real per-device runs (``DRYRUN_REAL``), one process ->
+def dryrun_real_start():
+    """Start (b), the real per-device runs (``DRYRUN_REAL``), in one
+    process -> (the process, its log)."""
+    work = _dryrun_dir()
+    archs = ",".join(sorted({a for a, _ in DRYRUN_REAL}))
+    shapes = ",".join(sorted({s for _, s in DRYRUN_REAL}))
+    real = ",".join(f"{a}:{s}" for a, s in DRYRUN_REAL)
+    return _dryrun(["--arch", archs, "--shape", shapes, "--real", real],
+                   work / "real.json", work / "real.log")
+
+
+def dryrun_real(torch, started):
+    """(b) Wait for the real per-device runs (``dryrun_real_start``) ->
     their launch counts by kernel, and the local shapes flash-decode and
     the SGNS kernels were launched at (held to ``DRYRUN_DECODE_SHAPE`` and
     ``DRYRUN_SGNS_SHAPE``)."""
     work = _dryrun_dir()
     t0 = time.perf_counter()
-    archs = ",".join(sorted({a for a, _ in DRYRUN_REAL}))
-    shapes = ",".join(sorted({s for _, s in DRYRUN_REAL}))
-    real = ",".join(f"{a}:{s}" for a, s in DRYRUN_REAL)
-    _wait([_dryrun(["--arch", archs, "--shape", shapes, "--real", real],
-                   work / "real.json", work / "real.log")], "dryrun --real")
+    _wait([started], "dryrun --real")
     got = {(r["arch"], r["shape"]): r for r in
            json.loads((work / "real.json").read_text())}
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4157,7 +4239,7 @@ def dryrun_real(torch):
         shapes[key] = want
     log(f"dryrun --real: kernels launched at flash_decode "
         f"{shapes['flash_decode']}, sgns {shapes['sgns_fwd']} (rank 0's "
-        f"shards); {time.perf_counter() - t0:.1f} s")
+        f"shards); {time.perf_counter() - t0:.1f} s after the sweep")
     return counts
 
 
@@ -5299,7 +5381,7 @@ def mesh_cell_opts(label):
 def mesh_cells_reference(torch):
     """Each ``MESH_CELLS`` run on this process's card, no mesh
     (``mesh_train_rank``), and each ``MESH_VL`` run that one card holds
-    (``vl_train``) -> {label: its record, with its peak}. The graph runs'
+    (``vl_steps``) -> {label: its record, with its peak}. The graph runs'
     one-card references run on each rank's own card
     (``mesh_graph_rank``)."""
     t0 = time.perf_counter()
@@ -5312,11 +5394,11 @@ def mesh_cells_reference(torch):
         torch.cuda.empty_cache()
     for label, (_, layers, steps) in MESH_VL.items():
         if layers is not None:  # all 28 layers fit no one card
-            ones[label] = vl_train(torch, layers, steps)
+            ones[label] = vl_steps(torch, layers, steps)
             torch.cuda.empty_cache()
     log("mesh cells references (one card, no mesh): " + json.dumps(
-        {label: {k: r[k] for k in ("metrics", "step_ms_each",
-                                   "step_peak_bytes")}
+        {label: {k: r.get(k) for k in ("metrics", "step_ms_each",
+                                       "step_peak_bytes")}
          | {"peak_gb": r["peak_bytes"] / 1e9,
             "largest_allocs": r.get("largest_allocs")}
          for label, r in ones.items()})
@@ -5344,63 +5426,21 @@ def topology(torch) -> str:
     return "\n".join(out)
 
 
-def nccl_rate(torch, nbytes=1 << 28, iters=5):
-    """The started world's all-gather and reduce-scatter of ``nbytes`` of
-    fp32 a rank (the graph cell's collectives), each the median of
-    ``iters`` calls after one, every call started together (an all-reduce
-    of one element first): {op: [ms, bus GB/s]}, bus GB/s as NCCL's
-    tests reckon it ((n - 1) / n x the whole buffer over the time)."""
-    import torch.distributed as dist
-
-    n = dist.get_world_size()
-    small = torch.empty(nbytes // 4, device="cuda")
-    whole = torch.empty(n * small.numel(), device="cuda")
-    ops = {"all_gather": lambda: dist.all_gather_into_tensor(whole, small),
-           "reduce_scatter": lambda: dist.reduce_scatter_tensor(small,
-                                                                whole)}
-    out = {}
-    for name, op in ops.items():
-        times = []
-        for _ in range(iters + 1):
-            dist.all_reduce(torch.zeros(1, device="cuda"))
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            op()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        sec = statistics.median(times[1:])
-        out[name] = [sec * 1e3, (n - 1) / n * whole.nbytes / sec / 1e9]
-    return out
-
-
 def mesh_cells(torch, np):
     """The train cells as the JAX package lays them out, on four cards
     (``MESH_CELLS``): each first on cuda:0 with no mesh (``mesh_train_rank``
     in this process), then all in one ``torchrun`` of 4 ranks
-    (``launch/train --mesh``, each arch's own rules). Held for each: every
-    rank's losses rank 0's, finite, no kernel launched, peaks below the
-    card's; step 1's loss and grad norm within ``TOL_MESH_STEP`` of one
-    card's, the losses of steps 2 to ``MESH_HELD_STEPS`` within
-    ``TOL_MESH_LOSS`` (``MESH_CELLS_ROUTED``: every step's loss within
-    ``TOL_MESH_LOSS``, the grad norms printed; its fp32 twin held as the
-    rest). grok-1-314b (``MESH_CELLS_RECORD``): at the recorded
-    step, every rank's peak below one card's on the same step, and the
-    largest block each rank allocated (the allocator's own history) below
-    one whole expert matrix. Printed: ms a step (step 3), peak GB a rank
-    beside one card's, the largest blocks. In the same torchrun the
-    paper's own workload (``MESH_GRAPH``: the graph cell on 2x2 at 2^23
-    nodes against each rank's one-card run, at 2^25 nodes alone;
-    ``hold_mesh_graph``) and qwen2-vl-7b through ``models.steps`` on 1x4
-    (``MESH_VL``: 12 layers against one card's steps, all 28 by
-    ``hold_training``; ``hold_mesh_vl``); printed for each: ms a step,
-    pairs or tokens a second, each rank's peak, the graph runs' collective
-    calls and input bytes by op (step 2, ``CollectiveTrace``; every
-    collective of the path moves 4-byte elements) and the cards'
-    topology -> (the launch counts, the records)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-
+    (``launch/train --mesh``, each arch's own rules; ``hold_mesh_cell``).
+    In the same torchrun the paper's own workload (``MESH_GRAPH``: the
+    graph cell on 2x2 at 2^23 nodes against each rank's one-card run, at
+    2^25 nodes alone; ``hold_mesh_graph``) and qwen2-vl-7b through
+    ``models.steps`` on 1x4 (``MESH_VL``: 12 layers against one card's
+    steps, all 28 by ``hold_training``; ``hold_mesh_vl``). Printed for
+    each: ms a step, pairs or tokens a second, each rank's peak; the graph
+    runs' collective calls and input bytes by op (step 2,
+    ``CollectiveTrace``; every collective of the path moves 4-byte
+    elements); the cards' topology -> (the launch counts, the
+    records)."""
     t0 = time.perf_counter()
     log("cards' topology:\n" + topology(torch))
     ones = mesh_cells_reference(torch)
@@ -5413,98 +5453,122 @@ def mesh_cells(torch, np):
     plan += [{"tag": label, "kind": "vl", "flags": mesh,
               "opts": {"layers": layers, "steps": steps}}
              for label, (mesh, layers, steps) in MESH_VL.items()]
-    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "cells"),
-                      MESH_CELLS_TIMEOUT)
+    ranks = mesh_wait(mesh_start(MESH_CARDS, plan, "cells"))
     out, failed = {}, []
-    for label, (arch, mesh, lr, changes, rows, seq) in MESH_CELLS.items():
-        recs, one = [rank[label] for rank in ranks], ones[label]
-        cfg = dataclasses.replace(get_config(arch), **changes)
-        r0 = recs[0]
-        rel = [[abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
-               for m, w in zip(r0["metrics"], one["metrics"])]
-        rec = {"arch": arch, "mesh": mesh, "layers": cfg.n_layers,
-               "of_layers": get_config(arch).n_layers, "lr": lr,
-               "dtype": cfg.param_dtype,
-               "rows": rows, "seq": seq, "losses": r0["losses"],
-               "rel_diff_loss_grad_norm": rel,
-               "step_ms": r0["step_ms_each"][-1],
-               "step_ms_each": r0["step_ms_each"],
-               "tokens_per_s": rows * seq / r0["step_ms_each"][-1] * 1e3,
-               "run_s": r0["run_s"],
-               "ranks": [{"peak_gb": r["peak_bytes"] / 1e9,
-                          "step_peak_gb": [b / 1e9
-                                           for b in r["step_peak_bytes"]],
-                          "param_gb": r["param_bytes"] / 1e9,
-                          "state_gb": r["state_bytes"] / 1e9,
-                          "largest_allocs": r.get("largest_allocs")}
-                         for r in recs],
-               "whole_leaves": r0["whole"],
-               "one_card": {"step_ms_each": one["step_ms_each"],
-                            "peak_gb": one["peak_bytes"] / 1e9,
-                            "step_peak_gb": [b / 1e9 for b in
-                                             one["step_peak_bytes"]],
-                            "largest_allocs": one.get("largest_allocs")}}
-        at = MESH_CELLS_RECORD.get(label)
-        if at is not None:
-            m = cfg.moe
-            rec["expert_matrix_bytes"] = whole = \
-                m.n_experts * cfg.d_model * m.d_ff_expert * 2
-        out[label] = rec
-        log(f"mesh {label}: {arch} ({cfg.n_layers} of "
-            f"{rec['of_layers']} layers, {rows} x {seq}) on {mesh}: "
-            + json.dumps(rec))
+    for label in (*MESH_CELLS, *MESH_GRAPH, *MESH_VL):
+        recs, rec = [rank[label] for rank in ranks], {}
+        out[label] = rec  # filled before its checks, printed after them
         try:
-            for r in recs:
-                expect(r["losses"] == r0["losses"],
-                       f"{label}: rank {r['rank']}'s losses differ from "
-                       "rank 0's")
-                expect(len(r["losses"]) == MESH_HELD_STEPS
-                       and all(math.isfinite(x) for x in r["losses"])
-                       and r["peak_bytes"] < r["card_bytes"]
-                       and not any(r["launches"].values()),
-                       f"{label} rank {r['rank']}: losses {r['losses']}, "
-                       f"peak {r['peak_bytes']}, launches {r['launches']}")
-                if at is not None:
-                    expect(r["step_peak_bytes"][at]
-                           < one["step_peak_bytes"][at],
-                           f"{label} rank {r['rank']}: step {at + 1}'s peak "
-                           f"{r['step_peak_bytes'][at]} B, one card's "
-                           f"{one['step_peak_bytes'][at]}")
-                    big = r["largest_allocs"]["sizes"][0]
-                    expect(big < whole,
-                           f"{label} rank {r['rank']}: a block of {big} B "
-                           f"allocated in step {at + 1}, a whole expert "
-                           f"matrix is {whole}")
-            expect(len(rel) == MESH_HELD_STEPS,
-                   f"{label}: {len(rel)} steps held against one card")
-            routed = label in MESH_CELLS_ROUTED
-            expect(routed or (rel[0][0] <= TOL_MESH_STEP[0]
-                              and rel[0][1] <= TOL_MESH_STEP[1]),
-                   f"{label}: step 1 loss / grad norm relative to one "
-                   f"card's {rel[0]}, tolerance {TOL_MESH_STEP}")
-            expect(all(x[0] <= TOL_MESH_LOSS for x in rel[routed:]),
-                   f"{label}: the losses of steps {2 - routed}-"
-                   f"{MESH_HELD_STEPS} relative to one card's "
-                   f"{[x[0] for x in rel[routed:]]}, tolerance "
-                   f"{TOL_MESH_LOSS}")
-        except SmokeFailure as e:
-            failed.append(str(e))
-    for label in (*MESH_GRAPH, *MESH_VL):
-        recs = [rank[label] for rank in ranks]
-        try:
-            out[label] = hold_mesh_graph(torch, label, recs) \
-                if label in MESH_GRAPH else hold_mesh_vl(np, label, recs,
-                                                         ones.get(label))
+            if label in MESH_CELLS:
+                hold_mesh_cell(label, recs, ones[label], rec)
+            elif label in MESH_GRAPH:
+                hold_mesh_graph(label, recs, rec)
+            else:
+                hold_mesh_vl(np, label, recs, ones.get(label), rec)
         except SmokeFailure as e:
             failed.append(str(e))
         finally:
-            log(f"mesh {label}: " + json.dumps(
-                out.get(label) or {"metrics": recs[0].get("metrics"),
-                                   "peak_bytes": [r.get("peak_bytes")
-                                                  for r in recs]}))
+            log(f"mesh {label}: " + json.dumps(rec))
     expect(not failed, "; ".join(failed))
     log(f"mesh cells (4 cards): {time.perf_counter() - t0:.1f} s")
     return mesh_counts(ranks), out
+
+
+def hold_ranks(label, recs, steps):
+    """Every rank of a four-card LM run (``MESH_CELLS``, ``MESH_VL``): its
+    losses rank 0's, ``steps`` of them, finite; no kernel of the port
+    launched; its peak below its card's."""
+    r0 = recs[0]
+    for r in recs:
+        expect(r["losses"] == r0["losses"],
+               f"{label}: rank {r['rank']}'s losses differ from rank 0's")
+        expect(len(r["losses"]) == steps
+               and all(math.isfinite(x) for x in r["losses"])
+               and r["peak_bytes"] < r["card_bytes"]
+               and not any(r["launches"].values()),
+               f"{label} rank {r['rank']}: losses {r['losses']}, peak "
+               f"{r['peak_bytes']}, launches {r['launches']}")
+
+
+def hold_to_one(label, got, want, steps, step_tol, loss_tol, routed=False):
+    """A run's metrics (each step's loss and grad norm) held to one
+    card's: ``steps`` of each, finite; step 1's loss and grad norm within
+    ``step_tol`` (loss, grad norm) of one card's, relative, unless
+    ``routed`` (``MESH_CELLS_ROUTED``); the later losses (with ``routed``
+    every loss) within ``loss_tol`` -> each step's [loss, grad norm]
+    relative differences."""
+    keys = ("loss", "grad_norm")
+    expect(len(got) == len(want) == steps and all(
+        math.isfinite(m[k]) for m in got + want for k in keys),
+        f"{label}: metrics {got}, one card's {want}")
+    rel = [[abs(g[k] - w[k]) / abs(w[k]) for k in keys]
+           for g, w in zip(got, want)]
+    expect(routed or (rel[0][0] <= step_tol[0] and rel[0][1] <= step_tol[1]),
+           f"{label}: step 1 loss / grad norm relative to one card's "
+           f"{rel[0]}, tolerance {step_tol}")
+    expect(all(x[0] <= loss_tol for x in rel[routed:]),
+           f"{label}: the losses of steps {2 - routed}-{steps} relative to "
+           f"one card's {[x[0] for x in rel[routed:]]}, tolerance "
+           f"{loss_tol}")
+    return rel
+
+
+def hold_mesh_cell(label, recs, one, rec):
+    """A ``MESH_CELLS`` run: ``rec`` filled with its summary (ms a step
+    (step 3), tokens/s, each rank's peaks and largest blocks beside one
+    card's), then held: ``hold_ranks``; ``hold_to_one`` at
+    ``TOL_MESH_STEP`` and ``TOL_MESH_LOSS`` (``MESH_CELLS_ROUTED``: every
+    loss at ``TOL_MESH_LOSS``, the grad norms printed). grok-1-314b
+    (``MESH_CELLS_RECORD``): at the recorded step, every rank's peak below
+    one card's on the same step, and the largest block each rank allocated
+    (the allocator's own history) below one whole expert matrix."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, mesh, lr, changes, rows, seq = MESH_CELLS[label]
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    r0 = recs[0]
+    rec.update({
+        "arch": arch, "mesh": mesh, "layers": cfg.n_layers,
+        "of_layers": get_config(arch).n_layers, "lr": lr,
+        "dtype": cfg.param_dtype, "rows": rows, "seq": seq,
+        "losses": r0["losses"], "step_ms": r0["step_ms_each"][-1],
+        "step_ms_each": r0["step_ms_each"],
+        "tokens_per_s": rows * seq / r0["step_ms_each"][-1] * 1e3,
+        "run_s": r0["run_s"],
+        "ranks": [{"peak_gb": r["peak_bytes"] / 1e9,
+                   "step_peak_gb": [b / 1e9 for b in r["step_peak_bytes"]],
+                   "param_gb": r["param_bytes"] / 1e9,
+                   "state_gb": r["state_bytes"] / 1e9,
+                   "largest_allocs": r.get("largest_allocs")}
+                  for r in recs],
+        "whole_leaves": r0["whole"],
+        "one_card": {"metrics": one["metrics"],
+                     "step_ms_each": one["step_ms_each"],
+                     "peak_gb": one["peak_bytes"] / 1e9,
+                     "step_peak_gb": [b / 1e9 for b in
+                                      one["step_peak_bytes"]],
+                     "largest_allocs": one.get("largest_allocs")}})
+    at = MESH_CELLS_RECORD.get(label)
+    if at is not None:
+        m = cfg.moe
+        rec["expert_matrix_bytes"] = whole = \
+            m.n_experts * cfg.d_model * m.d_ff_expert * 2
+    hold_ranks(label, recs, MESH_HELD_STEPS)
+    for r in recs:
+        if at is not None:
+            expect(r["step_peak_bytes"][at] < one["step_peak_bytes"][at],
+                   f"{label} rank {r['rank']}: step {at + 1}'s peak "
+                   f"{r['step_peak_bytes'][at]} B, one card's "
+                   f"{one['step_peak_bytes'][at]}")
+            big = r["largest_allocs"]["sizes"][0]
+            expect(big < whole, f"{label} rank {r['rank']}: a block of "
+                   f"{big} B allocated in step {at + 1}, a whole expert "
+                   f"matrix is {whole}")
+    rec["rel_diff_loss_grad_norm"] = hold_to_one(
+        label, r0["metrics"], one["metrics"], MESH_HELD_STEPS,
+        TOL_MESH_STEP, TOL_MESH_LOSS, label in MESH_CELLS_ROUTED)
 
 
 def graph_config(n_nodes):
@@ -5605,35 +5669,62 @@ def graph_tensors(params, state):
     return out
 
 
-def graph_diff(torch, got, want):
-    """{name: [max abs difference, bit-equal]} of two ``graph_tensors``."""
-    return {k: [float((got[k] - w).abs().max()), bool(torch.equal(got[k],
-                                                                   w))]
-            for k, w in want.items()}
+def graph_diff(torch, got, want, steps):
+    """Two graph runs' tables and Adam moments after ``steps`` steps
+    (``graph_tensors`` of the same rows: ``got`` the run held, ``want`` one
+    card's) compared entry by entry, ``GRAPH_CHUNK`` rows at a time, as the
+    CPU tests hold them to the JAX package: inside the mask, where no
+    gradient reached the entry (one card's nu is 0) or Adam's denominator
+    is off its eps (sqrt(v_hat) > 100 eps), a table entry within
+    ``TOL_GRAPH_TABLE``, mu within ``TOL_GRAPH_MOMENT`` x max(sqrt(v_hat),
+    100 eps), nu within ``TOL_GRAPH_MOMENT`` x nu. Outside it the entry's
+    gradient is near eps, and an order change in the sum of its terms
+    moves its update, lr x m_hat / (sqrt(v_hat) + eps), by up to lr: held
+    nowhere -> {name: [max abs difference, bit-equal, share of entries
+    outside the mask, max abs difference inside it, entries inside it
+    past their tolerance]}."""
+    import numpy as np
+
+    eps = 1e-8  # Adam's, as the graph cell's optimizer has it
+    c2 = float(np.float32(1) - np.float32(0.999) ** np.float32(steps))
+    out = {}
+    for k, w in want.items():
+        name = k.split(".")[-1]
+        worst, outside, inside_max, over = 0.0, 0, 0.0, 0
+        for lo in range(0, w.shape[0], GRAPH_CHUNK):
+            rows = slice(lo, lo + GRAPH_CHUNK)
+            nu = want["nu." + name][rows]
+            s = torch.sqrt(nu / c2)
+            inside = (s > 100 * eps) | (nu == 0)
+            d = (got[k][rows] - w[rows]).abs()
+            tol = TOL_GRAPH_TABLE if k == name else TOL_GRAPH_MOMENT * (
+                s.clamp_min(100 * eps) if k.startswith("mu.") else nu)
+            worst = max(worst, float(d.max()))
+            outside += int((~inside).sum())
+            inside_max = max(inside_max, float(d.where(inside, 0).max()))
+            over += int((inside & (d > tol)).sum())
+        out[k] = [worst, bool(torch.equal(got[k], w)), outside / w.numel(),
+                  inside_max, over]
+    return out
 
 
-def hold_graph(label, rec, one):
+def hold_graph(label, rec, one, diffs):
     """A graph run held to one card's (``rec`` and ``one``: ``graph_run``
-    records): as many finite metrics; step 1's loss (in both: 6 ln 2, as
-    emb_out starts at zero) and grad norm within ``TOL_GRAPH_STEP`` of one
-    card's, relative; later losses within ``TOL_GRAPH_LOSS`` -> each step's
+    records; ``diffs``: ``graph_diff`` of each rank's tables and moments):
+    step 1's loss 6 ln 2 in both (emb_out starts at zero); ``hold_to_one``
+    at ``TOL_GRAPH_STEP`` (loss and grad norm) and ``TOL_GRAPH_LOSS``; no
+    entry inside ``graph_diff``'s mask past its tolerance -> each step's
     [loss, grad norm] relative differences."""
-    got, want = rec["metrics"], one["metrics"]
-    expect(len(got) == len(want) == rec["steps"] and all(
-        math.isfinite(m[k]) for m in got + want for k in m),
-        f"{label}: metrics {got}, one card's {want}")
     ln2 = (graph_config(1).n_neg + 1) * math.log(2)
-    for m, who in ((got[0], label), (want[0], f"{label}'s one card")):
+    for m, who in ((rec["metrics"][0], label),
+                   (one["metrics"][0], f"{label}'s one card")):
         expect(abs(m["loss"] - ln2) <= TOL_GRAPH_STEP * ln2,
                f"{who}: step 1's loss {m['loss']}, want 6 ln 2 = {ln2}")
-    rel = [[abs(g[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
-           for g, w in zip(got, want)]
-    expect(max(rel[0]) <= TOL_GRAPH_STEP, f"{label}: step 1 loss / grad "
-           f"norm relative to one card's {rel[0]}, tolerance "
-           f"{TOL_GRAPH_STEP}")
-    expect(all(r[0] <= TOL_GRAPH_LOSS for r in rel[1:]),
-           f"{label}: later losses relative to one card's "
-           f"{[r[0] for r in rel[1:]]}, tolerance {TOL_GRAPH_LOSS}")
+    rel = hold_to_one(label, rec["metrics"], one["metrics"], rec["steps"],
+                      (TOL_GRAPH_STEP, TOL_GRAPH_STEP), TOL_GRAPH_LOSS)
+    over = [{k: v for k, v in diff.items() if v[4]} for diff in diffs]
+    expect(not any(over), f"{label}: tables or moments past their "
+           f"tolerance inside the mask (by rank): {over}")
     return rel
 
 
@@ -5644,9 +5735,9 @@ def graph_1x1_phase(torch, counters):
     and its backward through ``sharded_rows``, the loss and grad norm
     reduced, Adam on the rank's (whole) shards. Held (``hold_graph``) to
     the run with no mesh; both SGNS kernels launched once a step on the
-    mesh; the tables and moments after the last step: max abs difference
-    and bit-equality printed. Returns (the mesh run's launch counts, its
-    record)."""
+    mesh; the tables and moments after the last step held entry by entry
+    (``graph_diff``), their bit-equality printed. Returns (the mesh run's
+    launch counts, its record)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_world, make_mesh
@@ -5664,7 +5755,8 @@ def graph_1x1_phase(torch, counters):
         mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
         params, state, rec = graph_run(torch, cfg, GRAPH_STEPS, mesh,
                                        counters=counters)
-        rec["diff"] = graph_diff(torch, graph_tensors(params, state), want)
+        rec["diff"] = graph_diff(torch, graph_tensors(params, state), want,
+                                 GRAPH_STEPS)
         del params, state, want
     finally:
         dist.destroy_process_group()
@@ -5678,7 +5770,7 @@ def graph_1x1_phase(torch, counters):
             {k: rec[k] for k in ("metrics", "step_ms_each", "step_ms",
                                  "pairs_per_s", "peak_bytes", "init_s",
                                  "diff", "one_card")}))
-    rel = hold_graph("graph 1x1", rec, one)
+    rel = hold_graph("graph 1x1", rec, one, [rec["diff"]])
     expect(counts["sgns_fwd"] == counts["sgns_bwd"] == GRAPH_STEPS
            and sum(counts.values()) == 2 * GRAPH_STEPS,
            f"graph 1x1: launches {counts}, want one forward and one "
@@ -5695,14 +5787,13 @@ def graph_1x1_phase(torch, counters):
 def mesh_graph_rank(torch, counters, flags, n_nodes, steps, parity):
     """One rank of a ``MESH_GRAPH`` run: with ``parity``, the graph cell
     first with no mesh on this rank's card (one card's run, kept: its
-    metrics, times and peak, and the rows of its params and moments that
-    this rank's shards hold, at block d x M + m of (d, m) on a D x M mesh,
-    as the JAX package lays rows out over ("data", "model"); step 2
-    inspected); then the
-    cell on the ``flags`` mesh (``graph_run``, step 2 inspected), the kernel
-    counts set to 0 just before its first step; last the world's NCCL
-    rates (``nccl_rate``) -> the rank's record (with the max abs difference
-    and bit-equality of its shards against those rows)."""
+    metrics, times and peak, a checksum of each of its params and moments
+    (``bit_sum``), and their rows that this rank's shards hold, at block
+    d x M + m of (d, m) on a D x M mesh, as the JAX package lays rows out
+    over ("data", "model"); step 2 inspected); then the cell on the
+    ``flags`` mesh (``graph_run``, step 2 inspected), the kernel counts
+    set to 0 just before its first step -> the rank's record (with its
+    shards against those rows: ``graph_diff``)."""
     from repro_torch.launch.mesh import make_mesh, parse_mesh
 
     dims, axes = parse_mesh(flags)
@@ -5717,124 +5808,108 @@ def mesh_graph_rank(torch, counters, flags, n_nodes, steps, parity):
     if parity:
         params, state, one = graph_run(torch, cfg, steps, inspect=1)
         lo = out["block_offset"]
-        want = {k: v[lo:lo + n].clone()
-                for k, v in graph_tensors(params, state).items()}
-        del params, state
+        whole = graph_tensors(params, state)
+        one["bit_sums"] = {k: bit_sum(torch, v) for k, v in whole.items()}
+        want = {k: v[lo:lo + n].clone() for k, v in whole.items()}
+        del params, state, whole
         torch.cuda.empty_cache()
         out["one_card"] = one
     params, state, rec = graph_run(torch, cfg, steps, mesh, inspect=1,
                                    counters=counters)
     out.update(rec)
     if want is not None:
-        out["diff"] = graph_diff(torch, graph_tensors(params, state), want)
+        out["diff"] = graph_diff(torch, graph_tensors(params, state), want,
+                                 steps)
     del params, state, want
     torch.cuda.empty_cache()
-    out["nccl"] = nccl_rate(torch)
     return out
 
 
-def vl_train(torch, layers, steps, mesh_shape=None, counters=None):
-    """qwen2-vl-7b at full width and ``layers`` layers (None: all 28)
-    trained as the train-vl path trains it (``family_steps``: its rows,
-    tokens, 1,024 patches at M-RoPE positions, mask 0 on them, AdamW under
-    the launcher's warmup-cosine to its rate) through
-    ``models.steps.make_train_step`` for ``steps`` steps, on this
-    process's card or, with ``mesh_shape``, on a (data, model) mesh of the
-    started world under the arch's rules (attn_seq on model: attention on
-    each rank's own query rows), as ``launch/train --mesh`` lays a run
-    out: the params drawn whole alike on every rank, each keeping its
-    shards, the optimizer state built on them (``sharded_state``), each
-    batch distributed. Each step synchronised, timed and its peak kept
-    -> the record."""
+def bit_sum(torch, t):
+    """The sum of a 4-byte tensor's bit patterns as int32, in int64, taken
+    ``GRAPH_CHUNK`` rows at a time: two runs that differ in one bit differ
+    here."""
+    return sum(int(c.view(torch.int32).sum(dtype=torch.int64))
+               for c in t.split(GRAPH_CHUNK))
+
+
+def vl_config(layers):
+    """The train-vl path's arch (qwen2-vl-7b) at full width and ``layers``
+    layers (None: all 28)."""
     import dataclasses
 
-    from repro_torch.configs import get_config, sharding_overrides
-    from repro_torch.configs.shapes import batch_logical_names
-    from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.distributed.sharding import (distribute_tree,
-                                                  is_dtensor, sharding_scope)
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import sharded_state
-    from repro_torch.models.steps import make_train_step
-    from repro_torch.models.transformer import init_model, model_specs
-    from repro_torch.train import optim
+    from repro_torch.configs import get_config
 
-    arch, _, rows, seq, lr = TRAIN_FAMILIES["train-vl"]
-    whole = get_config(arch)
-    cfg = whole if layers is None else dataclasses.replace(whole,
-                                                           n_layers=layers)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    scope = contextlib.nullcontext()
-    if mesh_shape is not None:
-        mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
-        scope = sharding_scope(mesh, **sharding_overrides(arch))
-    rec = {"arch": arch, "layers": cfg.n_layers, "of_layers": whole.n_layers,
-           "vocab": cfg.vocab_size, "rows": rows, "seq": seq, "lr": lr,
-           "metrics": [],
-           "step_ms_each": [], "step_peak_bytes": []}
+    whole = get_config(TRAIN_FAMILIES["train-vl"][0])
+    return whole if layers is None else dataclasses.replace(whole,
+                                                            n_layers=layers)
 
-    def scalar(x):
-        return float(x.full_tensor() if is_dtensor(x) else x)
 
-    with scope:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        params = init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
-        opt = optim.make_optimizer(cfg.optimizer, optim.warmup_cosine(
-            lr, 10, max(steps, 20)))
-        if mesh_shape is None:
-            state = opt.init(params)
-        else:
-            specs = model_specs(cfg)
-            params = distribute_tree(params, specs, src_data_rank=None)
-            state = sharded_state(opt, cfg.optimizer, params, specs, dev)
-        torch.cuda.synchronize()
-        rec["init_peak_bytes"] = torch.cuda.max_memory_allocated()
-        step = make_train_step(cfg, opt)
-        data = SyntheticLMData(cfg.vocab_size, rows, seq, seed=0)
-        if counters is not None:
-            counters.reset()
-        for s in range(steps):
-            batch = train_batch(torch, cfg, data, s, dev)
-            if mesh_shape is not None:
-                batch = distribute_tree(batch, batch_logical_names(
-                    cfg, train=True), src_data_rank=None)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            params, state, m = step(params, state, batch)
-            rec["metrics"].append({k: scalar(m[k])
-                                   for k in ("loss", "grad_norm")})
-            torch.cuda.synchronize()
-            rec["step_ms_each"].append((time.perf_counter() - t) * 1e3)
-            rec["step_peak_bytes"].append(torch.cuda.max_memory_allocated())
-        if counters is not None:
-            rec["launches"] = counters.read()
-        del params, state, batch
-    rec["losses"] = [x["loss"] for x in rec["metrics"]]
-    rec["peak_bytes"] = max(rec["step_peak_bytes"] + [rec["init_peak_bytes"]])
-    return rec
+def vl_steps(torch, layers, steps, mesh_shape=None, counters=None):
+    """qwen2-vl-7b (``vl_config``) trained as the train-vl path trains it
+    (``family_steps``: its rows, tokens, 1,024 patches at M-RoPE positions,
+    mask 0 on them, AdamW under the launcher's warmup-cosine to its rate),
+    on this process's card or on ``mesh_shape`` -> the record."""
+    _, _, rows, seq, lr = TRAIN_FAMILIES["train-vl"]
+    return family_steps(torch, vl_config(layers), rows, seq, lr, steps,
+                        mesh_shape=mesh_shape, counters=counters)
 
 
 def mesh_vl_rank(torch, counters, flags, layers, steps):
-    """One rank of a ``MESH_VL`` run (``vl_train`` on the ``flags``
-    mesh, the kernel counts set to 0 just before its first step)."""
+    """One rank of a ``MESH_VL`` run (``vl_steps`` on the ``flags`` mesh,
+    under the arch's rules: attn_seq on model, attention on each rank's
+    own query rows), the kernel counts set to 0 just before its first
+    step."""
     from repro_torch.launch.mesh import parse_mesh
 
     dims, _ = parse_mesh(flags)
-    return vl_train(torch, layers, steps, dims, counters)
+    return vl_steps(torch, layers, steps, dims, counters)
 
 
-def hold_mesh_graph(torch, label, recs):
-    """A ``MESH_GRAPH`` run's checks on every rank's record -> its
-    summary. Every rank: the metrics rank 0's; its rows at block d x M + m
-    (``local_offset`` of its shard); one SGNS forward and one backward a
-    step; no block the allocator handed out in the init or step 2 as large
-    as one whole table; its peak below its card's. With parity: held to
-    its card's one-card run (``hold_graph``), every rank's one-card run
-    the same. Without: finite losses, the last below the first."""
+def hold_mesh_graph(label, recs, rec):
+    """A ``MESH_GRAPH`` run: ``rec`` filled with its summary, then held on
+    every rank's record. Every rank: the metrics rank 0's; its rows at
+    block d x M + m (``local_offset`` of its shard); one SGNS forward and
+    one backward a step; no block the allocator handed out in the init or
+    step 2 as large as one whole table; its peak below its card's. With
+    parity: held to its card's one-card run (``hold_graph``, each rank's
+    tables and moments by ``graph_diff``), every rank's one-card run the
+    same metrics; printed, whether the four one-card runs' params and
+    moments are bit-equal (``bit_sum``). Without: finite losses, the last
+    below the first."""
     mesh, n_nodes, steps, parity = MESH_GRAPH[label]
     r0 = recs[0]
+    losses = [m["loss"] for m in r0["metrics"]]
+    rec.update({
+        "mesh": mesh, "n_nodes": n_nodes, "steps": steps, "losses": losses,
+        "metrics": r0["metrics"], "step_ms": r0["step_ms"],
+        "step_ms_each": r0["step_ms_each"], "pairs_per_s": r0["pairs_per_s"],
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+        "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
+        "largest_alloc_gb": [max(r["init_allocs"]["sizes"][0],
+                                 r["step_allocs"]["sizes"][0]) / 1e9
+                             for r in recs],
+        "where": r0["step_allocs"]["where"],
+        "collectives_step2": {name: [c[0], c[1] * 4]
+                              for name, c in r0["collectives"].items()
+                              if name.startswith("_c10d_functional")},
+        "device_ms_step2": r0["device_ms"], "device_top": r0["device_top"],
+        "run_s": r0["run_s"]})
+    if parity:
+        one = r0["one_card"]
+        rec["one_card"] = {k: one[k] for k in ("metrics", "step_ms_each",
+                                               "step_ms")}
+        rec["one_card"].update(peak_gb=one["peak_bytes"] / 1e9,
+                               device_ms_step2=one["device_ms"],
+                               device_top=one["device_top"])
+        rec["one_card_runs_bit_equal"] = all(
+            r["one_card"]["bit_sums"] == one["bit_sums"] for r in recs)
+        diffs = [r["diff"] for r in recs]
+        rec["diff"] = {k: [max(x[k][0] for x in diffs),
+                           all(x[k][1] for x in diffs),
+                           sum(x[k][2] for x in diffs) / len(diffs),
+                           max(x[k][3] for x in diffs),
+                           sum(x[k][4] for x in diffs)] for k in diffs[0]}
     for r in recs:
         expect(r["metrics"] == r0["metrics"], f"{label}: rank {r['rank']}'s "
                f"metrics differ from rank 0's")
@@ -5849,87 +5924,51 @@ def hold_mesh_graph(torch, label, recs):
                f"of {big} B, a whole table is {r['table_bytes']}")
         expect(r["peak_bytes"] < r["card_bytes"], f"{label} rank "
                f"{r['rank']}: peak {r['peak_bytes']} B")
-    losses = [m["loss"] for m in r0["metrics"]]
-    out = {"mesh": mesh, "n_nodes": n_nodes, "steps": steps,
-           "losses": losses, "metrics": r0["metrics"],
-           "step_ms": r0["step_ms"], "step_ms_each": r0["step_ms_each"],
-           "pairs_per_s": r0["pairs_per_s"],
-           "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
-           "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
-           "largest_alloc_gb": [max(r["init_allocs"]["sizes"][0],
-                                    r["step_allocs"]["sizes"][0]) / 1e9
-                                for r in recs],
-           "where": r0["step_allocs"]["where"],
-           "collectives_step2": {name: [c[0], c[1] * 4]
-                                 for name, c in r0["collectives"].items()
-                                 if name.startswith("_c10d_functional")},
-           "nccl_ms_bus_gb_s": r0["nccl"],
-           "device_ms_step2": r0["device_ms"], "device_top": r0["device_top"],
-           "run_s": r0["run_s"]}
     if parity:
-        one = r0["one_card"]
         expect(all(r["one_card"]["metrics"] == one["metrics"]
                    for r in recs), f"{label}: the ranks' one-card runs "
                f"differ")
-        out["rel_diff_loss_grad_norm"] = hold_graph(label, r0, one)
-        out["one_card"] = {"step_ms_each": one["step_ms_each"],
-                           "step_ms": one["step_ms"],
-                           "peak_gb": one["peak_bytes"] / 1e9,
-                           "device_ms_step2": one["device_ms"],
-                           "device_top": one["device_top"]}
-        out["diff"] = {k: [max(r["diff"][k][0] for r in recs),
-                           all(r["diff"][k][1] for r in recs)]
-                       for k in r0["diff"]}
+        rec["rel_diff_loss_grad_norm"] = hold_graph(label, r0, one, diffs)
     else:
         expect(len(losses) == steps and all(map(math.isfinite, losses))
                and losses[-1] < losses[0],
                f"{label}: losses {losses} not finite and falling")
-    return out
 
 
-def hold_mesh_vl(np, label, recs, one=None):
-    """A ``MESH_VL`` run's checks -> its summary: every rank's losses rank
-    0's, no kernel launched, each rank's peak below its card's; at 12
-    layers held to ``one`` (one card's steps) as ``MESH_CELLS`` are; at all
-    28 by ``hold_training``."""
+def hold_mesh_vl(np, label, recs, one, rec):
+    """A ``MESH_VL`` run: ``rec`` filled with its summary, then held:
+    ``hold_ranks``; at 12 layers to ``one`` (one card's steps) as
+    ``MESH_CELLS`` are (``hold_to_one``); at all 28 by
+    ``hold_training``."""
     mesh, layers, steps = MESH_VL[label]
+    _, _, rows, seq, _ = TRAIN_FAMILIES["train-vl"]
+    cfg = vl_config(layers)
     r0 = recs[0]
-    for r in recs:
-        expect(r["losses"] == r0["losses"], f"{label}: rank {r['rank']}'s "
-               f"losses differ from rank 0's")
-        expect(not any(r["launches"].values()) and r["peak_bytes"]
-               < r["card_bytes"], f"{label} rank {r['rank']}: launches "
-               f"{r['launches']}, peak {r['peak_bytes']}")
-    out = {"mesh": mesh, "layers": r0["layers"], "of_layers":
-           r0["of_layers"], "rows": r0["rows"], "seq": r0["seq"],
-           "losses": r0["losses"], "metrics": r0["metrics"],
-           "step_ms_each": r0["step_ms_each"],
-           "step_ms": statistics.median(r0["step_ms_each"][2:]),
-           "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
-           "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
-           "run_s": r0["run_s"]}
-    out["tokens_per_s"] = r0["rows"] * r0["seq"] / out["step_ms"] * 1e3
+    rec.update({
+        "mesh": mesh, "layers": cfg.n_layers,
+        "of_layers": vl_config(None).n_layers, "rows": rows, "seq": seq,
+        "losses": r0["losses"], "metrics": r0["metrics"],
+        "step_ms_each": r0["step_ms_each"],
+        "step_ms": statistics.median(r0["step_ms_each"][2:]),
+        "peak_gb": [r["peak_bytes"] / 1e9 for r in recs],
+        "init_peak_gb": [r["init_peak_bytes"] / 1e9 for r in recs],
+        "run_s": r0["run_s"]})
+    rec["tokens_per_s"] = rows * seq / rec["step_ms"] * 1e3
+    if one is not None:
+        rec["one_card"] = {"metrics": one["metrics"],
+                           "step_ms_each": one["step_ms_each"],
+                           "peak_gb": one["peak_bytes"] / 1e9}
+    hold_ranks(label, recs, steps)
     if one is None:
-        counts = mesh_counts([{label: r} for r in recs])
-        out["mean_first5_last5"] = hold_training(
-            np, label, r0["losses"], steps, r0["vocab"],
+        rec["mean_first5_last5"] = hold_training(
+            np, label, r0["losses"], steps, cfg.vocab_size,
             max(r["peak_bytes"] for r in recs),
-            min(r["card_bytes"] for r in recs), counts)
-        return out
-    rel = [[abs(m[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")]
-           for m, w in zip(r0["metrics"], one["metrics"])]
-    out["rel_diff_loss_grad_norm"] = rel
-    out["one_card"] = {"step_ms_each": one["step_ms_each"],
-                       "peak_gb": one["peak_bytes"] / 1e9}
-    expect(len(rel) == steps and all(math.isfinite(x) for x in r0["losses"]),
-           f"{label}: losses {r0['losses']}, one card's {one['losses']}")
-    expect(rel[0][0] <= TOL_MESH_STEP[0] and rel[0][1] <= TOL_MESH_STEP[1],
-           f"{label}: step 1 loss / grad norm relative to one card's "
-           f"{rel[0]}, tolerance {TOL_MESH_STEP}")
-    expect(all(x[0] <= TOL_MESH_LOSS for x in rel[1:]),
-           f"{label}: the losses of steps 2-{steps} relative to one card's "
-           f"{[x[0] for x in rel[1:]]}, tolerance {TOL_MESH_LOSS}")
-    return out
+            min(r["card_bytes"] for r in recs),
+            mesh_counts([{label: r} for r in recs]))
+    else:
+        rec["rel_diff_loss_grad_norm"] = hold_to_one(
+            label, r0["metrics"], one["metrics"], steps, TOL_MESH_STEP,
+            TOL_MESH_LOSS)
 
 
 def mesh_decode_shape(torch, F, ops, ref, dev="cuda"):
@@ -6110,12 +6149,14 @@ def main() -> int:
         large_rec[name].append(graph[name])
     torch.cuda.empty_cache()
     graph_c, _ = graph_1x1_phase(torch, counters)
-    b, k, d, _ = GRAPH_RANK_SGNS
-    graph = check_sgns(torch, ref, sgns, b, k, d, torch.float32,
-                       "graph cell per rank on 2x2")
-    for name in ("sgns_fwd", "sgns_bwd"):
-        large_rec[name].append(graph[name])
-    torch.cuda.empty_cache()
+    for shape, label in ((GRAPH_ONE_SGNS, "graph cell on 1x1"),
+                         (GRAPH_RANK_SGNS, "graph cell per rank on 2x2")):
+        b, k, d, _ = shape
+        graph = check_sgns(torch, ref, sgns, b, k, d, torch.float32, label)
+        for name in ("sgns_fwd", "sgns_bwd"):
+            large_rec[name].append(graph[name])
+        del graph
+        torch.cuda.empty_cache()
     mesh_c, _ = mesh_phase(torch, np, counters, four=False)
 
     keys = ("max_abs_err", "ms", "loop_ms", "plain_ms", "bound_ms",

@@ -21,15 +21,18 @@ Each transform has two forms over the same per-leaf arithmetic:
     along its leading axis (``rows``), with the same bits: zamba2-7b's
     stacked ``in_proj`` at 36 layers is 2.0 G entries, 8 GB a copy. A
     DTensor leaf is sliced likewise on each rank's local shard (a node
-    table's 4.3 GB shard at 2^25 nodes on four ranks);
+    table's 4.3 GB shard at 2^25 nodes on four ranks), and its state must
+    then be DTensors laid out as the leaf is (``launch.train.sharded_state``):
+    ``init`` on DTensor params gives each rank whole moments, whose rows a
+    slice of the shard does not index, and the step raises;
   * ``update(grads, state, params) -> (updates, state)``, the JAX
     package's functional form, which copies the state first and leaves the
     one passed in as it was: the reference the parity tests hold ``step``
     and the JAX package against.
 Both are built from ``begin(state, grads) -> (ctx, state)``, once a step
 (counts, rates, the global norm), and ``leaf(ctx, i, u, p, rows=None) ->
-u``, once a leaf (``rows``: a slice of its leading axis, which ``u`` and
-``p`` already are, and of which the leaf's state is read); ``chain``
+u``, once a leaf (``rows``: a ``Rows`` of its leading axis, which ``u``
+and ``p`` already are, and of which the leaf's state is read); ``chain``
 composes those. A transform that reads the whole gradient
 (``clip_by_global_norm``) must therefore come first in a chain.
 
@@ -42,7 +45,7 @@ the JAX package: no lazy or sparse row updates.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -97,25 +100,45 @@ def _local(t):
     return t.to_local() if is_dtensor(t) else t
 
 
+class Rows(NamedTuple):
+    """A slice of a leaf's leading axis; ``placements``: where the leaf is
+    a DTensor, its placements (the slice is of its local shard)."""
+    at: slice
+    placements: Optional[tuple] = None
+
+
 def _row_slices(g: torch.Tensor, p=None):
-    """Slices of the leading axis of gradient ``g`` holding at most
+    """``Rows`` of the leading axis of gradient ``g`` holding at most
     ``SLICE_BYTES`` of fp32 each (one row if a row holds more); [None] for a
     leaf below it. A DTensor is sliced on its local shard (``launch/train
     --mesh``, the graph cell: each rank updates its own shard), where
-    ``g`` is laid out as its parameter ``p`` (and so as its moments)."""
-    if is_dtensor(g) and (p is None or not is_dtensor(p)
-                          or list(g.placements) != list(p.placements)):
-        return [None]
+    ``g`` is laid out as its parameter ``p``."""
+    placements = None
+    if is_dtensor(g):
+        placements = tuple(g.placements)
+        if p is None or not is_dtensor(p) or tuple(p.placements) != \
+                placements:
+            return [None]
     t = _local(g)
     if t.dim() == 0 or t.numel() * 4 <= SLICE_BYTES:
         return [None]
     n = max(1, SLICE_BYTES // max(t[0].numel() * 4, 1))
-    return [slice(k, k + n) for k in range(0, t.shape[0], n)]
+    return [Rows(slice(k, k + n), placements)
+            for k in range(0, t.shape[0], n)]
 
 
 def _at(t, rows):
-    """A state leaf, or the rows of its (local) shard."""
-    return t if rows is None else _local(t)[rows]
+    """A state leaf, or its ``rows``: of its local shard where the leaf is
+    a DTensor, whose state must then be laid out as it is."""
+    if rows is None:
+        return t
+    if rows.placements is not None and (
+            not is_dtensor(t) or tuple(t.placements) != rows.placements):
+        raise ValueError(
+            "optim: a DTensor leaf is updated in slices of its local shard, "
+            "but its state is not laid out as the leaf is (build it on the "
+            "leaf's shards: launch.train.sharded_state)")
+    return _local(t)[rows.at]
 
 
 def _transform(init, begin, leaf, elementwise=False) -> GradientTransform:
@@ -134,8 +157,8 @@ def _transform(init, begin, leaf, elementwise=False) -> GradientTransform:
                 if rows is None:
                     p.add_(leaf(ctx, i, g, p).to(p.dtype))
                 else:
-                    pr = _local(p)[rows]
-                    pr.add_(leaf(ctx, i, _local(g)[rows], pr, rows)
+                    pr = _local(p)[rows.at]
+                    pr.add_(leaf(ctx, i, _local(g)[rows.at], pr, rows)
                             .to(p.dtype))
         return state
 

@@ -238,6 +238,14 @@ def test_sgns_kernels_at_the_graph_cell_s_rank_shape(cuda):
 
 
 @pytest.mark.cuda
+def test_sgns_kernels_at_the_graph_cell_s_1x1_shape(cuda):
+    """Both kernels at the shape the graph cell on one card (a 1x1 mesh,
+    or none) launches them at: all 2^20 pairs, K = 5, D = 128, fp32."""
+    _sgns_holds(*_sgns_inputs(cuda, 1 << 20, 128, 5, torch.float32, 20),
+                torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [4, 8, 150, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sgns_kernels_on_unaligned_rows(cuda, d, dtype):

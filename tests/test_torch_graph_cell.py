@@ -235,7 +235,9 @@ def test_sliced_step_on_a_dtensor_s_local_shard_keeps_the_bits(name,
     above ``SLICE_BYTES`` (patched to 2 rows of the (64, 16) table's
     (16, 16) shard): three steps on 2x2 give the params and moments of the
     step without slices bit for bit, the table (rows over both axes) and
-    a stacked leaf split over model taken in several slices."""
+    a stacked leaf split over model taken in several slices. A sliced step
+    on the state of ``init`` (each rank's moments whole, not its shards')
+    raises rather than read the moments' wrong rows."""
     gen = torch.Generator().manual_seed(3)
     shapes = {"table": (64, 16), "stack": (6, 8, 12), "norm": (12,)}
     params = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
@@ -245,8 +247,9 @@ def test_sliced_step_on_a_dtensor_s_local_shard_keeps_the_bits(name,
     torch.save({"name": name, "params": params, "grads": grads,
                 "small": 2 * 16 * 4}, path)
     spawn(sliced_dtensor_worker, 4, path, timeout=90)
-    (p1, m1, v1, n1), (p2, m2, v2, n2) = torch.load(path + ".out",
-                                                     weights_only=False)
+    (p1, m1, v1, n1), (p2, m2, v2, n2), raised = torch.load(
+        path + ".out", weights_only=False)
+    assert raised is not None and "not laid out" in raised, raised
     assert n1 == {"table": 1, "stack": 1, "norm": 1}
     assert n2["table"] == 8 and n2["stack"] == 6 and n2["norm"] == 1
     for a, b in ((p1, p2), (m1, m2), (v1, v2)):

@@ -774,8 +774,9 @@ def sliced_dtensor_worker(rank, path):
     over both axes, a leaf split over model alone, one replicated), their
     moments on each rank's shards, with ``optim.SLICE_BYTES`` as it is and
     then small enough that each local shard is updated a few rows at a
-    time. Rank 0 saves both runs' params and moments gathered whole, and
-    how many slices each leaf took."""
+    time. Rank 0 saves both runs' params and moments gathered whole, how
+    many slices each leaf took, and what a sliced step raised on the state
+    of ``init`` (whole moments on each rank)."""
     from repro_torch.distributed.sharding import (distribute_tree, full_tree,
                                                   sharding_scope)
     from repro_torch.launch.mesh import make_mesh
@@ -802,6 +803,19 @@ def sliced_dtensor_worker(rank, path):
                       for k in params}
             out.append((full_tree(params), full_tree(state[0].mu),
                         full_tree(state[0].nu), slices))
+        # the table's state from ``init`` on its DTensor (whole moments on
+        # each rank): a slice of a local shard does not index it
+        opt = optim.make_optimizer(inp["name"], 1e-2)
+        one = {"table": specs["table"]}
+        params = distribute_tree({"table": inp["params"]["table"].clone()},
+                                 one, src_data_rank=None)
+        state = opt.init(params)
+        try:
+            opt.step(distribute_tree({"table": inp["grads"][0]["table"]},
+                                     one, src_data_rank=None), state, params)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
     optim.SLICE_BYTES = limit
     if rank == 0:
         torch.save(out, path + ".out")
