@@ -125,18 +125,30 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    steps on the CoreWalk corpus at the table's settings, device time by
    kernel and the device's busy share of the window (reported, not held to
    a limit);
-8. LM serving, four paths (``LM_PATHS``), each at its config's full width
-   and depth, bf16, weights from its ``init_model`` with a seeded generator
-   on the card, through ``repro_torch.launch.serve``: "lm" qwen3-4b (dense,
-   36 layers, 32/8 heads), "moe" moonshot-v1-16b-a3b (48 layers, 16 heads
-   of 128, 64 experts top-6 of 1408, vocabulary 163,840: 27.7 B params,
-   55.5 GB), "ssm" mamba2-2.7b (64 mamba2 blocks) and "hybrid" zamba2-7b
-   (81 mamba2 blocks, 13 calls of the shared attention block, 32 heads of
-   112). Each: 12 requests in 8 slots, prompts of 1024, 64 new tokens: 128
-   decode steps, four rows swapped in at step 64 while the other four run
-   past their cache's end. Held: 1,024 tokens decoded, exactly one
-   flash-decode launch per attention layer (or shared-block call) per step
-   (36, 48, 0, 13 x 128), no NaN or inf in any logits, every token in [0,
+8. LM serving, seven paths (``LM_PATHS``), each at its config's full
+   width and depth, bf16, weights from its ``init_model`` with a seeded
+   generator on the card, through ``repro_torch.launch.serve``: "lm"
+   qwen3-4b (dense, 36 layers, 32/8 heads), "moe" moonshot-v1-16b-a3b (48
+   layers, 16 heads of 128, 64 experts top-6 of 1408, vocabulary 163,840:
+   27.7 B params, 55.5 GB), "ssm" mamba2-2.7b (64 mamba2 blocks), "hybrid"
+   zamba2-7b (81 mamba2 blocks, 13 calls of the shared attention block, 32
+   heads of 112), and the dense family's other three (``DENSE_PATHS``;
+   ``python3 chip_smoke.py --dense-only`` builds the kernels and runs them
+   alone with their kernel checks, and prints no result line):
+   "dense-nemotron" nemotron-4-15b (32 layers, 48/8 heads: G = 6, squared
+   ReLU, LayerNorm, RoPE on 64 of 128 dims, an untied unembedding of
+   256,000 rows: 15.6 B params, 31.3 GB), "dense-starcoder2" starcoder2-7b
+   (32 layers, 36/4 heads: G = 9, the kernel's two group tiles; LayerNorm,
+   GELU) and "dense-gemma2" gemma2-2b (26 layers, 13 local with a window
+   of 4,096 and 13 global, softcaps 50 and 30, Dh = 256; prompts of 4,608
+   (``LM_PROMPT``), so that the window binds at every step: the decode
+   step's visible positions printed by window, the local layers' below the
+   global ones'). Each: 12 requests in 8 slots, prompts of 1024, 64 new
+   tokens: 128 decode steps, four rows swapped in at step 64 while the
+   other four run past their cache's end. Held: 1,024 tokens decoded,
+   exactly one flash-decode launch per attention layer (or shared-block
+   call) per step (36, 48, 0, 13, 32, 32, 26 x 128), no NaN or inf in any
+   logits, every token in [0,
    vocab), the swapped rows' cache holding their prefill (the KV prompt
    positions; the conv state shifted by the one step before the
    snapshot), peak memory below the card's. Printed: prefill and swap
@@ -171,7 +183,8 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    over ``LM_PROFILE_STEPS`` decode steps (device time by kernel class,
    launches per step, busy share; reported);
 10. small LM references: each path's model at the reduced preset (fp32;
-   qwen3-4b with G = 4) served on the card and on the CPU with the same
+   qwen3-4b with G = 4, nemotron with G = 6, starcoder2 with G = 9, gemma2
+   with a window of 6) served on the card and on the CPU with the same
    weights and schedule: token streams equal, logits within 1e-4; the
    MoE's smallest router margin (reported); the step paths' reduced
    models (qwen2-vl at G = 7, a 4 x 4 patch grid) through a prefill and 8
@@ -181,8 +194,10 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    queries; rtol 1e-2 + atol 1e-3 with bf16 queries, bf16 or int8 cache)
    at each path's live inputs (two attention calls of one step, timed
    rotating through the K/V of several: qwen3-4b's, moonshot's G = 1,
-   zamba2's Dh = 112, window 4096, seamless's self-attention (G = 1, Dh =
-   64) and cross-attention (S = 256, every row full) and qwen2-vl's G = 7)
+   zamba2's Dh = 112, window 4096, nemotron's G = 6, starcoder2's G = 9,
+   gemma2's local and global layers at S = 4,672, seamless's
+   self-attention (G = 1, Dh = 64) and cross-attention (S = 256, every row
+   full) and qwen2-vl's G = 7)
    and at a gemma2-2b shape (softcap 50,
    window 4096), a large ragged bf16 shape, the same with an int8 cache,
    and a large one at zamba2's heads (Dh = 112, G = 1), with the library
@@ -335,7 +350,10 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    state's resident GB a rank against ``MESH_STATE_GB`` and the leaves no
    mesh axis splits; then flash-decode at (a)'s and (b)'s per-rank shapes
    against its plain version. ``--mesh-only cells`` (``mesh_cells``, also
-   the last run of ``--mesh-only``): the train cells of ``MESH_CELLS``,
+   the last run of ``--mesh-only``): the train cells of ``MESH_CELLS``
+   (nemotron-4-15b at 2 layers on 1x4 against one card, and at all 32;
+   starcoder2-7b at all 32 on 1x4: those two held by ``hold_training``,
+   each rank's state GB printed against the config's),
    the graph cell on 2x2 (``MESH_GRAPH``: at 2^23 nodes against each
    rank's card running it alone, at 2^25 nodes, 34.36 GB of state a rank,
    with no block of a whole table's size) and qwen2-vl-7b on 1x4 through
@@ -353,7 +371,7 @@ and records which of its two paths each shape takes.
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
 serving, the hub, the resilience, the shard, the pipeline, the offline,
-the four LM serving, the
+the seven LM serving, the
 two step, the train, the six training families', the dryrun, the graph
 and the mesh path (every rank of every run), each path's count beside it; the h-index's hub kernel also as
 a record of its own, ``h_index_hub``);
@@ -395,11 +413,12 @@ JAX_GITHUB_QUICK = {
 F1_BAND = 3.0
 # LM serving at qwen3-4b's full width: 12 requests in 8 slots, 64 new tokens
 # each, so 64 steps, a swap of four rows, and 64 more steps while the other
-# four rows run past their cache's end (1088 positions)
-def lm_flags(arch):
+# four rows run past their cache's end (1088 positions); ``prompt``: the
+# prompt's tokens
+def lm_flags(arch, prompt=1024):
     return ["--arch", arch, "--preset", "full", "--slots", "8", "--requests",
-            "12", "--prompt-len", "1024", "--max-new", "64", "--seed", "0",
-            "--device", "cuda"]
+            "12", "--prompt-len", str(prompt), "--max-new", "64", "--seed",
+            "0", "--device", "cuda"]
 
 
 def _flag(flags, name, value):
@@ -436,7 +455,39 @@ LM_PATHS = {
                                  shared_every=6, sliding_window=4096,
                                  ssm=(64, 4, 2, 64, 8, 256)),
                13, (0, 6, 12)),  # 3 x 125 MB
+    # the dense family's other configs: squared ReLU, LayerNorm, RoPE on 64
+    # of 128 dims, an untied unembedding, G = 6
+    "dense-nemotron": ("nemotron-4-15b",
+                       dict(n_layers=32, d_model=6144, n_heads=48,
+                            n_kv_heads=8, head_dim=128, d_ff=24576,
+                            vocab_size=256000, param_dtype="bfloat16",
+                            mlp_type="relu2", norm_type="layernorm",
+                            rope_fraction=0.5, tie_embeddings=False),
+                       32, (0, 6, 12, 19, 25, 31)),  # 6 x 35.6 MB
+    # LayerNorm, GELU, tied embeddings, G = 9: two group tiles of the kernel
+    "dense-starcoder2": ("starcoder2-7b",
+                         dict(n_layers=32, d_model=4608, n_heads=36,
+                              n_kv_heads=4, head_dim=128, d_ff=18432,
+                              vocab_size=49152, param_dtype="bfloat16",
+                              mlp_type="gelu", norm_type="layernorm",
+                              tie_embeddings=True),
+                         32, (0, 4, 9, 13, 18, 22, 27, 31)),  # 8 x 17.8 MB
+    # local (window 4,096: even layers) and global layers, softcaps 50 and
+    # 30, post-norms, Dh = 256; layers 0 and 12 local, 25 global
+    "dense-gemma2": ("gemma2-2b",
+                     dict(n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4,
+                          head_dim=256, d_ff=9216, vocab_size=256000,
+                          param_dtype="bfloat16", sliding_window=4096,
+                          local_global_pattern=True, attn_softcap=50.0,
+                          final_softcap=30.0, post_norm=True),
+                     26, (0, 12, 25)),  # 3 x 153 MB
 }
+# the paths whose prompt is not 1,024 tokens: gemma2-2b's rows start past
+# its window (4,608 + 64 positions), so that the window binds on every
+# local layer at every decode step
+LM_PROMPT = {"dense-gemma2": 4608}
+# the dense family's paths (``--dense-only`` runs them alone)
+DENSE_PATHS = ("dense-nemotron", "dense-starcoder2", "dense-gemma2")
 # The LM paths no launcher serves (both launchers refuse these families, as
 # the JAX package's do), driven through ``models.steps``'
 # make_prefill_step / make_decode_step at full width and depth, bf16: path
@@ -545,9 +596,8 @@ DECODE_SHAPES = [
 # Left out of the smoke's sweep for time: the full-attention archs' 32k
 # prefills (190-380 s each there, eight at once; their chunked attention
 # is ~1,000 blocks a layer of eager ops on the host), grok-1-314b's
-# train_4k (180 s) and nemotron-4-15b's decode_32k (120 s, which with its
-# train_4k's 131 s in one process made the sweep 268 s). They are in the
-# committed results/dryrun_torch.json, which the CPU makes
+# train_4k (180 s) and nemotron-4-15b's decode_32k and train_4k. They are
+# in the committed results/dryrun_torch.json, which the CPU makes
 DRYRUN_DROPPED = tuple((a, "prefill_32k") for a in (
     "gemma2-2b", "grok-1-314b", "moonshot-v1-16b-a3b", "nemotron-4-15b",
     "qwen2-vl-7b", "qwen3-4b", "seamless-m4t-large-v2", "starcoder2-7b")) \
@@ -612,15 +662,30 @@ MESH_HELD = ("train-2x2", "train-ssm-1x4")
 # steps (gemma2 12.22 -> 9.67 -> 11.93, starcoder2 11.57 -> 26.83 ->
 # 23.12), so they take the widths' rates of TRAIN_FAMILIES: d_ff 9,216
 # 1e-4, 18,432 3e-5
+#
+# nemotron-4-15b and starcoder2-7b at all 32 layers fit no one card (15.63
+# B and 7.17 B params x 12 bytes: 187.5 and 86.0 GB), so they are held as
+# the train path is (``hold_training``) over MESH_TRAIN_STEPS steps
+# (``MESH_CELLS_WHOLE``), nemotron also at 2 layers to one card's steps
+# (3.93 B x 12 bytes: 47.2 GB on one card). On 1x4, as nemotron's default
+# rules split its heads, MLP and vocabulary four ways (2x2 would keep every
+# weight whole over data: 94 GB a rank). Its rate: its d_ff of 24,576 lies
+# between the widths that train at 3e-5 (18,432) and 1e-5 (32,768)
 MESH_CELLS = {
     "cell-gemma2-1x4": ("gemma2-2b", "1x4", 1e-4, {}, 1, 8192),
     "cell-starcoder2-1x4": ("starcoder2-7b", "1x4", 3e-5,
                             {"n_layers": 16}, 4, 1024),
+    "cell-nemotron-1x4-2": ("nemotron-4-15b", "1x4", 3e-5,
+                            {"n_layers": 2}, 4, 1024),
+    "cell-nemotron-1x4": ("nemotron-4-15b", "1x4", 3e-5, {}, 4, 1024),
+    "cell-starcoder2-1x4-32": ("starcoder2-7b", "1x4", 3e-5, {}, 4, 1024),
     "cell-grok-2x2": ("grok-1-314b", "2x2", 1e-5, {"n_layers": 1}, 4, 1024),
     "cell-grok-2x2-fp32": ("grok-1-314b", "2x2", 1e-5, {
         "n_layers": 1, "param_dtype": "float32",
         "compute_dtype": "float32"}, 2, 1024),
 }
+# the cells whose whole depth fits no one card: no one-card reference
+MESH_CELLS_WHOLE = ("cell-nemotron-1x4", "cell-starcoder2-1x4-32")
 # the step whose allocations the caching allocator records (its history,
 # ``largest_allocs``) on every grok rank and on one card: no rank may
 # allocate a block as large as one whole expert matrix (E x d x f bf16)
@@ -2616,7 +2681,8 @@ def lm_serve_phase(torch, np, counters, path):
 
     arch, want, per_step, _ = LM_PATHS[path]
     t0 = time.perf_counter()
-    args, cfg, params, requests = lm.setup(lm_flags(arch))
+    args, cfg, params, requests = lm.setup(lm_flags(
+        arch, LM_PROMPT.get(path, 1024)))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
@@ -2734,12 +2800,16 @@ def lm_decode_parity(torch, cfg, params, snap, keep_layers):
     cache0, tok = snap
     kernel = lm_attn.decode_attention
     plain = functools.partial(ops.decode_attention, impl="ref")
-    seen = {"layer": 0, "inputs": {}}
+    seen = {"layer": 0, "inputs": {}, "visible": {}}
 
     def record(q, k, v, lens, **kw):
         if seen["layer"] in keep_layers:
             seen["inputs"][seen["layer"]] = (q.clone(), k.clone(), v.clone(),
                                              lens.clone(), kw)
+        window = int(kw.get("window", 0))
+        lo = ops._window_lo(lens, window)
+        seen["visible"].setdefault(window, []).append(int(
+            (lens.clamp_max(k.shape[1]) - lo).clamp_min(0).sum()))
         seen["layer"] += 1
         return kernel(q, k, v, lens, **kw)
 
@@ -2767,6 +2837,16 @@ def lm_decode_parity(torch, cfg, params, snap, keep_layers):
             f"{tok.shape[0] * cfg.n_layers} token-layers otherwise than the "
             f"kernel step, at router gaps up to {routes.flip_gap:.3g}")
     torch.cuda.synchronize()
+    visible = seen["visible"]
+    log(f"{cfg.name} decode step: positions each attention call sees, "
+        f"summed over the rows, by window: " + json.dumps(visible))
+    if cfg.local_global_pattern:  # half the layers local, half global
+        half = [cfg.n_layers // 2] * 2
+        local, full = visible.get(cfg.sliding_window, []), visible.get(0, [])
+        expect([len(local), len(full)] == half
+               and max(local) < min(full),
+               f"{cfg.name}: local layers' visible positions {local} not "
+               f"below the global layers' {full}")
     s_len = cache0["k"].shape[2]
     lens = cache0["len"].long()
     rows = (lens < s_len).nonzero().flatten()  # rows whose write lands
@@ -2829,6 +2909,26 @@ def lm_decode_parity(torch, cfg, params, snap, keep_layers):
     return seen["inputs"]
 
 
+def lm_paths_phase(torch, np, counters, paths):
+    """The LM serving paths ``paths`` (of ``LM_PATHS``) in turn, each path's
+    params and caches freed after it: ``lm_serve_phase``, then (with
+    attention) ``lm_decode_parity``, ``lm_profile`` and
+    ``lm_reference_phase`` -> ({path: its launch counts}, {path: the
+    kernel's inputs kept by the parity phase})."""
+    counts, live = {}, {}
+    for path in paths:
+        cfg, params, counts[path], snap = lm_serve_phase(torch, np, counters,
+                                                         path)
+        if LM_PATHS[path][2]:  # a path with attention
+            live[path] = lm_decode_parity(torch, cfg, params, snap,
+                                          LM_PATHS[path][3])
+        lm_profile(torch, cfg, params, snap)
+        del params, snap
+        torch.cuda.empty_cache()
+        lm_reference_phase(torch, np, path)
+    return counts, live
+
+
 class Router:
     """While bound (``with``), wraps ``models.moe._top_k_gates`` (every MoE
     layer's expert selection) in one of four modes: "margin" keeps the
@@ -2887,6 +2987,9 @@ LM_REFERENCES = {  # path -> (arch, reduced() overrides)
     "moe": ("moonshot-v1-16b-a3b", {}),
     "ssm": ("mamba2-2.7b", {}),
     "hybrid": ("zamba2-7b", {}),
+    "dense-nemotron": ("nemotron-4-15b", dict(n_heads=12, n_kv_heads=2)),
+    "dense-starcoder2": ("starcoder2-7b", dict(n_heads=18, n_kv_heads=2)),
+    "dense-gemma2": ("gemma2-2b", dict(sliding_window=6)),  # binds at 8
 }
 
 
@@ -5361,12 +5464,18 @@ def mesh_four(torch, np, only=None):
     return counts, out
 
 
+def mesh_cell_steps(label):
+    """A ``MESH_CELLS`` run's steps: ``MESH_TRAIN_STEPS`` where it fits no
+    one card (``MESH_CELLS_WHOLE``), else ``MESH_HELD_STEPS``."""
+    return MESH_TRAIN_STEPS if label in MESH_CELLS_WHOLE else MESH_HELD_STEPS
+
+
 def mesh_cell_flags(label):
     """The train path's flags for a ``MESH_CELLS`` run: its arch, rate,
-    rows and tokens a row, ``MESH_HELD_STEPS`` steps."""
+    rows and tokens a row, ``mesh_cell_steps`` steps."""
     arch, _, lr, _, rows, seq = MESH_CELLS[label]
     flags = TRAIN_FLAGS
-    for name, value in (("--arch", arch), ("--steps", MESH_HELD_STEPS),
+    for name, value in (("--arch", arch), ("--steps", mesh_cell_steps(label)),
                         ("--lr", lr), ("--batch", rows), ("--seq", seq)):
         flags = _flag(flags, name, str(value))
     return flags
@@ -5381,12 +5490,14 @@ def mesh_cell_opts(label):
 def mesh_cells_reference(torch):
     """Each ``MESH_CELLS`` run on this process's card, no mesh
     (``mesh_train_rank``), and each ``MESH_VL`` run that one card holds
-    (``vl_steps``) -> {label: its record, with its peak}. The graph runs'
-    one-card references run on each rank's own card
-    (``mesh_graph_rank``)."""
+    (``vl_steps``) -> {label: its record, with its peak}; none for
+    ``MESH_CELLS_WHOLE``. The graph runs' one-card references run on each
+    rank's own card (``mesh_graph_rank``)."""
     t0 = time.perf_counter()
     ones = {}
     for label in MESH_CELLS:
+        if label in MESH_CELLS_WHOLE:
+            continue
         ones[label] = mesh_train_rank(torch, kernel_counters(),
                                       mesh_cell_flags(label),
                                       **mesh_cell_opts(label))
@@ -5460,7 +5571,7 @@ def mesh_cells(torch, np):
         out[label] = rec  # filled before its checks, printed after them
         try:
             if label in MESH_CELLS:
-                hold_mesh_cell(label, recs, ones[label], rec)
+                hold_mesh_cell(np, label, recs, ones.get(label), rec)
             elif label in MESH_GRAPH:
                 hold_mesh_graph(label, recs, rec)
             else:
@@ -5513,49 +5624,74 @@ def hold_to_one(label, got, want, steps, step_tol, loss_tol, routed=False):
     return rel
 
 
-def hold_mesh_cell(label, recs, one, rec):
+def hold_mesh_cell(np, label, recs, one, rec):
     """A ``MESH_CELLS`` run: ``rec`` filled with its summary (ms a step
-    (step 3), tokens/s, each rank's peaks and largest blocks beside one
-    card's), then held: ``hold_ranks``; ``hold_to_one`` at
-    ``TOL_MESH_STEP`` and ``TOL_MESH_LOSS`` (``MESH_CELLS_ROUTED``: every
-    loss at ``TOL_MESH_LOSS``, the grad norms printed). grok-1-314b
+    (step 3; ``MESH_CELLS_WHOLE``: the median of steps 3 on), tokens/s,
+    each rank's peaks and largest blocks beside one card's, each rank's
+    state GB: params and AdamW moments resident, gradients as the params,
+    against the config's params x 12 bytes over the ranks), then held:
+    ``hold_ranks``; ``hold_to_one`` at ``TOL_MESH_STEP`` and
+    ``TOL_MESH_LOSS`` (``MESH_CELLS_ROUTED``: every loss at
+    ``TOL_MESH_LOSS``, the grad norms printed), or where one card holds no
+    such run (``MESH_CELLS_WHOLE``) ``hold_training``. grok-1-314b
     (``MESH_CELLS_RECORD``): at the recorded step, every rank's peak below
     one card's on the same step, and the largest block each rank allocated
     (the allocator's own history) below one whole expert matrix."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
 
     arch, mesh, lr, changes, rows, seq = MESH_CELLS[label]
     cfg = dataclasses.replace(get_config(arch), **changes)
+    steps = mesh_cell_steps(label)
     r0 = recs[0]
+    each = r0["step_ms_each"]
+    step_ms = statistics.median(each[2:])
+    n_params = sum(x.numel() for x in _leaves(init_model(
+        cfg, None, device="meta")))
     rec.update({
         "arch": arch, "mesh": mesh, "layers": cfg.n_layers,
         "of_layers": get_config(arch).n_layers, "lr": lr,
         "dtype": cfg.param_dtype, "rows": rows, "seq": seq,
-        "losses": r0["losses"], "step_ms": r0["step_ms_each"][-1],
-        "step_ms_each": r0["step_ms_each"],
-        "tokens_per_s": rows * seq / r0["step_ms_each"][-1] * 1e3,
+        "params_b": n_params / 1e9,
+        "losses": r0["losses"], "step_ms": step_ms,
+        "step_ms_each": each, "tokens_per_s": rows * seq / step_ms * 1e3,
         "run_s": r0["run_s"],
+        # bf16 params and gradients, fp32 AdamW moments, split over the
+        # ranks (adafactor's and fp32's state are not reckoned)
+        "state_gb_expected": n_params * 12 / len(recs) / 1e9
+        if (cfg.optimizer, cfg.param_dtype) == ("adamw", "bfloat16")
+        else None,
         "ranks": [{"peak_gb": r["peak_bytes"] / 1e9,
+                   "init_peak_gb": r["init_peak_bytes"] / 1e9,
                    "step_peak_gb": [b / 1e9 for b in r["step_peak_bytes"]],
                    "param_gb": r["param_bytes"] / 1e9,
                    "state_gb": r["state_bytes"] / 1e9,
+                   "params_grads_state_gb": (2 * r["param_bytes"]
+                                             + r["state_bytes"]) / 1e9,
                    "largest_allocs": r.get("largest_allocs")}
                   for r in recs],
-        "whole_leaves": r0["whole"],
-        "one_card": {"metrics": one["metrics"],
-                     "step_ms_each": one["step_ms_each"],
-                     "peak_gb": one["peak_bytes"] / 1e9,
-                     "step_peak_gb": [b / 1e9 for b in
-                                      one["step_peak_bytes"]],
-                     "largest_allocs": one.get("largest_allocs")}})
+        "whole_leaves": r0["whole"]})
+    if one is not None:
+        rec["one_card"] = {
+            "metrics": one["metrics"], "step_ms_each": one["step_ms_each"],
+            "peak_gb": one["peak_bytes"] / 1e9,
+            "step_peak_gb": [b / 1e9 for b in one["step_peak_bytes"]],
+            "largest_allocs": one.get("largest_allocs")}
     at = MESH_CELLS_RECORD.get(label)
     if at is not None:
         m = cfg.moe
         rec["expert_matrix_bytes"] = whole = \
             m.n_experts * cfg.d_model * m.d_ff_expert * 2
-    hold_ranks(label, recs, MESH_HELD_STEPS)
+    hold_ranks(label, recs, steps)
+    if one is None:
+        rec["mean_first5_last5"] = hold_training(
+            np, label, r0["losses"], steps, cfg.vocab_size,
+            max(r["peak_bytes"] for r in recs),
+            min(r["card_bytes"] for r in recs),
+            mesh_counts([{label: r} for r in recs]))
+        return
     for r in recs:
         if at is not None:
             expect(r["step_peak_bytes"][at] < one["step_peak_bytes"][at],
@@ -6062,6 +6198,13 @@ def main() -> int:
             mesh_seq_decode_shape(torch, F, ops, ref)
         log(f"smoke: {time.perf_counter() - t_start:.1f} s, mesh path only")
         return 0
+    if sys.argv[1:] == ["--dense-only"]:
+        _, live = lm_paths_phase(torch, np, counters, DENSE_PATHS)
+        for path in live:
+            live_decode(torch, F, ops, ref, live[path], path)
+        log(f"smoke: {time.perf_counter() - t_start:.1f} s, dense paths "
+            f"only")
+        return 0
     if sys.argv[1:] == ["--train-only"]:
         train_families_phase(torch, np, counters)
         train_families_reference(torch, np)
@@ -6102,17 +6245,7 @@ def main() -> int:
         serve_rec[name] = train[name]
         large_rec[name] = [large[name], many[name], retrain[name]]
     step_profile(torch, split)
-    lm_counts, live = {}, {}
-    for path in LM_PATHS:  # each path's params and caches freed after it
-        cfg, params, lm_counts[path], snap = lm_serve_phase(
-            torch, np, counters, path)
-        if LM_PATHS[path][2]:  # a path with attention
-            live[path] = lm_decode_parity(torch, cfg, params, snap,
-                                          LM_PATHS[path][3])
-        lm_profile(torch, cfg, params, snap)
-        del params, snap
-        torch.cuda.empty_cache()
-        lm_reference_phase(torch, np, path)
+    lm_counts, live = lm_paths_phase(torch, np, counters, LM_PATHS)
     for path in STEP_PATHS:
         cfg, params, lm_counts[path], snap = step_phase(torch, np, counters,
                                                         path)

@@ -44,6 +44,8 @@ def normal(gen: torch.Generator, shape, scale: float, dtype, device):
     slice along its leading axes (the same generator in order), so no more
     than that is ever held in fp32."""
     shape = tuple(shape)
+    if torch.device(device).type == "meta":  # a shape: nothing to draw
+        return torch.empty(shape, dtype=dtype, device=device)
     if len(shape) < 2 or 4 * math.prod(shape) <= DRAW_BYTES:
         x = torch.randn(shape, generator=gen, device=device)
         return x.mul_(float(scale)).to(dtype)

@@ -523,6 +523,12 @@ SPLIT_CASES = [
     ("Dh=80 G=4, a window", 3, 16, 4, 80, 2048, [2048, 1500, 900], 300, 0.0),
     # qwen2-vl-7b: 28 query heads on 4 KV heads
     ("qwen2-vl-7b: G=7", 8, 28, 4, 128, 2112, [2080] * 7 + [2112], 0, 0.0),
+    # starcoder2-7b: 36 query heads on 4 KV heads, G = 9 in two group tiles
+    # of 8 and 1; nemotron-4-15b: 48 on 8, G = 6
+    ("starcoder2-7b: G=9", 8, 36, 4, 128, 1088,
+     [1088, 1056, 1088, 1056, 1088, 1056, 1088, 1100], 0, 0.0),
+    ("nemotron-4-15b: G=6", 8, 48, 8, 128, 1088,
+     [1088, 1056, 1088, 1056, 1088, 1056, 1088, 1100], 0, 0.0),
     # seamless-m4t-large-v2's cross-attention: MHA at Dh = 64, every row
     # at the encoder's full length
     ("seamless cross: G=1 Dh=64, full rows", 8, 16, 16, 64, 256, [256] * 8,
@@ -701,6 +707,8 @@ def _tree_to(tree, dev):
 @pytest.mark.parametrize("arch,over,tol", [
     ("qwen3-4b", dict(n_heads=8, n_kv_heads=2), 1e-4),
     ("gemma2-2b", dict(sliding_window=6), 1e-4),
+    ("starcoder2-7b", dict(n_heads=18, n_kv_heads=2), 1e-4),  # G = 9
+    ("nemotron-4-15b", dict(n_heads=12, n_kv_heads=2), 1e-4),  # G = 6
     # int8 cache: a value next to a rounding midpoint may quantise one step
     # apart (1/127 of its row's max), which moves the logits by about 1e-3
     ("qwen3-4b", dict(n_heads=8, n_kv_heads=2, kv_quant=True), 1e-2),

@@ -6,11 +6,15 @@ JAX ``init_model`` tree carried across by ``from_jax_params``) and the same
 numpy inputs through both packages. Configs: reduced qwen3-4b with
 ``n_heads=8, n_kv_heads=2`` (G = 4: ``reduced()`` alone gives G = 1),
 reduced gemma2-2b with ``sliding_window=6`` (the window masks at a prompt
-length of 8; softcaps, post-norms, GeGLU, the embedding scale), and the
-qwen3 one with an int8 KV cache. Tolerances, fp32: logits 1e-4 (four
-layers of matmuls of width 128-256, summed in another order), caches 1e-5,
-int8 caches equal; one bf16 case within 3e-2 x max|logit| (bf16 rounds at other places in the
-two frameworks).
+length of 8; softcaps, post-norms, GeGLU, the embedding scale), reduced
+starcoder2-7b with ``n_heads=12, n_kv_heads=4`` (G = 3; LayerNorm with its
+bias, GELU, tied embeddings), reduced nemotron-4-15b with ``n_heads=12,
+n_kv_heads=2`` (G = 6; squared ReLU, LayerNorm, RoPE on half of each head,
+an untied unembedding), and the qwen3 one with an int8 KV cache.
+Tolerances, fp32: logits 1e-4 (four layers of matmuls of width 128-256,
+summed in another order), caches 1e-5, int8 caches equal; one bf16 case
+within 3e-2 x max|logit| (bf16 rounds at other places in the two
+frameworks).
 """
 import dataclasses
 
@@ -38,6 +42,8 @@ CONFIGS = {
                    dict(kv_quant=True)),
     "qwen3-bf16": ("qwen3-4b", dict(n_heads=8, n_kv_heads=2),
                    dict(param_dtype="bfloat16", compute_dtype="bfloat16")),
+    "starcoder2-gqa": ("starcoder2-7b", dict(n_heads=12, n_kv_heads=4), {}),
+    "nemotron-gqa": ("nemotron-4-15b", dict(n_heads=12, n_kv_heads=2), {}),
 }
 B, PROMPT, NEW = 2, 8, 4
 
@@ -70,8 +76,9 @@ def _leaves(tree, prefix=""):
     return {prefix: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-2b",
-                                  "seamless-m4t-large-v2", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-2b", "starcoder2-7b",
+                                  "nemotron-4-15b", "seamless-m4t-large-v2",
+                                  "qwen2-vl-7b"])
 def test_configs_match_jax(arch):
     assert arch in list_archs()
     for over in ({}, dict(n_heads=8, n_kv_heads=2)):
@@ -184,6 +191,35 @@ def test_prefill_attention_matches_jax(causal, window, softcap):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["starcoder2-gqa", "nemotron-gqa"])
+def test_attention_decode_matches_jax(name):
+    """One token's attention decode at G = 3 (starcoder2) and G = 6
+    (nemotron, RoPE on 16 of its 32 dims): the query and key rotated at
+    each row's cache length, the token's k, v written there, attention over
+    the ragged rows (one at the cache's end, whose write is dropped), the
+    output projected; against the JAX package's functional update."""
+    jcfg, tcfg = _cfgs(name)
+    jp = jattn.init_attention(jax.random.PRNGKey(4), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    rng = np.random.default_rng(4)
+    S, Hkv, Dh = 40, tcfg.n_kv_heads, tcfg.head_dim
+    x = rng.standard_normal((3, 1, tcfg.d_model)).astype(np.float32)
+    k = rng.standard_normal((3, S, Hkv, Dh)).astype(np.float32)
+    v = rng.standard_normal((3, S, Hkv, Dh)).astype(np.float32)
+    lens = np.array([0, 17, S], np.int32)
+    want, wk, wv = jax.jit(lambda *a: jattn.apply_attention_decode(
+        *a, jcfg))(jp, jnp.asarray(x), jnp.asarray(k), jnp.asarray(v),
+                   jnp.asarray(lens))
+    tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    got = attention.apply_attention_decode(
+        tp, torch.from_numpy(x), tk, tv, torch.from_numpy(lens), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for g, w in ((tk, wk), (tv, wv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
 def _prompts(vocab, n=B, length=PROMPT, seed=0):
     return np.random.default_rng(seed).integers(2, vocab, (n, length)).astype(
         np.int32)
@@ -281,7 +317,8 @@ def _jax_schedule(jcfg, jparams, requests, slots, max_new):
     return np.stack(steps), n_decoded, cache, swaps
 
 
-@pytest.mark.parametrize("name", ["qwen3-gqa", "gemma2-window"])
+@pytest.mark.parametrize("name", ["qwen3-gqa", "gemma2-window",
+                                  "starcoder2-gqa", "nemotron-gqa"])
 def test_serving_schedule_matches_jax(name):
     """``--slots 2 --requests 5 --prompt-len 8 --max-new 4`` on both
     packages with the same weights: the same 12 steps, every slot's token

@@ -45,6 +45,25 @@ def test_train_mesh_2x2_matches_one_device_and_resumes_on_1x4(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_nemotron_train_steps_on_1x4_match_one_device(tmp_path):
+    """Reduced nemotron-4-15b (squared ReLU, LayerNorm, RoPE on half of
+    each head, an untied unembedding) trained 3 steps by the launcher on
+    1x4 under its rules, as the four-card cell lays it out (heads, MLP and
+    vocabulary split four ways): the one-device run's losses, each after
+    the sharded AdamW updates before it (rtol = atol = 1e-5)."""
+    flags = ["--arch", "nemotron-4-15b", "--preset", "reduced", "--device",
+             "cpu", "--batch", "4", "--seq", "32", "--ckpt-every", "100",
+             "--steps", "3"]
+    want = train.main(flags + ["--ckpt-dir", str(tmp_path / "one")])
+    out = str(tmp_path / "losses.pt")
+    spawn(train_worker, 4, flags + ["--mesh", "1x4", "--ckpt-dir",
+                                    str(tmp_path / "mesh")], out,
+          timeout=120)
+    got = torch.load(out)
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_train_mesh_must_fill_the_world():
     with pytest.raises(SystemExit):
         train.main(LAUNCH + ["--steps", "1", "--mesh", "2x2"])

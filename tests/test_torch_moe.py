@@ -8,7 +8,7 @@ top-2, MHA) and reduced grok-1-314b (softcaps, GQA); the same weights (the
 JAX ``init_model`` tree carried across by ``from_jax_params``) and numpy
 inputs through both packages, fp32. Also the repaired ``layers.normal``:
 a leaf above ``DRAW_BYTES`` is drawn slice by slice, and the dense configs
-keep their bits. Tolerances: a single module 1e-5, a whole model's logits
+keep their bits; a ``meta`` leaf is not drawn. Tolerances: a single module 1e-5, a whole model's logits
 1e-4 (four layers of matmuls summed in another order), caches 1e-5.
 """
 import dataclasses
@@ -260,6 +260,17 @@ def test_normal_draws_a_large_leaf_slice_by_slice(monkeypatch):
     want = torch.stack([(real((5, 6), generator=gen) * 0.5).to(
         torch.bfloat16) for _ in range(12)]).reshape(3, 4, 5, 6)
     assert torch.equal(got, want)
+
+
+def test_normal_on_meta_draws_nothing(monkeypatch):
+    """On ``meta`` (the dry run's and the smoke's parameter counts) a leaf
+    is a shape alone: no draw, whatever its size, so that a leaf above
+    ``DRAW_BYTES`` (nemotron-4-15b's 256,000-row embedding) is not walked
+    slice by slice."""
+    monkeypatch.setattr(torch, "randn", None)  # any draw would raise
+    got = layers.normal(None, (256000, 6144), 0.02, torch.bfloat16, "meta")
+    assert got.is_meta and got.shape == (256000, 6144)
+    assert got.dtype == torch.bfloat16
 
 
 # sha256 of every leaf's bytes, in the tree's order, of ``init_model`` at the
