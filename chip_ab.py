@@ -2,14 +2,20 @@
 """Time the port's ELL mean, flash-decode, top-k, h-index and SGNS kernels of
 one source tree on one GPU.
 
-    python3 chip_ab.py --src SRC_DIR [--tag NAME] [--offline | --decode]
+    python3 chip_ab.py --src SRC_DIR [--tag NAME] [--ell | --offline |
+                       --decode]
 
 ``SRC_DIR`` is the ``src`` directory of a checkout (this one, or an older
 commit unpacked with ``git archive``); its ``repro_torch`` kernels are built
 from that checkout's sources and timed at fixed shapes: the ELL mean at the
-serving flush (64 ELL rows of ``github-like``), a large random shape and
-the offline k-core row's propagation calls (each shell's rows of the train
-split against a (n + 1, 150) table, and one call per shell summed), and
+serving flush (64 ELL rows of ``github-like``), a large random shape,
+the same flush against its compact table (the shard path's), the offline
+k-core row's propagation calls (each shell's rows of the train
+split against a (n + 1, 150) table, and one call per shell summed; each
+shape warm, cold and beside ``embedding_bag`` packed beforehand, with a
+sha256 of its output, and where the tree's wrapper takes ``path``, each
+of its two paths forced; then ``ELL_BITS``, hashes of the outputs at
+both paths, every load width, fp32 and bf16), and
 flash-decode at the serving shape (B=8 H=32 Hkv=8 Dh=128 S=1088 bf16,
 8,456 visible positions, rotated through six caches), gemma2-2b's
 (softcap 50, window 4096), a large ragged one and the same with an int8
@@ -24,9 +30,10 @@ backward at the smoke's two shapes (B=8192 K=5 D=150 fp32, B=65536 K=5
 D=256 bf16), rotated through input sets that stream more than twice the
 L2, with a hash of the forward's losses (and of the backward's gradients)
 on the first set of each shape, so that two trees' bits can be compared.
-``--offline`` times the offline pipeline instead: the smoke's quick github
-table (DeepWalk, CoreWalk and the k-core row, ``launch.tables.run_model``
-on the card), each row's SGNS steps per second of embedding time beside a
+``--ell`` runs the ELL mean's part alone. ``--offline`` times the offline
+pipeline instead: the smoke's quick github table (DeepWalk, CoreWalk and
+the k-core row, ``launch.tables.run_model`` on the card), each row's SGNS
+steps per second of embedding time and its propagation seconds beside a
 hash of its embeddings. ``--decode`` runs only the flash-decode timings
 and a sha256 of its outputs at every head dim it may take (the built
 widths 32, 64, 128, 256 and 80, 96, 112; "refused" where a tree's wrapper
@@ -46,11 +53,45 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+def digest(*ts):
+    """A short sha256 of tensors' values (as fp32) in order."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+ELL_BITS = ((64, 1766, 128), (64, 1766, 150), (3000, 1082, 150),
+            (3000, 1082, 2), (3000, 1082, 6), (3000, 1082, 300),
+            (2000, 32, 128), (500, 300, 600), (3000, 1082, 8))
+
+
+def ell_bits(torch, ops):
+    """{shape: sha256 of the ELL mean's output} at sparse rows of both
+    paths (64 rows: the row-split kernel; 2,000 and more: a warp per row)
+    and load widths, fp32 and bf16: two trees that agree here give the same
+    bits."""
+    out = {}
+    for n, l, d in ELL_BITS:
+        gen = torch.Generator(device="cuda").manual_seed(n + l + d)
+        idx = torch.randint(0, 5000, (n, l), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        valid = torch.rand((n, l), generator=gen, device="cuda") < 8 / l
+        valid[1] = True
+        emb = torch.randn((5000, d), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            out[f"N={n} L={l} D={d} {dt}"] = digest(
+                ops.ell_mean(idx, valid, emb.to(dt), impl="cuda"))
+    return out
 
 
 def top_k_and_h_index(torch, sm, ops, topk, out, timed, serve_topk,
@@ -96,14 +137,6 @@ def top_k_and_h_index(torch, sm, ops, topk, out, timed, serve_topk,
 
 def sgns_kernels(torch, sm, sgns, out, timed):
     """The SGNS timings and bit hashes into ``out``."""
-    import hashlib
-
-    def digest(*ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.float().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     for label, b, k, d, dt, iters in (
             ("train B=8192 K=5 D=150 fp32", 8192, 5, 150, torch.float32, 20),
             ("large B=65536 K=5 D=256 bf16", 65536, 5, 256, torch.bfloat16,
@@ -131,9 +164,8 @@ def sgns_kernels(torch, sm, sgns, out, timed):
 
 def offline_rows(np, out):
     """The quick github table's rows into ``out["offline"]``: SGNS steps,
-    steps per second of embedding time, and a hash of the embeddings."""
-    import hashlib
-
+    steps per second of embedding time, the propagation's seconds (the
+    k-core row's), and a hash of the embeddings."""
     from repro_torch.core import kcore
     from repro_torch.graph import datasets, splits
     from repro_torch.launch import tables
@@ -149,6 +181,7 @@ def offline_rows(np, out):
         out["offline"][label] = {
             "sgns_steps": r["n_sgns_steps"],
             "embedding_s": r["times"]["embedding"],
+            "propagation_s": r["times"].get("propagation"),
             "steps_per_s": r["n_sgns_steps"] / r["times"]["embedding"],
             "emb_sha256": hashlib.sha256(emb.tobytes()).hexdigest()[:16],
         }
@@ -207,8 +240,6 @@ DECODE_BITS_DH = (32, 64, 80, 96, 112, 128, 256)
 
 def decode_bits(torch, ops):
     """{Dh: {cache kind: sha256 of the outputs, or "refused"}}."""
-    import hashlib
-
     dev = "cuda"
     out = {}
     for dh in DECODE_BITS_DH:
@@ -257,6 +288,8 @@ def main() -> int:
     ap.add_argument("--tag", default="", help="a label for the output")
     ap.add_argument("--decode", action="store_true",
                     help="flash-decode only: its timings and output bits")
+    ap.add_argument("--ell", action="store_true",
+                    help="the ELL mean only: its timings and output bits")
     ap.add_argument("--offline", action="store_true",
                     help="time the offline table's SGNS rows only")
     args = ap.parse_args()
@@ -306,27 +339,66 @@ def main() -> int:
         print(json.dumps(out))
         return 0
 
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ellmean
+    forced = "path" in inspect.signature(ellmean.ell_mean_cuda).parameters
+
     def ell(label, idx, valid, emb, iters=50):
-        out["ell_mean"][label] = timed(
-            lambda: ops.ell_mean(idx, valid, emb, impl="cuda"), iters)
+        """One shape: the kernel warm (the same inputs again) and cold
+        (rotated through copies of its inputs that stream more than twice
+        the L2), ``embedding_bag`` packed beforehand, cold, a sha256 of the
+        output, and where the tree's wrapper can force a path, each path's
+        warm and cold times."""
+        def kern(i, v, e):
+            ops.ell_mean(i, v, e, impl="cuda")
+
+        def bag(flat, offsets, e):
+            F.embedding_bag(flat, e, offsets, mode="mean")
+
+        sets = sm.rotation(torch, lambda: (idx.clone(), valid.clone(),
+                                           emb.clone()),
+                           idx.nbytes + valid.nbytes + emb.nbytes)
+        rec = timed(lambda: kern(idx, valid, emb), iters)
+        rec["cold"] = timed(kern, iters, sets)
+        rec["library_cold"] = timed(
+            bag, iters, [(*sm.bag_inputs(torch, i, v), e) for i, v, e in sets])
+        rec["out_sha256"] = digest(ops.ell_mean(idx, valid, emb, impl="cuda"))
+        if forced:
+            for path in ellmean.PATHS:
+                def one(i, v, e, path=path):
+                    ellmean.ell_mean_cuda(i, v, e, path=path)
+                rec[path] = {"warm": timed(lambda: one(idx, valid, emb),
+                                           iters),
+                             "cold": timed(one, iters, sets)}
+        out["ell_mean"][label] = rec
+        del sets
 
     g = datasets.load("github-like", seed=0)
-    svc = build_service(g, stream_frac=sm.STREAM_FRAC, dim=128, batch=64,
-                        device=dev)[0]
-    nodes = torch.tensor(np.random.default_rng(11).integers(
-        0, svc.graph.n_nodes, 64), device=dev)
-    top_k_and_h_index(torch, sm, ops, topk, out, timed,
-                      sm.topk_inputs(torch, ops, svc, nodes),
-                      sm.sweep_inputs(torch, np, svc))
-    del svc
-    sgns_kernels(torch, sm, sgns, out, timed)
+    if not args.ell:
+        svc = build_service(g, stream_frac=sm.STREAM_FRAC, dim=128,
+                            batch=64, device=dev)[0]
+        nodes = torch.tensor(np.random.default_rng(11).integers(
+            0, svc.graph.n_nodes, 64), device=dev)
+        top_k_and_h_index(torch, sm, ops, topk, out, timed,
+                          sm.topk_inputs(torch, ops, svc, nodes),
+                          sm.sweep_inputs(torch, np, svc))
+        del svc
+        sgns_kernels(torch, sm, sgns, out, timed)
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr, _ = g.ell_arrays()
     rows = np.random.default_rng(11).integers(0, g.n_nodes, 64)
     table = torch.randn((g.n_nodes + 1, 128), generator=gen, device=dev)
     idx = torch.tensor(nbr[rows], device=dev)
-    ell("flush N=64 L=%d D=128" % nbr.shape[1], idx, idx != g.n_nodes,
-        table)
+    valid = idx != g.n_nodes
+    ell("flush N=64 L=%d D=128" % nbr.shape[1], idx, valid, table)
+    # the shard path's compact table of the same flush: its distinct valid
+    # rows, idx remapped into it
+    kept, slot = torch.unique(idx[valid], return_inverse=True)
+    cidx = torch.zeros_like(idx)
+    cidx[valid] = slot.int()
+    ell("shard N=64 L=%d M=%d D=128" % (nbr.shape[1], len(kept)), cidx,
+        valid, table[kept].contiguous())
     big = torch.randn((1 << 21, 128), generator=gen, device=dev)
     idx = torch.randint(0, 1 << 21, (1 << 18, 32), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -353,8 +425,11 @@ def main() -> int:
             ops.ell_mean(i, v, xt, impl="cuda")
     out["ell_mean"]["propagation sweep, 12 shells"] = timed(sweep, 20)
     del shells, xt
+    out["ell_mean_bits"] = ell_bits(torch, ops)
 
-    flash_decode_timings(torch, flash_decode, quantize_kv_rows, out, timed)
+    if not args.ell:
+        flash_decode_timings(torch, flash_decode, quantize_kv_rows, out,
+                             timed)
     print(out["card"])
     print(json.dumps(out))
     return 0

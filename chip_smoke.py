@@ -113,7 +113,7 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
    recorded in ``PERF.md``), F1 within 3 points of the JAX package's, one
    forward and one backward SGNS launch per step, and in the k-core row ELL
    mean launches and a torch propagation within 1e-4 of the scipy one
-   (then the ELL mean at two of that row's propagation calls, see below);
+   (then the ELL mean at each of that row's propagation calls, see below);
 6. the SGNS kernels against their plain versions at the training shape
    (B=8192 K=5 D=150 fp32, 1e-5), one large shape (B=65536 K=5 D=256
    bf16, 2e-2) and K = 2,048 negatives (B=64 D=150 fp32: 1e-5 against
@@ -363,10 +363,16 @@ JAX package. Phases, each unguarded (any failure exits non-zero):
 Every kernel record also holds ``x_bound`` (kernel / bound) and
 ``x_library`` (kernel / library, where there is a library call). Every
 kernel is also held to give the same bits on a second call (all are
-deterministic by design); the ELL mean is timed as well at two of
+deterministic by design). The ELL mean is held as well at every one of
 the offline k-core row's propagation calls (one shell's rows against the
-table: the largest shell, and the largest that takes the row-split path)
-and records which of its two paths each shape takes.
+table), and timed at three: the two largest shells on the warp-per-row
+path and the largest on the row-split path, warm (the same inputs again,
+as the Jacobi loop calls them) and cold (rotated through copies that
+stream more than twice the L2), at the full ELL width and at the shell's
+own, beside ``embedding_bag`` packed beforehand and with its packing
+inside the timed call. Each ELL record names its path and its load
+(elements a load, units a lane), and the kernels line counts each path's
+launches (``launches_by_kernel``).
 
 The line before the last is the ``nvidia-smi`` name and power limit; before
 it, one JSON object with a record per kernel (``launches`` summed over the
@@ -820,7 +826,7 @@ SERVING = ("ell_mean", "h_index", "top_k")  # the kernels serving runs
 # the ``__global__`` functions of each serving kernel's source, which the
 # serving path's profile must name
 PROFILED = {
-    "csrc/ellmean.cu": ("ell_mean_scalar", "ell_mean_f32x4", "ell_mean_rows"),
+    "csrc/ellmean.cu": ("ell_mean_warp", "ell_mean_rows"),
     "csrc/hindex.cu": ("h_index_narrow", "h_index_wide", "h_index_hub"),
     "csrc/topk.cu": ("topk_partial", "topk_merge"),
 }
@@ -892,7 +898,10 @@ def kernel_counters() -> Counters:
         "top_k": (topk, "launches"), "sgns_fwd": (sgns, "fwd_launches"),
         "sgns_bwd": (sgns, "bwd_launches"),
         "decode_attention": (flash_decode, "launches"),
-        # each kernel of the top-k's pass, and the h-index's two kernels
+        # each kernel of the top-k's pass, the ELL mean's two paths and
+        # the h-index's kernels
+        "ell_mean.warp_per_row": (ellmean, "warp_launches"),
+        "ell_mean.row_split": (ellmean, "split_launches"),
         "top_k.partial": (topk, "partial_launches"),
         "top_k.merge": (topk, "merge_launches"),
         "h_index.narrow": (hindex, "narrow_launches"),
@@ -1017,9 +1026,10 @@ def ratios(rec: dict) -> dict:
 # ------------------------------------------------------------ parity ----
 
 
-def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
-    from repro_torch.kernels import cost, ellmean
-
+def hold_ell(torch, ops, ref, idx, valid, emb, label):
+    """The ELL mean's kernel against its plain version (``TOL_ELL``) and
+    against its own bits on a second call; returns (output, plain output,
+    max abs error)."""
     got = ops.ell_mean(idx, valid, emb, impl="cuda")
     want = ref.ell_mean_ref(idx, valid, emb)
     torch.cuda.synchronize()
@@ -1030,9 +1040,24 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
            f"ell_mean {label}: max abs err {err}")
     expect(torch.equal(ops.ell_mean(idx, valid, emb, impl="cuda"), got),
            f"ell_mean {label}: a second call gave other bits")
+    return got, want, err
+
+
+def bag_inputs(torch, idx, valid):
+    """``embedding_bag``'s inputs for the same mean: the valid entries
+    packed (``idx[valid]``, which waits for the device) and each row's
+    offset."""
     flat = idx[valid].long()
     offsets = torch.zeros(idx.shape[0], dtype=torch.long, device=idx.device)
     offsets[1:] = torch.cumsum(valid.sum(1), 0)[:-1]
+    return flat, offsets
+
+
+def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
+    from repro_torch.kernels import cost, ellmean
+
+    got, want, err = hold_ell(torch, ops, ref, idx, valid, emb, label)
+    flat, offsets = bag_inputs(torch, idx, valid)
     lib_out = F.embedding_bag(flat, emb, offsets, mode="mean")
     expect(torch.allclose(lib_out, want.float(), rtol=1e-4, atol=1e-4),
            f"ell_mean {label}: embedding_bag disagrees with the plain version")
@@ -1052,8 +1077,8 @@ def check_ell(torch, ops, ref, F, idx, valid, emb, label, iters=20):
         "library_ms": time_ms(torch, lambda: F.embedding_bag(
             flat, emb, offsets, mode="mean"), iters),
         "bound_ms": b_ms, "bound_by": b_by,
-        "path": "row-split" if ellmean.row_split(n, l, emb.device)
-                else "warp-per-row",
+        "path": ellmean.path_of(n, l, emb.device),
+        "units": ellmean.units(emb, got),  # (elements a load, units a lane)
     }
     ratios(rec)
     log(f"ell_mean {label}: {rec}")
@@ -2425,11 +2450,14 @@ def offline_phase(torch, np, counters):
 
 
 def propagation_shapes(torch, np, ops, ref, F, sp):
-    """The ELL mean at two of the k-core row's propagation calls on the
-    split ``sp`` (``core/propagation.py``: one shell's ELL rows of the train
-    graph against the (n + 1, dim) table; each call's shape is one shell's):
-    the largest shell, and the largest shell that takes the row-split path.
-    The table is seeded noise at the table's width."""
+    """The ELL mean at the k-core row's propagation calls on the split
+    ``sp`` (``core/propagation.py``: one shell's ELL rows of the train graph
+    against the (n + 1, dim) table; each call's shape is one shell's). Every
+    shell's call is held to the plain version (``TOL_ELL``) and to its own
+    bits on a second call; the two largest shells on the warp-per-row path
+    (2 and 3 of the quick github row) and the largest on the row-split path
+    are timed as well (``check_ell``, then ``shell_timings``). The table is
+    seeded noise at the table's width."""
     from repro_torch.core import kcore
     from repro_torch.core.propagation import propagation_schedule
     from repro_torch.graph import datasets
@@ -2451,21 +2479,76 @@ def propagation_shapes(torch, np, ops, ref, F, sp):
     log(f"propagation (k0 {k0}, L {width}, dim {s.dim}): shells (N, k) "
         f"{shells}; row-split path for k in "
         f"{sorted(k for k, r in paths.items() if r)}")
-    picks = [max(shells)]
-    split_shells = [x for x in shells if paths[x[1]]]
-    if split_shells:
-        picks.append(max(split_shells))
+    picks = {k for _, k in
+             sorted((x for x in shells if not paths[x[1]]), reverse=True)[:2]
+             + sorted((x for x in shells if paths[x[1]]), reverse=True)[:1]}
     gen = torch.Generator(device="cuda").manual_seed(17)
     table = torch.randn((g.n_nodes + 1, s.dim), generator=gen, device="cuda")
-    recs = []
-    for _, k in picks:
+    recs, errs = [], {}
+    for _, k in shells:
         rows = np.where(core == k)[0]
         idx = torch.tensor(nbr[rows], device="cuda")
         valid = torch.tensor((nbr[rows] != g.n_nodes)
                              & (core_ext[nbr[rows]] >= k), device="cuda")
-        recs.append(check_ell(torch, ops, ref, F, idx, valid, table,
-                              f"propagation shell {k}"))
+        label = f"propagation shell {k}"
+        if k in picks:
+            recs.append(check_ell(torch, ops, ref, F, idx, valid, table,
+                                  label))
+            errs[k] = recs[-1]["max_abs_err"]
+            more = shell_timings(torch, ops, F, idx, valid, table)
+            log(f"ell_mean {label} ({recs[-1]['path']}): {json.dumps(more)}")
+            recs[-1].update(more)
+        else:
+            errs[k] = hold_ell(torch, ops, ref, idx, valid, table, label)[2]
+    log(f"propagation: every shell held (TOL_ELL), max abs err by shell "
+        f"{errs}")
     return recs
+
+
+def shell_timings(torch, ops, F, idx, valid, emb, iters=20):
+    """One propagation call's times beside ``check_ell``'s warm ones (the
+    same inputs again, as the Jacobi loop calls them): ``cold_ms``, rotated
+    through copies of (idx, valid, table) that stream more than twice the
+    L2; ``embedding_bag`` packed beforehand, cold (``library_cold_ms``),
+    and with its packing (``idx[valid]``, the offsets) inside the timed
+    call, warm and cold (``library_packing_*``: CUDA events around a loop
+    of calls, as the packing waits for the device and the host's time is
+    then part of the call's); and the kernel at the shell's own width, the
+    columns up to the last that holds a valid entry (``own_width``)."""
+    def kern(i, v, e):
+        ops.ell_mean(i, v, e, impl="cuda")
+
+    def bag(flat, offsets, e):
+        F.embedding_bag(flat, e, offsets, mode="mean")
+
+    def packing(i, v, e):
+        bag(*bag_inputs(torch, i, v), e)
+
+    def copies(i, v):
+        return rotation(torch, lambda: (i.clone(), v.clone(), emb.clone()),
+                        i.nbytes + v.nbytes + emb.nbytes)
+
+    sets = copies(idx, valid)
+    packed = [(*bag_inputs(torch, i, v), e) for i, v, e in sets]
+    cols = valid.any(0).nonzero()
+    own = int(cols.max()) + 1 if cols.numel() else 1
+    ni, nv = idx[:, :own].contiguous(), valid[:, :own].contiguous()
+    own_sets = copies(ni, nv)
+    out = {
+        "copies": len(sets),
+        "cold_ms": time_rotating(torch, kern, sets, iters),
+        "library_cold_ms": time_rotating(torch, bag, packed, iters),
+        "library_packing_ms": loop_ms(torch, lambda: packing(idx, valid, emb),
+                                      iters),
+        "library_packing_cold_ms": time_rotating(torch, packing, sets, iters,
+                                                 loop_ms),
+        "own_width": {"L": own,
+                      "ms": time_ms(torch, lambda: kern(ni, nv, emb), iters),
+                      "cold_ms": time_rotating(torch, kern, own_sets,
+                                               iters)},
+    }
+    del sets, packed, own_sets
+    return out
 
 
 def step_profile(torch, sp):

@@ -75,12 +75,15 @@ def reckoning() -> bool:
 
 def ell_mean(idx: torch.Tensor, valid: torch.Tensor,
              emb: torch.Tensor) -> Tuple[float, float]:
-    """The valid rows of ``emb`` read, idx and valid read (5 bytes a slot),
-    the (N, D) output written; an add per valid element."""
+    """What the inputs need: ``valid`` read whole (a byte a slot), ``idx``
+    at the valid slots only (4 bytes each), each distinct gathered row of
+    ``emb`` once, the (N, D) output written once; an add per valid
+    element."""
     n, l = idx.shape
     d, es = emb.shape[1], emb.element_size()
     cnt = int(valid.sum())
-    return cnt * d * es + n * l * 5 + n * d * es, cnt * d
+    rows = int(torch.unique(idx[valid]).numel())
+    return n * l + 4 * cnt + rows * d * es + n * d * es, cnt * d
 
 
 def _probes(values, valid, est) -> int:

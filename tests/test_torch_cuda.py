@@ -148,6 +148,134 @@ def test_ell_mean_path_threshold(cuda):
             _ell_holds(*_sparse_ell(cuda, n, l, 5000, d, dtype, n + l))
 
 
+def _slot_order(idx, valid, emb, split):
+    """The kernel's own summation order in PyTorch, for rows of at most
+    2,048 slots (one pass): the warp-per-row kernel adds each column's
+    valid entries in slot order from 0; the row-split kernel deals entry e
+    to warp e % 8, each warp adds its entries in order, and the 8 partial
+    sums are added in warp order. fp32 adds and one division, as the kernel
+    does them, so its bits."""
+    assert idx.shape[1] <= 2048
+    order = torch.argsort((~valid).int(), dim=1, stable=True)
+    packed = idx.gather(1, order).long()
+    cnt = valid.sum(1)
+    e32 = emb.float()
+    parts = torch.zeros((8 if split else 1, idx.shape[0], emb.shape[1]),
+                        device=emb.device)
+    for k in range(int(cnt.max()) if cnt.numel() else 0):
+        live = (k < cnt)[:, None]
+        row = torch.where(live, e32[packed[:, k]], 0.0)
+        parts[k % 8 if split else 0] += row
+    acc = torch.zeros_like(parts[0])
+    for part in parts:
+        acc += part
+    return (acc / cnt.clamp_min(1)[:, None].float()).to(emb.dtype)
+
+
+PATHS = ellmean.PATHS  # a warp per row; a block per row, either scan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(2, torch.float32), (6, torch.float32),
+                                     (150, torch.float32),
+                                     (300, torch.float32),
+                                     (8, torch.bfloat16),
+                                     (150, torch.bfloat16)])
+@pytest.mark.parametrize("path", PATHS)
+def test_ell_mean_loads_on_both_paths(cuda, d, dtype, path):
+    """Each load width (``ellmean.units``: the library's choice, equal to
+    ``lane_plan``'s) on each path and scan, forced: 600 rows of L = 1,082 at about 2
+    valid a row (a propagation shell's), an empty row and a full one. The
+    plain version within the tolerance, the path's own summation order
+    (``_slot_order``) bit for bit, the same bits on a second call, one
+    launch on the path's count."""
+    rng = np.random.default_rng(d)
+    n, l, m = 600, 1082, 5000
+    valid = rng.random((n, l)) < 2 / l
+    valid[0], valid[2] = False, True
+    idx, valid, emb = _on(cuda, rng.integers(0, m, (n, l)).astype(np.int32),
+                          valid,
+                          rng.standard_normal((m, d)).astype(np.float32))
+    emb = emb.to(dtype)
+    out = torch.empty((n, d), dtype=dtype, device=cuda)
+    assert ellmean.units(emb, out) == ellmean.lane_plan(
+        d, emb.element_size(), emb.data_ptr(), out.data_ptr())
+    split = path != "warp-per-row"
+    count = "split_launches" if split else "warp_launches"
+    before = getattr(ellmean, count)
+    got = ellmean.ell_mean_cuda(idx, valid, emb, path=path)
+    assert getattr(ellmean, count) == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    want = ref.ell_mean_ref(idx, valid, emb)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, _slot_order(idx, valid, emb, split))
+    assert torch.equal(ellmean.ell_mean_cuda(idx, valid, emb, path=path), got)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+def test_ell_mean_many_sparse_rows(cuda):
+    """The many-rows path at the propagation's shell 2 density: 3,000 rows
+    of L = 1,082 with about 2 valid a row, D = 150 fp32 (600-byte rows: 8
+    bytes a load, 3 units a lane, one pass over the slots)."""
+    rng = np.random.default_rng(2)
+    n, l, m, d = 3000, 1082, 37701, 150
+    assert not ellmean.row_split(n, l, cuda)
+    cols = np.argsort(rng.random((n, l)), axis=1)[:, :4]
+    valid = np.zeros((n, l), bool)
+    np.put_along_axis(valid, cols, rng.random((n, 4)) < 0.53, axis=1)
+    idx, valid, emb = _on(cuda, rng.integers(0, m, (n, l)).astype(np.int32),
+                          valid,
+                          rng.standard_normal((m, d)).astype(np.float32))
+    assert ellmean.units(emb, emb) == (2, 3)
+    got = _ell_holds(idx, valid, emb)
+    assert torch.equal(got, _slot_order(idx, valid, emb, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,shift,plan", [(150, 150, (2, 3)),
+                                          (150, 1, (1, 8)),
+                                          (128, 1, (1, 4)),
+                                          (128, 2, (2, 2)),
+                                          (128, 128, (4, 1))])
+@pytest.mark.parametrize("path", PATHS)
+def test_ell_mean_emb_views_off_their_alignment(cuda, d, shift, plan, path):
+    """``emb`` as a contiguous view ``shift`` elements into its storage (a
+    whole row, or part of one): the load narrows to what the address
+    allows, and the result is the plain version's and the aligned copy's
+    bits."""
+    rng = np.random.default_rng(d + shift)
+    n, l, m = 300, 1082, 4000
+    flat = torch.from_numpy(rng.standard_normal(m * d + shift).astype(
+        np.float32)).to(cuda)
+    emb = flat[shift:].view(m, d)
+    assert emb.is_contiguous() and emb.storage_offset() == shift
+    valid = rng.random((n, l)) < 3 / l
+    valid[1] = True
+    idx, valid = _on(cuda, rng.integers(0, m, (n, l)).astype(np.int32),
+                     valid)
+    out = torch.empty((n, d), device=cuda)
+    assert ellmean.units(emb, out) == plan
+    got = ellmean.ell_mean_cuda(idx, valid, emb, path=path)
+    torch.testing.assert_close(got, ref.ell_mean_ref(idx, valid, emb),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ellmean.ell_mean_cuda(idx, valid, emb.clone(),
+                                                  path=path))
+    assert torch.equal(got, ellmean.ell_mean_cuda(idx, valid, emb, path=path))
+
+
+@pytest.mark.cuda
+def test_ell_mean_rule_is_the_source_s(cuda):
+    """The library's path rule and ``ellmean.path_rule`` agree on both
+    sides of each edge, at this card's SM count."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in (1, 64, 148, 149, 922, 8 * sms - 8, 8 * sms - 7, 8 * sms,
+              10474, 1 << 18):
+        for l in (1, 32, 255, 256, 1082, 1766):
+            assert ellmean.path_of(n, l, cuda) == ellmean.path_rule(
+                n, l, sms), (n, l)
+
+
 def _sgns_fp64(c, x, n, dout):
     """The SGNS loss and gradients in float64 (the plain versions'
     formulas)."""
@@ -1396,8 +1524,9 @@ def _cost_cases(dev):
     valid = torch.rand((n, l), generator=gen, device=dev) < 0.6
     emb = torch.randn((m, d), generator=gen, device=dev)
     cnt = int(valid.sum())
+    rows = len(np.unique(idx[valid].cpu().numpy()))  # distinct gathers
     out["ell_mean"] = (ellmean.ell_mean_cuda, (idx, valid, emb),
-                       (cnt * d * 4 + n * l * 5 + n * d * 4, cnt * d))
+                       (n * l + 4 * cnt + rows * d * 4 + n * d * 4, cnt * d))
     r, w = 500, 64
     values = torch.randint(0, 80, (r, w), generator=gen, device=dev,
                            dtype=torch.int32)

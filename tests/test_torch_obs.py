@@ -264,7 +264,8 @@ def test_compiled_cost_adds_the_kernels_reckoned_work():
     valid = torch.from_numpy(rng.random((6, 9)) < 0.5)
     emb = torch.from_numpy(rng.standard_normal((50, 8)).astype(np.float32))
     cnt = int(valid.sum())
-    nbytes, nops = cnt * 8 * 4 + 6 * 9 * 5 + 6 * 8 * 4, cnt * 8
+    rows = len(np.unique(idx.numpy()[valid.numpy()]))  # distinct gathers
+    nbytes, nops = 6 * 9 + 4 * cnt + rows * 8 * 4 + 6 * 8 * 4, cnt * 8
 
     with cost.tally() as outer:
         rep = tobs.compiled_cost(
